@@ -1,0 +1,269 @@
+"""EASTER training protocol (paper Alg. 1), paper-scale, in PyTorch.
+
+Counterpart of ``repro.core.protocol``. One round (C = K+1 parties,
+party 0 = active):
+  1. every party computes its local embedding E_k = h(theta_k, D_k);
+     passive parties blind: [E_k] = E_k + r_k                      (lines 2-5)
+  2. active aggregates the global embedding E = (1/C)(E_a + sum [E_k]) (l. 6)
+  3. every party predicts R_k = p(theta_k, E)                      (lines 7-10)
+  4. active computes L_k = LF(R_k, Y) and each party's loss signal (11-12)
+  5. every party updates its own model with ITS OWN loss gradient  (13-15)
+
+Gradient semantics (Alg. 1, line 14): party k's embedding net sees only
+the global embedding's dependence on E_k. One backward pass gives every
+party's paper gradient through the surrogate
+
+    E_for_k = E.detach() - E_k.detach() / C + E_k / C      (value == E)
+
+``grad_mode="joint"`` (beyond-paper) lets every loss reach every embedding
+net, through the aggregation's own backward. ``assisted_grads`` is the
+message-passing form of the same round (explicit per-party pullbacks).
+
+Only the reference's loop engine is ported: the vectorized and sharded
+engines are ROADMAP queue 1 items 8 and 14, the ring wire modes item 7,
+top-k uplink compression item 9 and in-kernel mask synthesis queue 2
+item 3; each raises ``NotImplementedError`` naming its item.
+
+The classifier runs on the card unless ``device`` says otherwise:
+``device=None`` resolves to CUDA and raises when no GPU is present. Its
+masked aggregation always runs the blind+aggregate kernel there (the
+reference's ``use_kernel=True``); CPU tensors take the kernel's plain
+version, so the reference's switch has no counterpart.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, List
+
+import torch
+
+from repro_torch.configs.base import EasterConfig
+from repro_torch.core import aggregation, blinding, losses
+from repro_torch.core.party_models import (PartyArch, decide_fn, embed_fn,
+                                           init_party)
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.optim import resolve_party_optimizers
+from repro_torch.tree import tree_leaves
+
+_ENGINE_TODO = {
+    "vectorized": "the vectorized party engine is ROADMAP.md queue 1 item 8",
+    "sharded": "the sharded party engine is ROADMAP.md queue 1 item 14",
+}
+
+
+@dataclass
+class EasterClassifier:
+    """Paper-scale EASTER system over vertically-split features."""
+    easter: EasterConfig
+    arches: List[PartyArch]             # C entries; [0] = active party
+    n_features: List[int]               # per-party vertical feature split
+    loss: str = "ce"
+    grad_mode: str = "easter"           # easter (paper) | joint (beyond)
+    # the port has the loop engine only until ROADMAP queue 1 item 8
+    engine: str = "loop"
+    fused_masks: bool = False          # in-kernel masks (not ported yet)
+    compress_frac: float = 0.0          # top-k uplink (not ported yet)
+    device: Any = None                  # None = the card
+
+    def __post_init__(self):
+        if len(self.arches) != len(self.n_features):
+            raise ValueError(f"{len(self.arches)} arches but "
+                             f"{len(self.n_features)} feature slices")
+        if self.grad_mode not in ("easter", "joint"):
+            raise ValueError(f"grad_mode {self.grad_mode!r}")
+        if self.engine in _ENGINE_TODO:
+            raise NotImplementedError(
+                f"engine={self.engine!r}: {_ENGINE_TODO[self.engine]}")
+        if self.engine != "loop":
+            raise ValueError(f"engine {self.engine!r}")
+        if self.fused_masks:
+            raise NotImplementedError(f"fused_masks=True: {kernel_ops.PRNG_TODO}")
+        if self.compress_frac > 0:
+            raise NotImplementedError(
+                "compress_frac > 0: top-k uplink compression (baselines) is "
+                "ROADMAP.md queue 1 item 9")
+        if self.easter.mask_mode in blinding.RING_MODES:
+            raise NotImplementedError(
+                f"mask_mode={self.easter.mask_mode!r}: "
+                f"{blinding.RING_WIRE_TODO}")
+        if self.easter.mask_mode != "float":
+            raise ValueError(f"mask_mode {self.easter.mask_mode!r}")
+        self.device = resolve_device(self.device)
+        self.C = len(self.arches)
+        self.K = self.C - 1
+        if self.K > 1:
+            # memoized DH ceremony, the same federation as the reference's
+            self.keys, self.seeds = blinding.cached_passive_setup(self.K, 7)
+        else:
+            self.keys, self.seeds = [], {}
+
+    # -- params ------------------------------------------------------------
+    def init_params(self, gen: torch.Generator) -> List[dict]:
+        """Per-party {"embed": ..., "decide": ...} trees on ``self.device``,
+        drawn from a CPU ``torch.Generator``; leaves require grad."""
+        params = [init_party(gen, self.arches[k], self.n_features[k],
+                             self.device) for k in range(self.C)]
+        for leaf in tree_leaves(params):
+            leaf.requires_grad_(True)
+        return params
+
+    # -- protocol steps ----------------------------------------------------
+    def masks(self, batch: int, round_idx: int = 0):
+        """Per-round (K, B, d) masks from the loop oracle."""
+        if self.K < 2 or not self.easter.enabled:
+            return None
+        r = round_idx if self.easter.fresh_masks else 0
+        shape = (batch, self.easter.d_embed)
+        return blinding.all_party_masks(self.K, self.seeds, shape, r,
+                                        self.easter.mask_mode,
+                                        device=self.device)
+
+    def local_embeds(self, params, xs) -> torch.Tensor:
+        """(C, B, d_embed) local embeddings, party order."""
+        return torch.stack([embed_fn(params[k], self.arches[k], xs[k])
+                            for k in range(self.C)])
+
+    def global_embed(self, E_all: torch.Tensor, masks) -> torch.Tensor:
+        """Masked aggregation through the blind+aggregate kernel (the
+        plain version for CPU tensors); the plain mean without masks."""
+        return aggregation.blind_and_aggregate(E_all, masks)
+
+    def _per_party_E(self, E: torch.Tensor, E_all) -> torch.Tensor:
+        """(C, B, d): the per-party view E_for_k of the global embedding."""
+        if self.grad_mode == "easter" and E_all is not None:
+            return (E.detach()[None] - E_all.detach() / self.C
+                    + E_all / self.C)
+        return E[None].expand((self.C,) + tuple(E.shape))
+
+    def _predictions_stacked(self, params, E, E_all=None) -> torch.Tensor:
+        """(C, B, n_classes) logits, party order."""
+        E_for = self._per_party_E(E, E_all)
+        return torch.stack([decide_fn(params[k], self.arches[k], E_for[k])
+                            for k in range(self.C)])
+
+    def predictions(self, params, E: torch.Tensor, E_all=None) -> List:
+        """R_k = p(theta_k, E_for_k) for every party (paper grad masking)."""
+        R = self._predictions_stacked(params, E, E_all)
+        return [R[k] for k in range(self.C)]
+
+    def forward(self, params, xs, masks=None):
+        E_all = self.local_embeds(params, xs)
+        E = self.global_embed(E_all, masks)
+        R = self.predictions(params, E, E_all)
+        return E, R
+
+    def loss_fn(self, params, xs, y, masks=None):
+        """Total (sum over parties) + per-party losses."""
+        E_all = self.local_embeds(params, xs)
+        E = self.global_embed(E_all, masks)
+        R_all = self._predictions_stacked(params, E, E_all)
+        lf = losses.LOSSES[self.loss]
+        per = torch.stack([lf(R_all[k], y) for k in range(self.C)])
+        return torch.sum(per), per
+
+    # -- assisted-gradient reference path (message passing) ----------------
+    def assisted_grads(self, params, xs, y, masks=None):
+        """Paper's explicit protocol: per-party pullbacks with active-party
+        loss assist. Returns (grads list, per-party losses)."""
+        lf = losses.LOSSES[self.loss]
+        # step 1: local embeddings, each party keeps its own graph
+        Es = [embed_fn(params[k], self.arches[k], xs[k])
+              for k in range(self.C)]
+        # step 2: active party aggregates (masks cancel)
+        with torch.no_grad():
+            E = self.global_embed(torch.stack(Es), masks)
+        grads, per_losses = [], []
+        for k in range(self.C):
+            # step 3: party k predicts from the global embedding
+            E_in = E.detach().requires_grad_(True)
+            R_k = decide_fn(params[k], self.arches[k], E_in)
+            # step 4: ACTIVE party computes the loss signal dL_k/dR_k
+            L_k = lf(R_k, y)
+            (gR_k,) = torch.autograd.grad(L_k, R_k, retain_graph=True)
+            # step 5: party k backprops its decision net; receives dL_k/dE
+            dec_leaves = tree_leaves(params[k]["decide"])
+            *g_dec, gE = torch.autograd.grad(R_k, dec_leaves + [E_in],
+                                             grad_outputs=gR_k)
+            # step 6: embedding-net grad via dE/dE_k = 1/C (mean aggregation)
+            g_emb = torch.autograd.grad(Es[k], tree_leaves(params[k]["embed"]),
+                                        grad_outputs=gE / self.C)
+            grads.append({"embed": _unflatten(params[k]["embed"], g_emb),
+                          "decide": _unflatten(params[k]["decide"], g_dec)})
+            per_losses.append(L_k.detach())
+        return grads, torch.stack(per_losses)
+
+    # -- training ----------------------------------------------------------
+    def make_train_step(self, optimizer_name: str, lr: float, *,
+                        party_optimizers=None, **opt_kw):
+        """(init_opt, step) for one protocol round + update.
+
+        ``party_optimizers`` (paper §IV-E): ``{party: (name, lr, hparams)}``;
+        unlisted parties use ``(optimizer_name, lr, opt_kw)``. ``step``
+        updates params and optimizer state in place and returns
+        ``(params, opt_state, total, per)`` with the losses detached."""
+        default = (optimizer_name, lr, opt_kw)
+        opts = resolve_party_optimizers(party_optimizers or {}, self.C,
+                                        default=default)
+
+        def init_opt(params):
+            return [opts[k].init(p) for k, p in enumerate(params)]
+
+        def step(params, opt_state, xs, y, masks):
+            total, per = self.loss_fn(params, xs, y, masks)
+            flat = tree_leaves(params)
+            grads = _unflatten(params, torch.autograd.grad(total, flat))
+            for k in range(self.C):
+                opts[k].update(grads[k], opt_state[k], params[k])
+            return params, opt_state, total.detach(), per.detach()
+
+        return init_opt, step
+
+    def bytes_per_round(self, batch: int) -> int:
+        """Wire bytes per training round (paper Table V accounting):
+        blinded embeddings up + global embedding down + predictions up +
+        loss signal down, float wire (4 B/elt)."""
+        d_e = self.easter.d_embed
+        n_cls = self.arches[0].n_classes
+        mode = self.easter.mask_mode
+        up_e = self.K * blinding.wire_leg_bytes(batch * d_e, mode)
+        down_e = self.K * blinding.wire_leg_bytes(batch * d_e, mode)
+        up_r = self.K * blinding.wire_leg_bytes(batch * n_cls, mode)
+        down_l = self.K * blinding.wire_leg_bytes(batch * n_cls, mode)
+        return up_e + down_e + up_r + down_l
+
+    @torch.no_grad()
+    def accuracy(self, params, xs, y) -> torch.Tensor:
+        """Per-party test accuracy (the paper's theta_1..theta_C columns).
+        Aggregates unblinded (plain mean), so it launches no kernel."""
+        E_all = self.local_embeds(params, xs)
+        E = self.global_embed(E_all, None)
+        R_all = self._predictions_stacked(params, E, E_all)
+        return torch.mean((torch.argmax(R_all, -1) == y[None]).float(),
+                          dim=-1)
+
+
+def _unflatten(like, leaves):
+    """Rebuild a tree shaped like ``like`` from ``leaves`` in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    return build(like)
+
+
+def split_features(x: torch.Tensor, C: int) -> List[torch.Tensor]:
+    """Vertical split: feature dim into C near-equal slices (paper §V-A)."""
+    F = x.shape[-1]
+    sizes = [F // C + (1 if i < F % C else 0) for i in range(C)]
+    out, off = [], 0
+    for s in sizes:
+        out.append(x[..., off:off + s])
+        off += s
+    return out

@@ -1,0 +1,26 @@
+"""Plain PyTorch versions of the port's kernels (the allclose targets, and
+what the dispatcher in ``ops`` runs for CPU tensors)."""
+from __future__ import annotations
+
+import torch
+
+
+def reference_blind_agg(E_active, E_passive, masks):
+    """E = (E_a + sum_k (E_k + r_k)) / C — materializes [E_k] like the
+    paper's wire protocol. E_active (..., d); E_passive/masks (K, ..., d)."""
+    C = 1 + E_passive.shape[0]
+    blinded = E_passive.float() + masks.float()
+    tot = E_active.float() + torch.sum(blinded, dim=0)
+    return (tot / C).to(E_active.dtype)
+
+
+def reference_blind_agg_bwd(g, K: int, ep_dtype, mk_dtype, *,
+                            need_mk: bool = True):
+    """Cotangents of ``reference_blind_agg`` for an output cotangent g
+    (N, d): dE_a = g / C in g's dtype and dE_k = dr_k = g / C for every
+    passive party, materialized as (K, N, d) in ep's and mk's dtypes; the
+    mask cotangent is None unless ``need_mk``."""
+    s = g.float() / (K + 1)
+    full = s.expand((K,) + tuple(g.shape))
+    dmk = full.to(mk_dtype).contiguous() if need_mk else None
+    return s.to(g.dtype), full.to(ep_dtype).contiguous(), dmk

@@ -1,0 +1,26 @@
+"""Minimal pytree helpers for the port's parameter trees: nested dicts,
+lists and tuples with tensors (or arrays) at the leaves, in the same
+layout as the reference's JAX pytrees."""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+
+def tree_leaves(tree) -> List[Any]:
+    """Leaves in the reference's order: dict keys sorted, sequences in
+    order (``jax.tree.leaves`` sorts dict keys the same way)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` leafwise over trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
