@@ -1,32 +1,58 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase, checked
+    python3 chip_smoke.py --phase engines    # one timing phase alone
+    python3 chip_smoke.py --phase many
 
 Phases, each printing its own lines:
 
-  build   nvcc-builds every CUDA kernel source of the port (sm_90a).
-  kernel  holds each kernel against its plain PyTorch version on the card,
-          values and autograd gradients, over party counts K up to 127,
-          odd and even (N, d), a 4-D input, float32 and bfloat16, and a
-          mask dtype that differs from the embeddings'.
+  build   nvcc-builds every CUDA kernel source of the port (sm_90a), all
+          sources at once.
+  kernel  holds blind_agg_fwd / blind_agg_bwd against their plain PyTorch
+          version on the card, values and autograd gradients, over party
+          counts K up to 127, odd and even (N, d), a 4-D input, float32 and
+          bfloat16, and a mask dtype that differs from the embeddings'.
+  prng    holds blind_agg_prng_fwd (masks made in the kernel) against its
+          plain version on the card (MaskEngine masks through
+          reference_blind_agg) over K in {2, 3, 7, 15, 63, 127}, N in
+          {100, 128}, d in {64, 100, 128}, a 4-D input, float32 and
+          bfloat16, E_k narrower than E_a (bfloat16 or float16 beside a
+          float32 E_a), mask_scale 1 and 4, rounds 0, 7 and SERVE_DOMAIN
+          + 3; also against the unmasked mean (the masks cancel) and,
+          through its autograd.Function, the backward.
   slice   the paper's Table II setting (C = 4 heterogeneous MLP parties,
           d_embed 128, batch 128, adam 1e-3, mnist_like data, fresh masks,
-          aggregation through the kernel, the classifier's default): 30
-          training rounds on the card, then per-party
-          test accuracy. Step 0 is compared with the same step on the CPU.
-  joint   one round of grad_mode="joint", whose backward runs through the
-          backward kernel; gradients compared with the CPU.
+          the classifier's defaults: vectorized engine, MaskEngine masks,
+          aggregation through blind_agg_fwd): 30 training rounds on the
+          card, then per-party test accuracy. Step 0 is compared with the
+          same step on the CPU.
+  joint   one Table II round of grad_mode="joint", whose backward runs
+          through blind_agg_bwd; gradients compared with the CPU.
+  many    the many-party benchmark's configuration (mlp_zoo, C = 64,
+          batch 128, d_embed 64, 1,024 features, adam 1e-3) on the
+          vectorized engine with fused_masks=True: 20 rounds through
+          blind_agg_prng_fwd (step 0 against the CPU port), one joint
+          round (blind_agg_bwd), then 20 rounds with fused_masks=False
+          (MaskEngine masks on the card, blind_agg_fwd) beside them, and a
+          torch.profiler window over fused rounds.
+  wires   the vectorized engine against the loop engine on the card at
+          Table II (step-0 losses and gradients), and the int32 and int8
+          ring wires at C = 64 against the CPU port (step-0 losses).
+  engines the Table II masks and train step on the vectorized and the
+          loop engine, timed in turns (vectorized, loop, loop, vectorized).
   timing  each kernel, its plain version and its bound, timed with CUDA
-          events at the slice's shape and at the many-party shape.
-  profile host-clock split of a round into masks and train step, and
-          torch.profiler device time by kernel over 5 rounds.
+          events at the slice's shape and at the many-party shapes; the
+          prng kernel's bound counts the operations its inputs need.
+  profile host-clock split of a Table II round into masks and train step,
+          and torch.profiler device time by kernel over 5 rounds.
 
-The launch counters are set to 0 just before the slice and joint rounds
-and read just after. The second-to-last line is the JSON kernel record;
-the last line is {"ok": true, "device": {...}}. Any failed check raises:
-the script then exits non-zero and prints no result. It needs a CUDA
-device and the repository's src/ beside it.
+The launch counters are set to 0 just before each counted path (slice,
+joint, many-party fused, many-party joint, many-party unfused) and read
+just after. The second-to-last line is the JSON kernel record; the last
+line is {"ok": true, "device": {...}}. Any failed check raises: the script
+then exits non-zero and prints no result. It needs a CUDA device and the
+repository's src/ beside it.
 """
 from __future__ import annotations
 
@@ -44,9 +70,30 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet peak
 FP32_FLOPS = 67e12               # H100 SXM data sheet, float32 off the tensor cores
+# the clock and lanes behind that figure (Hopper white paper): 132 SMs,
+# each with 128 FP32 and 64 INT32 lanes, at 1.98 GHz: 67 TFLOP/s = 132 x
+# 128 x 2 (an FMA) x 1.98e9; INT32 operations run at half that lane rate
+SMS, CLOCK_HZ = 132, 1.98e9
+FP32_PER_SM, INT32_PER_SM = 128, 64
+# What blind_agg_prng_fwd must compute per output element and unordered
+# pair of passive parties (the plain version, MaskEngine, draws each pair's
+# normal once and adds it to one party's mask and subtracts it from the
+# other's). INT32: one threefry2x32 under the pair's key = 2 key adds + 20
+# rounds x (add, rotate, xor) + 5 key injections x 2 adds (the injected
+# key word plus the round constant is one word per key) = 72, then x0 ^ x1
+# and the mantissa trick's shift and or = 75. FP32: the uniform (subtract,
+# multiply, add, max: 4), erfinv (x*x, log1p counted as one operation,
+# w - 2.5, 8 multiplies and 8 adds of the degree-8 polynomial, x p: 20),
+# times sqrt(2), and the pair's two signed adds into the two masks = 27.
+# Per-key work (the key schedule, the key derivation) is per pair, not per
+# element, and is left out.
+PRNG_INT32_PER_PAIR, PRNG_FP32_PER_PAIR = 75, 27
 SLICE_ROUNDS = 30
 SLICE_BATCH = 128
 D_EMBED = 128
+# the many-party benchmark (benchmarks/many_party_scaling.py defaults)
+MP_C, MP_BATCH, MP_D_EMBED, MP_FEATURES, MP_CLASSES = 64, 128, 64, 1024, 10
+MP_ROUNDS = 20
 
 
 def log(phase: str, msg: str) -> None:
@@ -79,19 +126,24 @@ def max_err(got, want, dtype):
 
 
 def phase_build():
+    """Every kernel source, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
+    names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    path = build.build("blind_agg")
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = list(pool.map(build.build, names))
     dt = time.perf_counter() - t0
-    logf = path.with_suffix(".log")
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers",
-                                       logf.read_text())] if logf.exists() else []
-    spills = (len(re.findall(r"[1-9]\d* bytes spill", logf.read_text()))
-              if logf.exists() else 0)
-    log("build", f"blind_agg.cu -> {path.name} in {dt:.1f} s "
-                 f"(nvcc sm_90a; {len(regs)} kernels, max {max(regs or [0])} "
-                 f"registers, {spills} with spills)")
-    build.load("blind_agg")
+    for name, path in zip(names, paths):
+        logf = path.with_suffix(".log")
+        text = logf.read_text() if logf.exists() else ""
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = len(re.findall(r"[1-9]\d* bytes spill", text))
+        log("build", f"{name}.cu -> {path.name} (nvcc sm_90a; {len(regs)} "
+                     f"kernels, max {max(regs or [0])} registers, {spills} "
+                     f"with spills)")
+        build.load(name)
+    log("build", f"{len(names)} sources in {dt:.1f} s, built in parallel")
 
 
 def _case(K, lead, d, dtype, mdtype, gen):
@@ -166,6 +218,110 @@ def phase_kernels():
     return worst_f32
 
 
+def _ulp(x, dtype):
+    """One ulp of ``dtype`` at each value of float32 tensor x."""
+    import torch
+    _, e = torch.frexp(x.abs().clamp_min(torch.finfo(torch.float32).tiny))
+    bits = {torch.bfloat16: 8, torch.float16: 11}.get(dtype, 24)
+    return torch.ldexp(torch.ones_like(x), e - bits)
+
+
+def _prng_case(K, lead, d, dtype, pdtype, scale, rnd, gen):
+    """One prng case, E_a (and the output) in ``dtype``, E_k in
+    ``pdtype``: (max err vs plain, tolerance at that element, max err vs
+    unmasked mean, its tolerance, backward ok)."""
+    import torch
+    from repro_torch.core import blinding
+    from repro_torch.kernels import blind_agg as tba
+    from repro_torch.kernels import ref
+    eng = blinding.cached_mask_engine(K, 7)
+    ea = torch.randn(lead + (d,), generator=gen, device="cuda").to(dtype)
+    ep = torch.randn((K,) + lead + (d,), generator=gen,
+                     device="cuda").to(pdtype)
+    ts = [t.clone().requires_grad_(True) for t in (ea, ep)]
+    ps = [t.clone().requires_grad_(True) for t in (ea, ep)]
+    out = tba.prng_blind_agg(*ts, eng, rnd, scale)
+    want = ref.reference_blind_agg_prng(*ps, eng, rnd, mask_scale=scale)
+    g = torch.randn(want.shape, generator=gen, device="cuda").to(dtype)
+    out.backward(g)
+    want.backward(g)
+    torch.cuda.synchronize()
+    mq = eng.masks(lead + (d,), rnd, "float", scale=scale,
+                   device="cuda").to(pdtype).float()
+    # summation order only: (K + 2) roundings of at most S = |E_a| +
+    # sum_k (|E_k| + |r_k|), / C, plus one ulp of the output's dtype
+    S = ea.float().abs() + (ep.float().abs() + mq.abs()).sum(0)
+    o, w = out.detach().float(), want.detach().float()
+    tol = (K + 2) * 2.0 ** -24 * S / (K + 1) + _ulp(w, dtype)
+    err = (o - w).abs()
+    # cancellation: the unmasked mean, off by the masks' own residual
+    # |sum_k r_k| (their float32 fold and the cast to E's dtype), the same
+    # rounding allowance and the output's own rounding (one ulp at the
+    # larger of the two, as the residual may move it to another binade)
+    mean = (ea.float() + ep.float().sum(0)) / (K + 1)
+    resid = mq.double().sum(0).abs().float() / (K + 1)
+    ctol = (resid + (2 * K + 2) * 2.0 ** -24 * S / (K + 1)
+            + torch.maximum(_ulp(mean, dtype), _ulp(o, dtype)))
+    cerr = (o - mean).abs()
+    gok = all(a.grad.dtype == b.grad.dtype and bool(
+        ((a.grad.float() - b.grad.float()).abs()
+         <= _ulp(b.grad.float(), b.grad.dtype) + 1e-7).all())
+        for a, b in zip(ts, ps))
+    i = int(torch.argmax(err))
+    return (float(err.max()), float(tol.flatten()[i]), bool((err <= tol).all()),
+            float(cerr.max()), float(ctol.max()), bool((cerr <= ctol).all()),
+            gok)
+
+
+def phase_prng():
+    """blind_agg_prng_fwd against its plain version on the card."""
+    import torch
+    from repro_torch.core import blinding
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    rounds = (0, 7, blinding.SERVE_DOMAIN + 3)
+    cases = []
+    for K in (2, 3, 7, 15, 63, 127):
+        for N in (100, 128):
+            for d in (64, 100, 128):
+                for dt in (f32, bf16):
+                    i = len(cases)
+                    cases.append((K, (N,), d, dt, dt,
+                                  (1.0, 4.0)[(i // 2) % 2], rounds[i % 3]))
+    cases += [(7, (2, 64), 128, f32, f32, 4.0, rounds[2]),
+              (63, (2, 64), 64, bf16, bf16, 1.0, rounds[1])]  # 4-D input
+    # E_a float32, E_k narrower: r_k rounded to E_k's dtype no longer
+    # cancels to float32 rounding, so a missing or wrong mask shows on the
+    # float32 output
+    cases += [(K, (128,), 64, f32, pdt, scale, rounds[i % 3])
+              for i, (K, pdt, scale) in enumerate(
+                  ((3, bf16, 1.0), (15, f16, 4.0), (63, bf16, 1.0),
+                   (63, f16, 4.0), (127, bf16, 4.0)))]
+    worst = {f32: [0.0, 0.0], bf16: [0.0, 0.0]}
+    failed = []
+    for K, lead, d, dt, pdt, scale, rnd in cases:
+        err, tol, ok, cerr, ctol, cok, gok = _prng_case(K, lead, d, dt, pdt,
+                                                        scale, rnd, gen)
+        if err > worst[dt][0]:
+            worst[dt] = [err, tol]
+        tag = (f"K={K} shape={lead + (d,)} {str(dt)[6:]} E_k "
+               f"{str(pdt)[6:]} scale={scale:g} round={rnd}")
+        log("prng", f"{tag}: max_abs_err {err:.3g} (tol there {tol:.3g}); "
+                    f"vs unmasked mean {cerr:.3g} (tol {ctol:.3g}); backward "
+                    f"{'ok' if gok else 'FAIL'}; "
+                    f"{'ok' if ok and cok and gok else 'FAIL'}")
+        if not (ok and cok and gok):
+            failed.append(tag)
+    if failed:
+        raise AssertionError(f"prng kernel disagrees: {failed}")
+    log("prng", f"{len(cases)} cases within tolerance ((K+2) float32 "
+                f"roundings of |E_a| + sum_k(|E_k| + |r_k|), over C, plus "
+                f"one ulp of the output's dtype); worst float32 "
+                f"{worst[f32][0]:.3g} (tol there {worst[f32][1]:.3g}), "
+                f"bfloat16 {worst[bf16][0]:.3g} (tol {worst[bf16][1]:.3g})")
+    return worst[f32][0]
+
+
 # (embedding-net widths, decision-net widths) of the paper's Table II
 # heterogeneous MLP parties, as benchmarks/harness.py::hetero_arches builds
 # them at its default depth (el_pl = (2, 1): three embedding layers, one
@@ -182,12 +338,12 @@ def table2_arches(C: int, n_cls: int, d_embed: int):
             for k in range(C)]
 
 
-def _build_slice(grad_mode, device):
+def _build_slice(grad_mode, device, **kw):
     from repro_torch.configs.base import EasterConfig
     from repro_torch.core.protocol import EasterClassifier
     return EasterClassifier(EasterConfig(num_passive=3, d_embed=D_EMBED),
                             table2_arches(4, 10, D_EMBED), [196] * 4,
-                            grad_mode=grad_mode, device=device)
+                            grad_mode=grad_mode, device=device, **kw)
 
 
 def _to(xs, y, device):
@@ -291,6 +447,266 @@ def phase_joint(batches, params0):
     if not worst <= 1.0:
         raise AssertionError("joint-mode gradients differ between card and CPU")
     return launches
+
+
+# the many-party benchmark's zoo (benchmarks/many_party_scaling.py::mlp_zoo):
+# four MLP shapes cycled, embedding widths w, one prediction layer w[-1]
+MLP_ZOO_WIDTHS = [(64, 32), (32, 16), (96, 48), (48, 24)]
+
+
+def mlp_zoo(C: int, n_cls: int, d_embed: int):
+    from repro_torch.core.party_models import PartyArch
+    return [PartyArch("mlp", MLP_ZOO_WIDTHS[k % 4],
+                      (MLP_ZOO_WIDTHS[k % 4][-1],), d_embed, n_cls)
+            for k in range(C)]
+
+
+def _build_many(device, *, fused=True, grad_mode="easter", mode="float"):
+    import torch
+    from repro_torch.configs.base import EasterConfig
+    from repro_torch.core.protocol import EasterClassifier, split_features
+    nf = [v.shape[-1] for v in split_features(torch.zeros(1, MP_FEATURES),
+                                              MP_C)]
+    return EasterClassifier(
+        EasterConfig(num_passive=MP_C - 1, d_embed=MP_D_EMBED,
+                     mask_mode=mode),
+        mlp_zoo(MP_C, MP_CLASSES, MP_D_EMBED), nf, grad_mode=grad_mode,
+        fused_masks=fused, device=device)
+
+
+def _many_data(cls):
+    """One batch of the benchmark's shape from numpy seed 0, split into
+    the parties' slices (the benchmark trains on one fixed batch)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(MP_BATCH, MP_FEATURES)).astype(np.float32)
+    y = rng.integers(0, MP_CLASSES, MP_BATCH).astype(np.int64)
+    offs = np.cumsum([0] + cls.n_features)
+    return [x[:, offs[k]:offs[k + 1]].copy() for k in range(cls.C)], y
+
+
+def _rounds(cls, params0, data, n, counter_key):
+    """n training rounds on the card: (ms per round, totals, per-party
+    losses of round 0, launches). Counters are set to 0 just before."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.kernels import blind_agg as tba
+    params = checkpoint.params_from_numpy(params0, "cuda")
+    init_opt, step = cls.make_train_step("adam", 1e-3)
+    opt = init_opt(params)
+    xs, y = _to(*data, "cuda")
+    ms, totals, per0 = [], [], None
+    torch.cuda.synchronize()
+    tba.reset_launches()
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks = cls.masks(MP_BATCH, i)
+        params, opt, total, per = step(params, opt, xs, y, masks)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if tba.LAUNCHES[counter_key] != i + 1:
+            raise AssertionError(f"round {i}: {counter_key} launches "
+                                 f"{tba.LAUNCHES[counter_key]} != {i + 1}")
+        totals.append(float(total))
+        if i == 0:
+            per0 = per.cpu()
+    return ms, totals, per0, dict(tba.LAUNCHES), (params, opt, step)
+
+
+def phase_many():
+    """The many-party slice: C = 64 mlp_zoo, fused masks, on the card."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    cpu = _build_many("cpu")
+    fused = _build_many("cuda")
+    setup_s = time.perf_counter() - t0
+    params0 = checkpoint.params_to_numpy(
+        cpu.init_params(torch.Generator().manual_seed(0)))
+    data = _many_data(cpu)
+    n_params = sum(a.size for a in tree_leaves(params0))
+    log("many", f"mlp_zoo C={MP_C} ({fused._eng.n_groups} execution groups), "
+                f"d_embed {MP_D_EMBED}, batch {MP_BATCH}, {MP_FEATURES} "
+                f"features split {sorted(set(cpu.n_features))}, adam 1e-3, "
+                f"{n_params} parameters from seed 0; classifiers built in "
+                f"{setup_s:.1f} s of host time (the DH ceremony of 63 "
+                f"passive parties is memoized: the prng phase ran it)")
+    ms, totals, per, launches, _ = _rounds(fused, params0, data, MP_ROUNDS,
+                                           "blind_agg_prng_fwd")
+    if launches["blind_agg_fwd"] != 0:
+        raise AssertionError(f"fused rounds launched blind_agg_fwd: "
+                             f"{launches}")
+    # step 0 on the CPU port: the plain version (MaskEngine masks)
+    cparams = checkpoint.params_from_numpy(params0, "cpu")
+    cinit, cstep = cpu.make_train_step("adam", 1e-3)
+    t1 = time.perf_counter()
+    _, _, _, cper = cstep(cparams, cinit(cparams), *_to(*data, "cpu"),
+                          cpu.masks(MP_BATCH, 0))
+    cpu_s = time.perf_counter() - t1
+    rel = float(((per - cper).abs() / cper.abs()).max())
+    log("many", f"step 0 per-party losses, first 4 of {MP_C}: card "
+                f"{[round(float(v), 6) for v in per[:4]]} cpu "
+                f"{[round(float(v), 6) for v in cper[:4]]}; max rel diff over "
+                f"all {MP_C} {rel:.3g} (limit 1e-4); the CPU round took "
+                f"{cpu_s:.2f} s")
+    if not rel <= 1e-4:
+        raise AssertionError("many-party step 0 differs between card and CPU")
+    if not all(math.isfinite(t) for t in totals):
+        raise AssertionError(f"non-finite loss: {totals}")
+    first, last = statistics.mean(totals[:3]), statistics.mean(totals[-3:])
+    if not last < first:
+        raise AssertionError("many-party total loss did not fall")
+    fused_ms = statistics.median(ms[5:])
+    log("many", f"fused masks: {MP_ROUNDS} rounds, total loss "
+                f"{totals[0]:.4f} -> {totals[-1]:.4f} (mean of first 3 "
+                f"{first:.4f}, last 3 {last:.4f}); ms per round (median of "
+                f"rounds 5-{MP_ROUNDS - 1}, host clock ending in "
+                f"synchronize) {fused_ms:.3f}; first round {ms[0]:.1f} ms; "
+                f"launches {launches} "
+                f"({launches['blind_agg_prng_fwd'] / MP_ROUNDS:g} "
+                f"blind_agg_prng_fwd a round)")
+    # one joint round: the backward kernel
+    joint = _build_many("cuda", grad_mode="joint")
+    _, _, _, jl, _ = _rounds(joint, params0, data, 1, "blind_agg_prng_fwd")
+    if jl["blind_agg_bwd"] != 1:
+        raise AssertionError(f"joint round launches {jl}")
+    log("many", f"1 joint round: launches {jl}")
+    # the same rounds with MaskEngine masks on the card + blind_agg_fwd
+    plain = _build_many("cuda", fused=False)
+    pms, ptot, _, pl, _ = _rounds(plain, params0, data, MP_ROUNDS,
+                                  "blind_agg_fwd")
+    unfused_ms = statistics.median(pms[5:])
+    log("many", f"unfused masks (MaskEngine on the card, host pair keys, "
+                f"then blind_agg_fwd): ms per round {unfused_ms:.3f} "
+                f"(fused {fused_ms:.3f}); total loss {ptot[0]:.4f} -> "
+                f"{ptot[-1]:.4f}; launches {pl}")
+    _profile_many(fused, params0, data)
+    return launches, jl, pl, fused_ms, unfused_ms
+
+
+def _profile_many(cls, params0, data):
+    """Device busy time and idle share over 5 fused many-party rounds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import checkpoint
+    params = checkpoint.params_from_numpy(params0, "cuda")
+    init_opt, step = cls.make_train_step("adam", 1e-3)
+    opt = init_opt(params)
+    xs, y = _to(*data, "cuda")
+    for i in range(3):
+        params, opt, _, _ = step(params, opt, xs, y, cls.masks(MP_BATCH, i))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3, 8):
+            params, opt, _, _ = step(params, opt, xs, y,
+                                     cls.masks(MP_BATCH, i))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    kern = [r for r in rows if r.device_type == DeviceType.CUDA]
+    busy_ms = sum(r.self_device_time_total for r in kern) / 1e3
+    n = sum(r.count for r in kern)
+    log("many", f"5 fused rounds under torch.profiler: wall {wall_ms:.3f} "
+                f"ms, device busy {busy_ms:.3f} ms (idle share "
+                f"{1 - busy_ms / wall_ms:.3f}), {n} kernels "
+                f"({n / 5:.0f} a round)")
+    for r in sorted(kern, key=lambda r: -r.self_device_time_total)[:6]:
+        log("many", f"  {r.key[:60]:60s} calls {r.count:5d} device "
+                    f"{r.self_device_time_total / 1e3:.3f} ms")
+
+
+def phase_wires(params0_t2, batches):
+    """Engines at Table II and ring wires at C = 64, card against CPU."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.tree import tree_leaves
+    # vectorized vs loop on the card: step-0 losses and gradients
+    res = {}
+    for engine in ("vectorized", "loop"):
+        cls = _build_slice("easter", "cuda", engine=engine)
+        p = checkpoint.params_from_numpy(params0_t2, "cuda")
+        xs, y = _to(*batches[0], "cuda")
+        tot, per = cls.loss_fn(p, xs, y, cls.masks(SLICE_BATCH, 0))
+        res[engine] = (per.detach().cpu(), [g.cpu() for g in torch.autograd.grad(
+            tot, tree_leaves(p))])
+    (pv, gv), (pl, gl) = res["vectorized"], res["loop"]
+    lrel = float(((pv - pl).abs() / pl.abs()).max())
+    gworst = max(float(((a - b).abs() / (1e-6 + 1e-5 * b.abs())).max())
+                 for a, b in zip(gv, gl))
+    log("wires", f"Table II on the card, vectorized vs loop engine: step-0 "
+                 f"losses max rel diff {lrel:.3g} (limit 1e-5), gradients "
+                 f"within atol 1e-6 + rtol 1e-5 (worst ratio {gworst:.3g})")
+    if not (lrel <= 1e-5 and gworst <= 1.0):
+        raise AssertionError("vectorized and loop engines differ on the card")
+    # ring wires at C = 64: card against the CPU port
+    cpu0 = _build_many("cpu", fused=False)
+    params0 = checkpoint.params_to_numpy(
+        cpu0.init_params(torch.Generator().manual_seed(0)))
+    data = _many_data(cpu0)
+    for mode, limit in (("int32", 1e-4), ("int8", 1e-3)):
+        out = []
+        for dev in ("cuda", "cpu"):
+            cls = _build_many(dev, fused=False, mode=mode)
+            p = checkpoint.params_from_numpy(params0, dev)
+            init_opt, step = cls.make_train_step("adam", 1e-3)
+            m = cls.masks(MP_BATCH, 0)
+            _, _, _, per = step(p, init_opt(p), *_to(*data, dev), m)
+            out.append((per.cpu(), m.cpu()))
+        rel = float(((out[0][0] - out[1][0]).abs() / out[1][0].abs()).max())
+        same = bool(torch.equal(out[0][1], out[1][1]))
+        log("wires", f"{mode} wire, C={MP_C}: {mode} masks card == CPU "
+                     f"{same}; step-0 per-party losses max rel diff {rel:.3g} "
+                     f"(limit {limit:g}; an embedding an ulp apart may land "
+                     f"one quantization step away)")
+        if not (same and rel <= limit):
+            raise AssertionError(f"{mode} wire differs between card and CPU")
+
+
+def phase_engines(batches, params0):
+    """Table II masks and train step on each engine by the host clock, in
+    turns vectorized, loop, loop, vectorized: 10 rounds a turn, median of
+    rounds 3-9. Launches here are not part of the counted paths."""
+    import torch
+    from repro_torch import checkpoint
+    data = [_to(*b, "cuda") for b in batches[:10]]
+    turns = {"vectorized": [], "loop": []}
+    for engine in ("vectorized", "loop", "loop", "vectorized"):
+        cls = _build_slice("easter", "cuda", engine=engine)
+        params = checkpoint.params_from_numpy(params0, "cuda")
+        init_opt, step = cls.make_train_step("adam", 1e-3)
+        opt = init_opt(params)
+        mask_ms, step_ms = [], []
+        for i in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            masks = cls.masks(SLICE_BATCH, i)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, opt, _, _ = step(params, opt, *data[i], masks)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if i >= 3:
+                mask_ms.append((t1 - t0) * 1e3)
+                step_ms.append((t2 - t1) * 1e3)
+        turns[engine].append((statistics.median(mask_ms),
+                              statistics.median(step_ms)))
+        log("engines", f"Table II, {engine} engine: masks "
+                       f"{turns[engine][-1][0]:.3f} ms, train step "
+                       f"{turns[engine][-1][1]:.3f} ms (median of rounds 3-9)")
+    out = {e: {"masks_ms": min(t[0] for t in v),
+               "step_ms": min(t[1] for t in v)} for e, v in turns.items()}
+    vec, loop = out["vectorized"], out["loop"]
+    log("engines", f"train step, better of two turns: vectorized "
+                   f"{vec['step_ms']:.3f} ms, loop {loop['step_ms']:.3f} ms "
+                   f"(ratio {vec['step_ms'] / loop['step_ms']:.3f}); masks: "
+                   f"MaskEngine {vec['masks_ms']:.3f} ms, loop oracle "
+                   f"{loop['masks_ms']:.3f} ms")
+    return out
 
 
 def phase_profile(batches, params0):
@@ -445,7 +861,127 @@ def phase_timing():
     return out
 
 
+def prng_bound_ms(K, N, d):
+    """(INT32 bound, FP32 bound) in ms: the least time for the K(K-1)/2
+    pair evaluations per element that the function needs at the card's
+    INT32 and FP32 lane rates."""
+    pairs = K * (K - 1) // 2 * N * d
+    lane_s = SMS * CLOCK_HZ
+    return (pairs * PRNG_INT32_PER_PAIR / (INT32_PER_SM * lane_s) * 1e3,
+            pairs * PRNG_FP32_PER_PAIR / (FP32_PER_SM * lane_s) * 1e3)
+
+
+def _wall_ms(fn, reps=5):
+    """Host clock around one call ending in synchronize, median of reps
+    (for plain versions bound by the host)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def phase_timing_prng():
+    """blind_agg_prng_fwd at (3, 128, 128), (63, 128, 64), (127, 128, 64)."""
+    import torch
+    from repro_torch.core import blinding
+    from repro_torch.kernels import blind_agg as tba
+    from repro_torch.kernels import ref
+    log("timing", f"blind_agg_prng_fwd bound: K(K-1)/2 pair evaluations "
+                  f"per element, each {PRNG_INT32_PER_PAIR} INT32 operations "
+                  f"at {INT32_PER_SM} lanes per SM a clock and "
+                  f"{PRNG_FP32_PER_PAIR} FP32 at {FP32_PER_SM}, {SMS} SMs "
+                  f"at {CLOCK_HZ / 1e9:g} GHz (data-sheet peak)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for K, N, d in ((3, 128, 128), (63, 128, 64), (127, 128, 64)):
+        eng = blinding.cached_mask_engine(K, 7)
+        tabs = tba.device_tables(eng, "cuda")
+        ea = torch.randn((N, d), generator=gen, device="cuda")
+        ep = torch.randn((K, N, d), generator=gen, device="cuda")
+        kern = lambda: tba.blind_agg_prng_fwd(ea, ep, *tabs, 11)
+        plain = lambda: ref.reference_blind_agg_prng(ea, ep, eng, 11)
+        unfused = lambda: tba.blind_agg_fwd(
+            ea, ep, eng.masks((N, d), 11, "float", device="cuda"))
+        # turns: plain, kernel, kernel, plain
+        p1 = _wall_ms(plain)
+        k1 = _time_ms(kern, reps=10)
+        k2 = _time_ms(kern, reps=10)
+        p2 = _wall_ms(plain)
+        u = _wall_ms(unfused)
+        hk = _host_ms(kern, calls=50)
+        nbytes = (1 + K) * N * d * 4 + N * d * 4 + 3 * K * max(K - 1, 1) * 4
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        int_ms, fp_ms = prng_bound_ms(K, N, d)
+        op_ms = max(int_ms, fp_ms)
+        bound = max(byte_ms, op_ms)
+        pairs = K * (K - 1) // 2 * N * d
+        out[K] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                  "unfused_ms": u, "bound_ms": bound,
+                  "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+                  "host_ms": hk, "pair_evals": pairs}
+        log("timing", f"blind_agg_prng_fwd K={K} N={N} d={d} float32: kernel "
+                      f"{k1:.4f}/{k2:.4f} ms; plain version (MaskEngine on "
+                      f"the card, host pair keys, reference_blind_agg; host "
+                      f"clock) {p1:.3f}/{p2:.3f} ms; MaskEngine + "
+                      f"blind_agg_fwd {u:.3f} ms; bound {bound:.5f} ms "
+                      f"({pairs} pair evaluations: INT32 {int_ms:.5f} ms, "
+                      f"FP32 {fp_ms:.5f} ms; bytes {byte_ms:.5f} ms), kernel "
+                      f"at {min(k1, k2) / bound:.2f}x it; no single PyTorch "
+                      f"call computes it (library_ms null); host time per "
+                      f"kernel call {hk:.4f} ms")
+    return out
+
+
 # ---------------------------------------------------------------------------
+
+
+def _table2_batches(n):
+    from repro_torch.data import batch_iterator, make_dataset, vertical_partition
+    ds = make_dataset("mnist_like")
+    ds.x_test_parts = vertical_partition(ds.x_test, 4, ds.image_hw)
+    it = batch_iterator(ds.x_train, ds.y_train, SLICE_BATCH, seed=0)
+    batches = []
+    for _ in range(n):
+        xb, yb = next(it)
+        batches.append((vertical_partition(xb, 4, ds.image_hw), yb))
+    return ds, batches
+
+
+def run_phase(name: str) -> int:
+    """One timing phase alone (after the build), for comparing two
+    checkouts in turns: ``engines`` (the Table II train step on both
+    engines) or ``many`` (three times 20 fused many-party rounds). Prints
+    its numbers as one JSON line; checks nothing else."""
+    import torch
+    from repro_torch import checkpoint
+    phase_build()
+    if name == "engines":
+        _, batches = _table2_batches(10)
+        params0 = checkpoint.params_to_numpy(_build_slice(
+            "easter", "cpu").init_params(torch.Generator().manual_seed(0)))
+        res = phase_engines(batches, params0)
+    elif name == "many":
+        cpu, fused = _build_many("cpu"), _build_many("cuda")
+        params0 = checkpoint.params_to_numpy(
+            cpu.init_params(torch.Generator().manual_seed(0)))
+        data = _many_data(cpu)
+        res = {"fused_ms": []}
+        for _ in range(3):
+            ms = _rounds(fused, params0, data, MP_ROUNDS,
+                         "blind_agg_prng_fwd")[0]
+            res["fused_ms"].append(statistics.median(ms[5:]))
+        log("many", f"fused ms per round (median of rounds 5-"
+                    f"{MP_ROUNDS - 1}), three times: {res['fused_ms']}")
+    else:
+        raise ValueError(f"unknown phase {name!r}")
+    print(json.dumps({"phase": name, **res}))
+    return 0
 
 
 def main() -> int:
@@ -461,11 +997,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch import checkpoint
-    from repro_torch.data import batch_iterator, make_dataset, vertical_partition
     from repro_torch.tree import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--phase"]:
+        return run_phase(sys.argv[2])
     log("setup", f"torch {torch.__version__} cuda {torch.version.cuda} on "
                  f"{torch.cuda.get_device_name(0)}; "
                  f"torch.backends.cuda.matmul.allow_tf32="
@@ -475,14 +1012,9 @@ def main() -> int:
 
     phase_build()
     worst_f32 = phase_kernels()
+    worst_f32["blind_agg_prng_fwd"] = phase_prng()
 
-    ds = make_dataset("mnist_like")
-    ds.x_test_parts = vertical_partition(ds.x_test, 4, ds.image_hw)
-    it = batch_iterator(ds.x_train, ds.y_train, SLICE_BATCH, seed=0)
-    batches = []
-    for _ in range(SLICE_ROUNDS):
-        xb, yb = next(it)
-        batches.append((vertical_partition(xb, 4, ds.image_hw), yb))
+    ds, batches = _table2_batches(SLICE_ROUNDS)
     table2 = _build_slice("easter", "cpu")
     params0 = checkpoint.params_to_numpy(
         table2.init_params(torch.Generator().manual_seed(0)))
@@ -491,36 +1023,60 @@ def main() -> int:
                  f"{[a.hidden for a in table2.arches]}, d_embed {D_EMBED}, "
                  f"batch {SLICE_BATCH}, adam 1e-3, mnist_like split into "
                  f"4 strips of 28x7; {n_params} parameters, random from "
-                 f"seed 0")
+                 f"seed 0; {table2.engine} engine")
 
     slice_launches, ms_round = phase_slice(ds, batches, params0)
     joint_launches = phase_joint(batches, params0)
+    many_launches, many_joint, many_unfused, fused_ms, unfused_ms = \
+        phase_many()
+    phase_wires(params0, batches)
+    engines = phase_engines(batches, params0)
     timing = phase_timing()
+    timing_prng = phase_timing_prng()
     phase_profile(batches, params0)
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
     if bad:
         raise AssertionError(f"the port imported {bad[:5]}")
 
-    launches = {"blind_agg_fwd": slice_launches["blind_agg_fwd"]
-                + joint_launches["blind_agg_fwd"],
-                "blind_agg_bwd": slice_launches["blind_agg_bwd"]
-                + joint_launches["blind_agg_bwd"]}
-    src = "src/repro_torch/kernels/csrc/blind_agg.cu"
+    paths = (slice_launches, joint_launches, many_launches, many_joint,
+             many_unfused)
+    launches = {name: sum(p[name] for p in paths)
+                for name in ("blind_agg_fwd", "blind_agg_bwd",
+                             "blind_agg_prng_fwd")}
+    log("launches", f"main paths {launches} (Table II slice "
+                    f"{slice_launches}, Table II joint {joint_launches}, "
+                    f"many-party fused {many_launches}, many-party joint "
+                    f"{many_joint}, many-party unfused {many_unfused})")
+    csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"blind_agg_fwd": "src/repro/kernels/blind_agg.py:38",
-                "blind_agg_bwd": "src/repro/kernels/blind_agg.py:57"}
+                "blind_agg_bwd": "src/repro/kernels/blind_agg.py:57",
+                "blind_agg_prng_fwd": "src/repro/kernels/blind_agg.py:164"}
     kernels = []
     for name in ("blind_agg_fwd", "blind_agg_bwd"):
         t = timing["slice"][name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
+            "name": name, "route": "cuda", "source": csrc + "blind_agg.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": worst_f32[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": None})
+    t = timing_prng[MP_C - 1]
+    kernels.append({
+        "name": "blind_agg_prng_fwd", "route": "cuda",
+        "source": csrc + "blind_agg_prng.cu",
+        "replaces": replaces["blind_agg_prng_fwd"],
+        "launches": launches["blind_agg_prng_fwd"],
+        "max_abs_err": worst_f32["blind_agg_prng_fwd"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels, "slice_ms_per_round": ms_round,
-                      "many_party": timing["many_party"]}))
+                      "table2_engines": engines,
+                      "many_party_ms_per_round": {"fused": fused_ms,
+                                                  "unfused": unfused_ms},
+                      "many_party": timing["many_party"],
+                      "prng": {str(k): v for k, v in timing_prng.items()}}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -1,16 +1,20 @@
-"""Secure embedding aggregation (paper §IV-C, Eq. 7), float wire.
+"""Secure embedding aggregation (paper §IV-C, Eq. 7).
 
 The active party receives blinded embeddings [E_k] = E_k + r_k from the K
 passive parties and averages them with its own E_a:
 
     E = (E_a + sum_k [E_k]) / C,   sum_k r_k == 0  =>  E == plain mean.
 
-The masked aggregation always goes through ``kernels.ops.blind_agg``, which
-picks by device: the CUDA blind+aggregate kernel for tensors on the card,
-its plain version for CPU tensors. The reference's ``use_kernel`` switch
-has no counterpart here; it only kept Pallas interpret mode off the TPU.
+The masked float aggregation always goes through ``kernels.ops.blind_agg``
+(or ``blind_agg_prng`` when the masks are made in the kernel), which picks
+by device: the CUDA kernel for tensors on the card, its plain version for
+CPU tensors. The reference's ``use_kernel`` switch has no counterpart
+here; it only kept Pallas interpret mode off the TPU.
+
 The ring wire modes (``aggregate_int32``, ``aggregate_int8``,
-``aggregate_ring``) are ROADMAP queue 1 item 7.
+``aggregate_ring``) are integer sums and stay torch ops. ``torch.sum``
+of an int32 or int8 tensor returns int64, so every ring sum is cast back
+to the ring's width, which truncates: the wrapped word, on CPU and CUDA.
 """
 from __future__ import annotations
 
@@ -50,6 +54,68 @@ def blind_and_aggregate(E_all: torch.Tensor,
 
 def blind_and_aggregate_fused(E_all: torch.Tensor, engine, round_idx, *,
                               mask_scale: float = 1.0) -> torch.Tensor:
-    """Blind + aggregate with in-kernel mask synthesis: waits for the port
-    of ``_prng_fwd_kernel``."""
-    raise NotImplementedError(kernel_ops.PRNG_TODO)
+    """Blind + aggregate with in-kernel mask synthesis (float mode): on
+    the card no (K, ...) mask tensor exists; CPU tensors take the plain
+    version (MaskEngine masks through ``reference_blind_agg``)."""
+    return kernel_ops.blind_agg_prng(E_all[0], E_all[1:], engine, round_idx,
+                                     mask_scale=mask_scale)
+
+
+def aggregate_int32_blinded(q_uplink: torch.Tensor) -> torch.Tensor:
+    """Ring-mode aggregate from an already-blinded (C, ...) int32 stack."""
+    C = q_uplink.shape[0]
+    s = torch.sum(q_uplink, dim=0).to(torch.int32)
+    return blinding.dequantize(s) / C
+
+
+def aggregate_int32(E_all: torch.Tensor,
+                    masks_i32: torch.Tensor) -> torch.Tensor:
+    """Ring-exact fixed-point secure aggregation. E_all (C, ...) float;
+    masks_i32 (K, ...) int32 with ring-sum zero. Returns the float mean;
+    quantization error <= C / (2 * FIXED_POINT_SCALE)."""
+    C = E_all.shape[0]
+    up = blinding.blind_uplink(E_all[1:], masks_i32, "int32")
+    s = (blinding.quantize(E_all[0]) + torch.sum(up, dim=0)).to(torch.int32)
+    return blinding.dequantize(s) / C
+
+
+def aggregate_int8_blinded(q_uplink: torch.Tensor, scale) -> torch.Tensor:
+    """Narrow-ring aggregate from an already-blinded (C, ...) int8 stack
+    quantized under ``scale``: the sum is wrapped back to int8, where by
+    the ring_scale headroom the true C-party sum lies."""
+    C = q_uplink.shape[0]
+    s = torch.sum(q_uplink, dim=0).to(torch.int8)
+    return blinding.dequantize(s, scale) / C
+
+
+def aggregate_int8(E_all: torch.Tensor, masks_i8: torch.Tensor,
+                   scale=None) -> torch.Tensor:
+    """Ring-exact int8 secure aggregation. ``scale`` defaults to the
+    per-round dynamic scale from max |E_all| (an exact float max, so every
+    engine derives the same scalar)."""
+    C = E_all.shape[0]
+    if scale is None:
+        scale = blinding.ring_scale(torch.max(torch.abs(E_all)), C, "int8")
+    up = blinding.blind_uplink(E_all[1:], masks_i8, "int8", scale)
+    q_a = blinding.quantize_ring(E_all[0], "int8", scale)
+    return aggregate_int8_blinded(torch.cat([q_a[None], up], dim=0), scale)
+
+
+def aggregate_ring(E_all: torch.Tensor, masks: torch.Tensor, mode: str,
+                   scale=None) -> torch.Tensor:
+    """One entry point for every Z_2^w wire mode."""
+    if mode == "int32":
+        return aggregate_int32(E_all, masks)
+    if mode != "int8":
+        raise ValueError(f"ring mode {mode!r}")
+    return aggregate_int8(E_all, masks, scale)
+
+
+def aggregate_ring_blinded(q_uplink: torch.Tensor, mode: str,
+                           scale=None) -> torch.Tensor:
+    """``aggregate_ring`` from an already-blinded (C, ...) stack."""
+    if mode == "int32":
+        return aggregate_int32_blinded(q_uplink)
+    if mode != "int8":
+        raise ValueError(f"ring mode {mode!r}")
+    return aggregate_int8_blinded(q_uplink, scale)

@@ -21,9 +21,11 @@ of a value near 4 (7.2e-7 measured; the tests hold them to 1e-6).
 uint32 arithmetic is carried in int64 tensors masked with ``& 0xFFFFFFFF``:
 torch's uint32 support covers too few operators.
 
-Only the float wire is ported in this package so far. The ring wire modes
-(int32, int8 quantized uplink and aggregation) are ROADMAP queue 1 item 7;
-their entry points raise ``NotImplementedError`` naming it.
+The ring wire modes follow the reference bit for bit: int32 masks are
+``jax.random.randint(key, shape, int32.min, int32.max, int32)`` (see
+``randint_int32``), int8 masks the low byte of ``bits``; embeddings are
+quantized onto Z_2^32 at the static 2^16 scale or onto Z_2^8 at the
+per-round dynamic scale, and every ring sum wraps, never clamps.
 """
 from __future__ import annotations
 
@@ -51,10 +53,6 @@ P_HEX = (
     "3995497CEA956AE515D2261898FA051015728E5A8AACAA68FFFFFFFFFFFFFFFF")
 PRIME = int(P_HEX, 16)
 GENERATOR = 2
-
-RING_WIRE_TODO = ("the ring wire modes (int32/int8) are not ported yet: "
-                  "ROADMAP.md queue 1 item 7")
-
 
 @dataclass(frozen=True)
 class KeyPair:
@@ -228,16 +226,41 @@ def bits_to_int8(bits: torch.Tensor) -> torch.Tensor:
     return (((bits & 0xFF) ^ 0x80) - 0x80).to(torch.int8)
 
 
+# int32.max - int32.min as uint32: the span of the reference's int32 masks
+_I32_SPAN = 0xFFFFFFFF
+
+
+def randint_int32(keys, n: int, device) -> torch.Tensor:
+    """``jax.random.randint(key, (n,), int32.min, int32.max, int32)``
+    under partitionable threefry, bit for bit (jax/_src/random.py
+    ``_randint``). jax splits the key in two (``split`` is threefry of the
+    counters (0, 0) and (0, 1)), draws 32 bits ``hi`` and ``lo`` from the
+    halves and returns int32.min + ((hi % span) * m + lo % span) % span,
+    with span = 2^32 - 1 and m = (2^16 % span)^2 % span taken in uint32:
+    65536 * 65536 wraps to 0, so m = 0 and only ``lo`` enters. ``keys`` as
+    for ``random_bits``."""
+    single = isinstance(keys[0], (int, np.integer))
+    pairs = [keys] if single else list(keys)
+    k_lo = [threefry2x32(k1, k2, 0, 1) for k1, k2 in pairs]
+    off = random_bits(k_lo, n, device) % _I32_SPAN
+    out = (off - (1 << 31)).to(torch.int32)
+    return out[0] if single else out
+
+
 def _pair_key(hi, lo, round_idx: int) -> Tuple[int, int]:
     return fold_in(fold_in(prng_key(int(hi)), int(lo)), int(round_idx))
 
 
-def _bits_to_mask(bits: torch.Tensor, mode: str) -> torch.Tensor:
-    if mode == "float":
-        return bits_to_normal(bits)
+def _draw(keys, n: int, mode: str, device) -> torch.Tensor:
+    """Masks of ``n`` elements for one key (n,) or a list of keys (P, n)."""
+    if mode == "int32":
+        return randint_int32(keys, n, device)
+    bits = random_bits(keys, n, device)
     if mode == "int8":
         return bits_to_int8(bits)
-    raise NotImplementedError(f"{mode!r} masks: {RING_WIRE_TODO}")
+    if mode == "float":
+        return bits_to_normal(bits)
+    raise ValueError(f"mask mode {mode!r}")
 
 
 def _mask_from_words(hi, lo, round_idx, mshape, mode: str,
@@ -257,8 +280,7 @@ def _mask_from_words(hi, lo, round_idx, mshape, mode: str,
         return torch.stack([_mask_from_words(hi, lo, r, mshape[1:], mode,
                                              device) for r in round_idx])
     n = math.prod(mshape)
-    bits = random_bits(_pair_key(hi, lo, round_idx), n, device)
-    return _bits_to_mask(bits, mode).reshape(mshape)
+    return _draw(_pair_key(hi, lo, round_idx), n, mode, device).reshape(mshape)
 
 
 def pair_mask(seed: int, shape, round_idx=0, mode: str = "float",
@@ -362,7 +384,7 @@ class MaskEngine:
                             device=device)
         if words:
             keys = [_pair_key(h, l, round_idx) for h, l in words]
-            pm = _bits_to_mask(random_bits(keys, n, device), mode)
+            pm = _draw(keys, n, mode, device)
             idx = torch.tensor([[row[(int(h), int(l))] for h, l in
                                  zip(self.seed_hi[k, :K - 1],
                                      self.seed_lo[k, :K - 1])]
@@ -386,23 +408,84 @@ class MaskEngine:
 @dataclass(frozen=True)
 class FusedMasks:
     """Marker standing in for a materialized (K, *shape) mask tensor: the
-    masks are to be made inside the fused PRNG kernel (not ported yet)."""
+    masks are made inside the fused blind+aggregate kernel
+    (``kernels.ops.blind_agg_prng``) from the round and the MaskEngine's
+    seed tables."""
     round_idx: int
 
 
 # ---------------------------------------------------------------------------
-# the float wire format + byte accounting
+# fixed-point quantization for the ring wire modes
+# ---------------------------------------------------------------------------
+
+FIXED_POINT_SCALE = 2 ** 16
+# int8 dynamic scale: keep |sum_C round(x_i * scale)| <= 127 so the true
+# aggregate of C quantized embeddings fits one ring element (per-party
+# rounding adds <= 0.5 each, hence the 0.5*C headroom taken off 127).
+INT8_LIMIT = 127.0
+
+
+def quantize(x: torch.Tensor, scale: int = FIXED_POINT_SCALE) -> torch.Tensor:
+    """Fixed point on Z_2^32. Exact for |x| * scale < 2^31 (|x| < 32768 at
+    the static scale): out-of-range float -> int32 conversion differs
+    between the CPU and CUDA."""
+    return torch.round(x.float() * scale).to(torch.int32)
+
+
+def ring_scale(amax, C: int, mode: str) -> torch.Tensor:
+    """Quantization scale of a ring mode: the static 2^16 for int32; for
+    int8 the per-round (127 - 0.5*C) / (C * amax), amax = max |E| over
+    every party, detached like the reference's ``stop_gradient``."""
+    if mode == "int32":
+        dev = amax.device if isinstance(amax, torch.Tensor) else None
+        return torch.tensor(float(FIXED_POINT_SCALE), dtype=torch.float32,
+                            device=dev)
+    if mode != "int8":
+        raise ValueError(f"ring mode {mode!r}")
+    if not C < 2 * INT8_LIMIT:
+        raise ValueError(f"C={C} leaves no int8 headroom")
+    amax = torch.as_tensor(amax, dtype=torch.float32).detach()
+    # a 0-d tensor numerator: torch evaluates python-scalar / tensor as
+    # reciprocal * scalar, which rounds differently from XLA's divide
+    num = torch.tensor(INT8_LIMIT - 0.5 * C, dtype=torch.float32,
+                       device=amax.device)
+    return num / (C * torch.clamp_min(amax, 1e-6))
+
+
+def quantize_ring(x: torch.Tensor, mode: str, scale=None) -> torch.Tensor:
+    """Quantize onto the mode's ring. int8 goes float -> int32 -> int8, so
+    an out-of-range value wraps mod 256 (the int cast truncates bits)
+    instead of clamping, which would break ring cancellation."""
+    if mode == "int32":
+        return quantize(x)
+    if mode != "int8":
+        raise ValueError(f"ring mode {mode!r}")
+    if scale is None:
+        raise ValueError("int8 quantization needs the per-round scale")
+    return torch.round(x.float() * scale).to(torch.int32).to(torch.int8)
+
+
+def dequantize(x: torch.Tensor, scale=FIXED_POINT_SCALE) -> torch.Tensor:
+    """Inverse of ``quantize``/``quantize_ring`` (elementwise)."""
+    return x.float() / scale
+
+
+# ---------------------------------------------------------------------------
+# the wire format + byte accounting + int8 word packing
 # ---------------------------------------------------------------------------
 
 
 def blind_uplink(E: torch.Tensor, masks, mask_mode: str,
                  scale=None) -> torch.Tensor:
     """The wire format of a passive party's uplink: float mode ships
-    E + r; masks=None ships raw (the caller's explicit unblinded oracle)."""
+    E + r, int32 mode quantize(E) + r in Z_2^32, int8 mode
+    quantize_ring(E, scale) + r in Z_2^8 (torch's int32 and int8 adds
+    wrap); masks=None ships raw (the caller's explicit unblinded
+    oracle)."""
     if masks is None:
         return E
     if mask_mode in RING_MODES:
-        raise NotImplementedError(RING_WIRE_TODO)
+        return quantize_ring(E, mask_mode, scale) + masks
     return E + masks.to(E.dtype)
 
 
@@ -418,6 +501,25 @@ def wire_leg_bytes(n_elts: int, mode: str) -> int:
     if mode == "int8":
         return 4 * ((n_elts + 3) // 4) + 4
     return 4 * n_elts
+
+
+def pack_int8_words(x) -> np.ndarray:
+    """Flatten int8 ring elements into little-endian int32 wire words
+    (4 elements per word, zero-padded)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    flat = np.ascontiguousarray(np.asarray(x, np.int8).reshape(-1))
+    pad = (-flat.size) % 4
+    if pad:
+        flat = np.concatenate([flat, np.zeros(pad, np.int8)])
+    return flat.view("<i4")
+
+
+def unpack_int8_words(words, shape) -> np.ndarray:
+    """Inverse of ``pack_int8_words`` for a known payload shape."""
+    n = int(np.prod(shape)) if shape else 1
+    flat = np.ascontiguousarray(np.asarray(words, "<i4")).view(np.int8)
+    return flat[:n].reshape(shape)
 
 
 # ---------------------------------------------------------------------------

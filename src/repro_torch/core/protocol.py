@@ -19,16 +19,24 @@ party's paper gradient through the surrogate
 net, through the aggregation's own backward. ``assisted_grads`` is the
 message-passing form of the same round (explicit per-party pullbacks).
 
-Only the reference's loop engine is ported: the vectorized and sharded
-engines are ROADMAP queue 1 items 8 and 14, the ring wire modes item 7,
-top-k uplink compression item 9 and in-kernel mask synthesis queue 2
-item 3; each raises ``NotImplementedError`` naming its item.
+Engines: ``engine="vectorized"`` (the default, as in the reference) groups
+parties by (arch, slice width) and runs each step as one ``vmap`` per
+group (``core/party_engine.py``), with MaskEngine masks; ``engine="loop"``
+is the reference's per-party loop with the loop-oracle masks. The sharded
+engine is ROADMAP queue 1 item 14 and top-k uplink compression item 9;
+both raise ``NotImplementedError`` naming their item.
+
+Wires: ``mask_mode`` "float" aggregates through the blind+aggregate
+kernel; ``fused_masks=True`` (float mode, vectorized engine) makes the
+masks inside that kernel from the seed tables and the round, so no mask
+tensor exists; "int32" and "int8" are the ring wires
+(``aggregation.aggregate_ring``).
 
 The classifier runs on the card unless ``device`` says otherwise:
 ``device=None`` resolves to CUDA and raises when no GPU is present. Its
-masked aggregation always runs the blind+aggregate kernel there (the
-reference's ``use_kernel=True``); CPU tensors take the kernel's plain
-version, so the reference's switch has no counterpart.
+masked float aggregation always runs the kernels there (the reference's
+``use_kernel=True``); CPU tensors take the kernels' plain versions, so the
+reference's switch has no counterpart.
 """
 from __future__ import annotations
 
@@ -36,20 +44,16 @@ from dataclasses import dataclass
 from typing import Any, List
 
 import torch
+from torch.func import vmap
 
 from repro_torch.configs.base import EasterConfig
 from repro_torch.core import aggregation, blinding, losses
+from repro_torch.core.party_engine import PartyEngine
 from repro_torch.core.party_models import (PartyArch, decide_fn, embed_fn,
                                            init_party)
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops as kernel_ops
 from repro_torch.optim import resolve_party_optimizers
-from repro_torch.tree import tree_leaves
-
-_ENGINE_TODO = {
-    "vectorized": "the vectorized party engine is ROADMAP.md queue 1 item 8",
-    "sharded": "the sharded party engine is ROADMAP.md queue 1 item 14",
-}
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 @dataclass
@@ -60,9 +64,10 @@ class EasterClassifier:
     n_features: List[int]               # per-party vertical feature split
     loss: str = "ce"
     grad_mode: str = "easter"           # easter (paper) | joint (beyond)
-    # the port has the loop engine only until ROADMAP queue 1 item 8
-    engine: str = "loop"
-    fused_masks: bool = False          # in-kernel masks (not ported yet)
+    engine: str = "vectorized"          # vectorized (grouped vmap) | loop
+    # make the masks inside the blind+aggregate kernel (float mode,
+    # vectorized engine); CPU tensors take MaskEngine masks
+    fused_masks: bool = False
     compress_frac: float = 0.0          # top-k uplink (not ported yet)
     device: Any = None                  # None = the card
 
@@ -72,31 +77,35 @@ class EasterClassifier:
                              f"{len(self.n_features)} feature slices")
         if self.grad_mode not in ("easter", "joint"):
             raise ValueError(f"grad_mode {self.grad_mode!r}")
-        if self.engine in _ENGINE_TODO:
+        if self.engine == "sharded":
             raise NotImplementedError(
-                f"engine={self.engine!r}: {_ENGINE_TODO[self.engine]}")
-        if self.engine != "loop":
+                "engine='sharded': the sharded party engine is ROADMAP.md "
+                "queue 1 item 14")
+        if self.engine not in ("vectorized", "loop"):
             raise ValueError(f"engine {self.engine!r}")
-        if self.fused_masks:
-            raise NotImplementedError(f"fused_masks=True: {kernel_ops.PRNG_TODO}")
         if self.compress_frac > 0:
             raise NotImplementedError(
                 "compress_frac > 0: top-k uplink compression (baselines) is "
                 "ROADMAP.md queue 1 item 9")
-        if self.easter.mask_mode in blinding.RING_MODES:
-            raise NotImplementedError(
-                f"mask_mode={self.easter.mask_mode!r}: "
-                f"{blinding.RING_WIRE_TODO}")
-        if self.easter.mask_mode != "float":
+        if self.easter.mask_mode not in ("float",) + blinding.RING_MODES:
             raise ValueError(f"mask_mode {self.easter.mask_mode!r}")
+        if self.fused_masks and self.easter.mask_mode != "float":
+            raise ValueError("fused (in-kernel) mask synthesis is float-mode "
+                             "only")
+        if self.fused_masks and self.engine != "vectorized":
+            raise ValueError("fused mask synthesis requires the vectorized "
+                             "engine")
         self.device = resolve_device(self.device)
         self.C = len(self.arches)
         self.K = self.C - 1
+        self._eng = PartyEngine(self.arches, self.n_features)
         if self.K > 1:
             # memoized DH ceremony, the same federation as the reference's
             self.keys, self.seeds = blinding.cached_passive_setup(self.K, 7)
+            self.mask_engine = blinding.cached_mask_engine(self.K, 7)
         else:
             self.keys, self.seeds = [], {}
+            self.mask_engine = None
 
     # -- params ------------------------------------------------------------
     def init_params(self, gen: torch.Generator) -> List[dict]:
@@ -110,23 +119,40 @@ class EasterClassifier:
 
     # -- protocol steps ----------------------------------------------------
     def masks(self, batch: int, round_idx: int = 0):
-        """Per-round (K, B, d) masks from the loop oracle."""
+        """Per-round masks: a (K, B, d) tensor (MaskEngine on the
+        vectorized engine, the loop oracle on the loop engine), or a
+        FusedMasks marker when the kernel makes them."""
         if self.K < 2 or not self.easter.enabled:
             return None
         r = round_idx if self.easter.fresh_masks else 0
+        if self.fused_masks:
+            return blinding.FusedMasks(int(r))
         shape = (batch, self.easter.d_embed)
+        if self.engine == "vectorized":
+            return self.mask_engine.masks(shape, r, self.easter.mask_mode,
+                                          device=self.device)
         return blinding.all_party_masks(self.K, self.seeds, shape, r,
                                         self.easter.mask_mode,
                                         device=self.device)
 
     def local_embeds(self, params, xs) -> torch.Tensor:
         """(C, B, d_embed) local embeddings, party order."""
+        if self.engine == "vectorized":
+            return self._eng.embed_all(params, xs)
         return torch.stack([embed_fn(params[k], self.arches[k], xs[k])
                             for k in range(self.C)])
 
     def global_embed(self, E_all: torch.Tensor, masks) -> torch.Tensor:
-        """Masked aggregation through the blind+aggregate kernel (the
-        plain version for CPU tensors); the plain mean without masks."""
+        """Masked aggregation: in-kernel masks for a FusedMasks marker, the
+        ring sum on the int32/int8 wires, else the blind+aggregate kernel
+        (the plain versions for CPU tensors); the plain mean without
+        masks."""
+        if isinstance(masks, blinding.FusedMasks):
+            return aggregation.blind_and_aggregate_fused(
+                E_all, self.mask_engine, masks.round_idx)
+        if masks is not None and self.easter.mask_mode in blinding.RING_MODES:
+            return aggregation.aggregate_ring(E_all, masks,
+                                              self.easter.mask_mode)
         return aggregation.blind_and_aggregate(E_all, masks)
 
     def _per_party_E(self, E: torch.Tensor, E_all) -> torch.Tensor:
@@ -139,6 +165,8 @@ class EasterClassifier:
     def _predictions_stacked(self, params, E, E_all=None) -> torch.Tensor:
         """(C, B, n_classes) logits, party order."""
         E_for = self._per_party_E(E, E_all)
+        if self.engine == "vectorized":
+            return self._eng.decide_all(params, E_for)
         return torch.stack([decide_fn(params[k], self.arches[k], E_for[k])
                             for k in range(self.C)])
 
@@ -159,13 +187,18 @@ class EasterClassifier:
         E = self.global_embed(E_all, masks)
         R_all = self._predictions_stacked(params, E, E_all)
         lf = losses.LOSSES[self.loss]
-        per = torch.stack([lf(R_all[k], y) for k in range(self.C)])
+        if self.engine == "vectorized":
+            per = vmap(lambda r: lf(r, y))(R_all)
+        else:
+            per = torch.stack([lf(R_all[k], y) for k in range(self.C)])
         return torch.sum(per), per
 
     # -- assisted-gradient reference path (message passing) ----------------
     def assisted_grads(self, params, xs, y, masks=None):
         """Paper's explicit protocol: per-party pullbacks with active-party
         loss assist. Returns (grads list, per-party losses)."""
+        if self.engine == "vectorized":
+            return self._assisted_grads_vectorized(params, xs, y, masks)
         lf = losses.LOSSES[self.loss]
         # step 1: local embeddings, each party keeps its own graph
         Es = [embed_fn(params[k], self.arches[k], xs[k])
@@ -188,10 +221,33 @@ class EasterClassifier:
             # step 6: embedding-net grad via dE/dE_k = 1/C (mean aggregation)
             g_emb = torch.autograd.grad(Es[k], tree_leaves(params[k]["embed"]),
                                         grad_outputs=gE / self.C)
-            grads.append({"embed": _unflatten(params[k]["embed"], g_emb),
-                          "decide": _unflatten(params[k]["decide"], g_dec)})
+            grads.append({"embed": tree_unflatten(params[k]["embed"], g_emb),
+                          "decide": tree_unflatten(params[k]["decide"], g_dec)})
             per_losses.append(L_k.detach())
         return grads, torch.stack(per_losses)
+
+    def _assisted_grads_vectorized(self, params, xs, y, masks=None):
+        """The same message passing, one pullback per party group."""
+        lf = losses.LOSSES[self.loss]
+        # step 1: local embeddings with group-level pullbacks
+        E_all, pull_embed = self._eng.embed_vjp(params, xs)
+        # step 2: active party aggregates (masks cancel)
+        with torch.no_grad():
+            E = self.global_embed(E_all, masks)
+        # step 3: every party predicts from the global embedding
+        E_b = E[None].expand((self.C,) + tuple(E.shape))
+        R_all, pull_dec = self._eng.decide_vjp(params, E_b)
+        # step 4: ACTIVE party computes every loss signal dL_k/dR_k at once
+        R_in = R_all.requires_grad_(True)
+        L_all = vmap(lambda r: lf(r, y))(R_in)
+        (gR_all,) = torch.autograd.grad(L_all.sum(), R_in)
+        # step 5: decision-net backprop; each party receives its dL_k/dE
+        g_dec, gE_all = pull_dec(gR_all)
+        # step 6: embedding-net grads via dE/dE_k = 1/C (mean aggregation)
+        g_emb = pull_embed(gE_all / self.C)
+        grads = [{"embed": g_emb[k], "decide": g_dec[k]}
+                 for k in range(self.C)]
+        return grads, L_all.detach()
 
     # -- training ----------------------------------------------------------
     def make_train_step(self, optimizer_name: str, lr: float, *,
@@ -201,7 +257,12 @@ class EasterClassifier:
         ``party_optimizers`` (paper §IV-E): ``{party: (name, lr, hparams)}``;
         unlisted parties use ``(optimizer_name, lr, opt_kw)``. ``step``
         updates params and optimizer state in place and returns
-        ``(params, opt_state, total, per)`` with the losses detached."""
+        ``(params, opt_state, total, per)`` with the losses detached. The
+        vectorized engine updates one stacked subgroup per (execution
+        group, optimizer) (``PartyEngine.update_groups``); the loop engine
+        loops over parties. A leaf no loss reaches (the embedding nets in
+        joint mode on a ring wire, whose quantized aggregate carries no
+        gradient) gets a zero gradient, as ``jax.grad`` gives it."""
         default = (optimizer_name, lr, opt_kw)
         opts = resolve_party_optimizers(party_optimizers or {}, self.C,
                                         default=default)
@@ -212,9 +273,13 @@ class EasterClassifier:
         def step(params, opt_state, xs, y, masks):
             total, per = self.loss_fn(params, xs, y, masks)
             flat = tree_leaves(params)
-            grads = _unflatten(params, torch.autograd.grad(total, flat))
-            for k in range(self.C):
-                opts[k].update(grads[k], opt_state[k], params[k])
+            grads = tree_unflatten(params, torch.autograd.grad(
+                total, flat, allow_unused=True, materialize_grads=True))
+            if self.engine == "vectorized":
+                self._eng.update_groups(opts, grads, opt_state, params)
+            else:
+                for k in range(self.C):
+                    opts[k].update(grads[k], opt_state[k], params[k])
             return params, opt_state, total.detach(), per.detach()
 
         return init_opt, step
@@ -222,7 +287,10 @@ class EasterClassifier:
     def bytes_per_round(self, batch: int) -> int:
         """Wire bytes per training round (paper Table V accounting):
         blinded embeddings up + global embedding down + predictions up +
-        loss signal down, float wire (4 B/elt)."""
+        loss signal down. Bytes per element follow the wire
+        (``blinding.wire_leg_bytes``): 4 on the float and int32 wires; the
+        int8 wire packs 4 ring elements per int32 word plus one float32
+        scale per leg, on all four legs."""
         d_e = self.easter.d_embed
         n_cls = self.arches[0].n_classes
         mode = self.easter.mask_mode
@@ -241,21 +309,6 @@ class EasterClassifier:
         R_all = self._predictions_stacked(params, E, E_all)
         return torch.mean((torch.argmax(R_all, -1) == y[None]).float(),
                           dim=-1)
-
-
-def _unflatten(like, leaves):
-    """Rebuild a tree shaped like ``like`` from ``leaves`` in
-    ``tree_leaves`` order."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
-
-    return build(like)
 
 
 def split_features(x: torch.Tensor, C: int) -> List[torch.Tensor]:

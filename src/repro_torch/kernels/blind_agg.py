@@ -1,8 +1,9 @@
 """Fused blind + aggregate (the paper's Eq. 6 + Eq. 7) as CUDA kernels.
 
-Counterpart of ``repro.kernels.blind_agg``'s ``_fwd_kernel`` and
-``_bwd_kernel``; the sources and the design note are in
-``csrc/blind_agg.cu``. This module binds them:
+Counterpart of ``repro.kernels.blind_agg``'s ``_fwd_kernel``,
+``_bwd_kernel`` and ``_prng_fwd_kernel``; the sources and their design
+notes are ``csrc/blind_agg.cu`` and ``csrc/blind_agg_prng.cu``. This
+module binds them:
 
   * ``blind_agg_fwd(ea (N, d), ep (K, N, d), mk (K, N, d))`` -> (N, d) in
     ea's dtype, (ea + sum_k (ep_k + mk_k)) / (K + 1) with a float32
@@ -12,18 +13,25 @@ Counterpart of ``repro.kernels.blind_agg``'s ``_fwd_kernel`` and
   * ``blind_agg``, the public differentiable function: any rank, flattened
     to (N, d) and (K, N, d) as the reference does, through a
     ``torch.autograd.Function`` whose forward and backward are the two
-    kernels.
+    kernels;
+  * ``blind_agg_prng_fwd(ea, ep, seed_hi, seed_lo, signs, round,
+    mask_scale)`` -> (N, d): the forward with every pair mask made inside
+    the kernel from a MaskEngine's seed tables (no (K, N, d) mask tensor);
+  * ``prng_blind_agg``, its differentiable public function, whose
+    backward is ``blind_agg_bwd`` without the mask cotangent.
 
 Every wrapper takes CUDA tensors only (float32, bfloat16 or float16,
 contiguous, matching shapes) and raises on anything else; the plain
-version for CPU tensors is ``ref.reference_blind_agg``, chosen by
-``ops.blind_agg``. Each launch adds one to ``LAUNCHES[<wrapper name>]``.
+version for CPU tensors is ``ref.reference_blind_agg`` (and
+``ref.reference_blind_agg_prng``), chosen by ``ops``. Each wrapper call
+that launches its kernel adds one to ``LAUNCHES[<wrapper name>]``.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -31,7 +39,8 @@ from repro_torch.kernels import build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # launches of each kernel in this process; reset with reset_launches()
-LAUNCHES: Dict[str, int] = {"blind_agg_fwd": 0, "blind_agg_bwd": 0}
+LAUNCHES: Dict[str, int] = {"blind_agg_fwd": 0, "blind_agg_bwd": 0,
+                            "blind_agg_prng_fwd": 0}
 
 
 def reset_launches() -> None:
@@ -55,6 +64,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _prng_lib() -> ctypes.CDLL:
+    lib = build.load("blind_agg_prng")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.blind_agg_prng_fwd.argtypes = [vp, vp, vp, vp, vp, i32, vp, vp,
+                                           i64, i32, ctypes.c_uint32,
+                                           ctypes.c_float, i32, i32, vp]
+        lib.blind_agg_prng_fwd.restype = i32
+        lib.blind_agg_prng_error_string.argtypes = [i32]
+        lib.blind_agg_prng_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
 def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
            device: torch.device) -> None:
     if t.device.type != "cuda":
@@ -72,9 +95,9 @@ def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
         raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(lib: ctypes.CDLL, name: str, code: int) -> None:
+def _raise_on(error_string, name: str, code: int) -> None:
     if code != 0:
-        msg = lib.blind_agg_error_string(code).decode()
+        msg = error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
 
 
@@ -96,7 +119,7 @@ def blind_agg_fwd(ea: torch.Tensor, ep: torch.Tensor,
                              out.data_ptr(), N * d, K, _DTYPE_CODES[ea.dtype],
                              _DTYPE_CODES[ep.dtype], _DTYPE_CODES[mk.dtype],
                              stream)
-    _raise_on(lib, "blind_agg_fwd", code)
+    _raise_on(lib.blind_agg_error_string, "blind_agg_fwd", code)
     LAUNCHES["blind_agg_fwd"] += 1
     return out
 
@@ -130,7 +153,7 @@ def blind_agg_bwd(g: torch.Tensor, K: int, ep_dtype: torch.dtype,
                              N * d, K, _DTYPE_CODES[g.dtype],
                              _DTYPE_CODES[ep_dtype], _DTYPE_CODES[mk_dtype],
                              stream)
-    _raise_on(lib, "blind_agg_bwd", code)
+    _raise_on(lib.blind_agg_error_string, "blind_agg_bwd", code)
     LAUNCHES["blind_agg_bwd"] += 1
     return dea, dep, dmk
 
@@ -165,3 +188,115 @@ def blind_agg(E_active: torch.Tensor, E_passive: torch.Tensor,
     ep = E_passive.reshape(K, N, d).contiguous()
     mk = masks.reshape(K, N, d).contiguous()
     return _BlindAgg.apply(ea, ep, mk).reshape(orig_shape)
+
+
+# ---------------------------------------------------------------------------
+# in-kernel mask synthesis
+# ---------------------------------------------------------------------------
+
+# the MaskEngine seed tables on each device, uploaded once: (id(engine),
+# device) -> (engine, (seed_hi, seed_lo, signs) as int32 tensors); the
+# engine is held so that its id stays its own
+_TABLES: Dict[Tuple[int, str], Tuple[object, Tuple[torch.Tensor, ...]]] = {}
+
+
+def device_tables(engine, device) -> Tuple[torch.Tensor, ...]:
+    """(seed_hi, seed_lo, signs) of a MaskEngine as contiguous int32
+    tensors on ``device`` (uint32 words reinterpreted), cached."""
+    device = torch.device(device)
+    key = (id(engine), str(device))
+    hit = _TABLES.get(key)
+    if hit is None or hit[0] is not engine:
+        tabs = tuple(torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
+                                      .copy()).to(device)
+                     for a in (engine.seed_hi, engine.seed_lo, engine.signs))
+        hit = _TABLES[key] = (engine, tabs)
+    return hit[1]
+
+
+def blind_agg_prng_fwd(ea: torch.Tensor, ep: torch.Tensor,
+                       seed_hi: torch.Tensor, seed_lo: torch.Tensor,
+                       signs: torch.Tensor, round_idx: int,
+                       mask_scale: float = 1.0) -> torch.Tensor:
+    """ea (N, d); ep (K, N, d); seed tables (K, W >= K-1) int32 on the
+    card -> (N, d) in ea's dtype: (ea + sum_k (ep_k + r_k)) / (K + 1) with
+    r_k made in the kernel for ``round_idx`` (CUDA kernel)."""
+    if ea.dim() != 2 or ep.dim() != 3:
+        raise ValueError(f"blind_agg_prng_fwd takes ea (N, d) and ep "
+                         f"(K, N, d), got {tuple(ea.shape)} and "
+                         f"{tuple(ep.shape)}")
+    K = ep.shape[0]
+    N, d = ea.shape
+    _check("ea", ea, (N, d), ea.device)
+    _check("ep", ep, (K, N, d), ea.device)
+    width = seed_hi.shape[-1] if seed_hi.dim() == 2 else -1
+    for name, t in (("seed_hi", seed_hi), ("seed_lo", seed_lo),
+                    ("signs", signs)):
+        if t.device != ea.device:
+            raise ValueError(f"{name} is on {t.device}, expected {ea.device}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected int32")
+        if tuple(t.shape) != (K, width) or width < max(K - 1, 1):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"({K}, >= {max(K - 1, 1)})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    round_idx = int(round_idx)
+    if not 0 <= round_idx < 1 << 32:
+        raise ValueError(f"round {round_idx} is not a uint32")
+    out = torch.empty_like(ea)
+    keys = torch.empty((max(2 * K * (K - 1), 2),), dtype=torch.int32,
+                       device=ea.device)
+    lib = _prng_lib()
+    stream = torch.cuda.current_stream(ea.device).cuda_stream
+    code = lib.blind_agg_prng_fwd(
+        ea.data_ptr(), ep.data_ptr(), seed_hi.data_ptr(), seed_lo.data_ptr(),
+        signs.data_ptr(), width, keys.data_ptr(), out.data_ptr(), N * d, K,
+        round_idx, float(mask_scale), _DTYPE_CODES[ea.dtype],
+        _DTYPE_CODES[ep.dtype], stream)
+    _raise_on(lib.blind_agg_prng_error_string, "blind_agg_prng_fwd",
+              code)
+    LAUNCHES["blind_agg_prng_fwd"] += 1
+    return out
+
+
+class _PrngBlindAgg(torch.autograd.Function):
+    """The masks are constants of the seeds and the round, so the backward
+    is ``blind_agg_bwd`` without the mask cotangent; the round and the
+    tables get no gradient."""
+
+    @staticmethod
+    def forward(ctx, ea, ep, seed_hi, seed_lo, signs, round_idx, mask_scale):
+        ctx.K = ep.shape[0]
+        ctx.ep_dtype = ep.dtype
+        return blind_agg_prng_fwd(ea, ep, seed_hi, seed_lo, signs, round_idx,
+                                  mask_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        need_ea, need_ep = ctx.needs_input_grad[:2]
+        dea, dep, _ = blind_agg_bwd(g.contiguous(), ctx.K, ctx.ep_dtype,
+                                    ctx.ep_dtype, need_ea=need_ea,
+                                    need_ep=need_ep, need_mk=False)
+        return dea, dep, None, None, None, None, None
+
+
+def prng_blind_agg(E_active: torch.Tensor, E_passive: torch.Tensor, engine,
+                   round_idx, mask_scale: float = 1.0) -> torch.Tensor:
+    """E_active (..., d); E_passive (K, ..., d) on the card; ``engine`` a
+    MaskEngine of K passive parties. Returns (..., d) in E_active's dtype,
+    differentiable in both embeddings."""
+    K = E_passive.shape[0]
+    if engine.n_passive != K:
+        raise ValueError(f"mask engine of {engine.n_passive} passive parties "
+                         f"for {K} passive embeddings")
+    orig_shape = E_active.shape
+    d = orig_shape[-1]
+    N = E_active.numel() // d
+    ea = E_active.reshape(N, d).contiguous()
+    ep = E_passive.reshape(K, N, d).contiguous()
+    if isinstance(round_idx, torch.Tensor):
+        round_idx = round_idx.item()
+    tabs = device_tables(engine, ea.device)
+    return _PrngBlindAgg.apply(ea, ep, *tabs, int(round_idx),
+                               float(mask_scale)).reshape(orig_shape)

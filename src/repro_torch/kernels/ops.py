@@ -10,10 +10,6 @@ import torch
 from repro_torch.kernels import blind_agg as _ba
 from repro_torch.kernels import ref
 
-PRNG_TODO = ("blind_agg_prng (in-kernel mask synthesis, the port of "
-             "_prng_fwd_kernel) is not ported yet: ROADMAP.md queue 2 item 3")
-
-
 def blind_agg(E_active: torch.Tensor, E_passive: torch.Tensor,
               masks: torch.Tensor) -> torch.Tensor:
     """E_active (..., d); E_passive/masks (K, ..., d). Returns (..., d).
@@ -28,6 +24,19 @@ def blind_agg(E_active: torch.Tensor, E_passive: torch.Tensor,
                      f"{sorted(devices)}")
 
 
-def blind_agg_prng(E_active, E_passive, engine, round_idx, *,
-                   mask_scale: float = 1.0):
-    raise NotImplementedError(PRNG_TODO)
+def blind_agg_prng(E_active: torch.Tensor, E_passive: torch.Tensor, engine,
+                   round_idx, *, mask_scale: float = 1.0) -> torch.Tensor:
+    """Blind + aggregate with the masks made from ``engine``'s seed tables
+    for ``round_idx``. E_active (..., d); E_passive (K, ..., d). On the
+    card no (K, ..., d) mask tensor exists; CPU tensors take the plain
+    version, which materializes the MaskEngine's masks. Differentiable in
+    both embeddings."""
+    devices = {E_active.device.type, E_passive.device.type}
+    if devices == {"cuda"}:
+        return _ba.prng_blind_agg(E_active, E_passive, engine, round_idx,
+                                  mask_scale)
+    if devices == {"cpu"}:
+        return ref.reference_blind_agg_prng(E_active, E_passive, engine,
+                                            round_idx, mask_scale=mask_scale)
+    raise ValueError(f"blind_agg_prng needs all inputs on one device type, "
+                     f"got {sorted(devices)}")

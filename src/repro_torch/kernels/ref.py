@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import blinding
+
 
 def reference_blind_agg(E_active, E_passive, masks):
     """E = (E_a + sum_k (E_k + r_k)) / C — materializes [E_k] like the
@@ -24,3 +26,15 @@ def reference_blind_agg_bwd(g, K: int, ep_dtype, mk_dtype, *,
     full = s.expand((K,) + tuple(g.shape))
     dmk = full.to(mk_dtype).contiguous() if need_mk else None
     return s.to(g.dtype), full.to(ep_dtype).contiguous(), dmk
+
+
+def reference_blind_agg_prng(E_active, E_passive, engine, round_idx, *,
+                             mask_scale: float = 1.0):
+    """What the in-kernel-mask forward computes, as the reference computes
+    it off the TPU: the MaskEngine's masks for ``round_idx`` (scaled, then
+    cast to E_passive's dtype) through ``reference_blind_agg``.
+    E_active (..., d); E_passive (K, ..., d)."""
+    masks = engine.masks(E_passive.shape[1:], round_idx, "float",
+                         scale=mask_scale, device=E_passive.device)
+    return reference_blind_agg(E_active, E_passive,
+                               masks.to(E_passive.dtype))

@@ -24,3 +24,18 @@ def tree_map(fn: Callable, tree, *rest):
         return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
                           for i, t in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` from ``leaves`` in ``tree_leaves``
+    order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    return build(like)

@@ -118,10 +118,22 @@ def test_serve_rounds_and_wire_bytes():
 
 
 def test_blind_uplink_float_and_ring_todo():
+    """The float wire ships E + r in E's dtype and raw without masks; the
+    ring wires (once a to-do, now ported) ship the quantized words plus
+    the masks, wrapping, as the reference's blind_uplink does."""
     E = torch.arange(6.0).reshape(2, 3)
     m = torch.ones(2, 3, dtype=torch.float64)
     out = tb.blind_uplink(E, m, "float")
     assert out.dtype == torch.float32 and torch.equal(out, E + 1)
     assert tb.blind_uplink(E, None, "float") is E
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tb.blind_uplink(E, m, "int32")
+    m32 = torch.tensor([[2 ** 31 - 1] * 3, [-5] * 3], dtype=torch.int32)
+    want = jb.blind_uplink(jnp.asarray(E.numpy()), jnp.asarray(m32.numpy()),
+                           "int32")
+    np.testing.assert_array_equal(tb.blind_uplink(E, m32, "int32").numpy(),
+                                  np.asarray(want))
+    m8 = torch.tensor([[127] * 3, [-128] * 3], dtype=torch.int8)
+    want = jb.blind_uplink(jnp.asarray(E.numpy()), jnp.asarray(m8.numpy()),
+                           "int8", 10.0)
+    got = tb.blind_uplink(E, m8, "int8", 10.0)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -2,8 +2,11 @@
 
 On the CPU ``ops.blind_agg`` runs the kernel's plain version; it is held
 against ``repro.kernels.blind_agg.blind_agg`` in Pallas interpret mode and
-against ``ref.reference_blind_agg``, values and gradients. The CUDA
-kernels themselves run only on the card (tests/test_torch_cuda.py).
+against ``ref.reference_blind_agg``, values and gradients. ``ops.blind_agg_prng``
+(in-kernel masks) runs its plain version, MaskEngine masks through
+``reference_blind_agg``, held against ``repro.kernels.ops.blind_agg_prng``,
+which off the TPU is the reference's MaskEngine path. The CUDA kernels
+themselves run only on the card (tests/test_torch_cuda.py).
 
 Tolerances: float32 within 1e-5 (the reference kernel multiplies by 1/C
 and sums K in tiles, the plain version divides by C after one sum: a few
@@ -17,8 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import blinding as jb
 from repro.kernels import blind_agg as jba
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.core import blinding as tb
 from repro_torch.kernels import blind_agg as tba
 from repro_torch.kernels import ops, ref
 
@@ -133,7 +139,80 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
         tba.blind_agg(ea, ep, ep)
     with pytest.raises(ValueError, match="CUDA"):
         tba.blind_agg_bwd(ea, 2, torch.float32, torch.float32)
+    eng = tb.cached_mask_engine(2, 7)
+    with pytest.raises(ValueError, match="CUDA"):
+        tba.prng_blind_agg(ea, ep, eng, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tba.blind_agg_prng_fwd(ea, ep, *tba.device_tables(eng, "cpu"), 0)
     ops.blind_agg(ea, ep, ep)
-    assert tba.LAUNCHES == {"blind_agg_fwd": 0, "blind_agg_bwd": 0}
-    with pytest.raises(NotImplementedError, match="queue 2 item 3"):
-        ops.blind_agg_prng(ea, ep, None, 0)
+    ops.blind_agg_prng(ea, ep, eng, 0)
+    assert tba.LAUNCHES == {"blind_agg_fwd": 0, "blind_agg_bwd": 0,
+                            "blind_agg_prng_fwd": 0}
+
+
+# ---------------------------------------------------------------------------
+# in-kernel masks: the plain version against the reference's off-TPU path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,lead", [(2, (8,)), (3, (2, 3)), (7, (8,))])
+def test_plain_blind_agg_prng_matches_reference(K, lead, dtype):
+    """Values at rounds 0, 1 and SERVE_DOMAIN + 5 with mask_scale 1 and 4;
+    the gradients of E_a and every E_k at the last of them. (One shape
+    per party count: the reference compiles its MaskEngine scan anew for
+    every party count and shape, seconds each.)
+
+    Tolerance, per element, from S = |E_a| + sum_k (|E_k| + |r_k|): the
+    reference rounds E_k + r_k, the sum and the division in E's dtype, the
+    port accumulates in float32 and rounds once, and the float masks
+    differ by up to 1e-6 a pair mask (torch's log1p), which may move a
+    bfloat16 mask by one ulp. So (4K + 3) * u * S / C, with u the unit
+    roundoff of the dtype, plus one ulp of the output. Gradients (g / C in
+    E's dtype on both sides) within one ulp."""
+    d = 16
+    jeng, teng = jb.cached_mask_engine(K, 7), tb.cached_mask_engine(K, 7)
+    (jea, jep, _), (tea, tep, _) = _inputs(K, lead, d, dtype, K + len(lead))
+    u = 2.0 ** -8 if dtype == "bfloat16" else 2.0 ** -24
+    for r in (0, 1, jb.SERVE_DOMAIN + 5):
+        for scale in (1.0, 4.0):
+            want = jops.blind_agg_prng(jea, jep, jeng, r, mask_scale=scale)
+            got = ops.blind_agg_prng(tea, tep, teng, r, mask_scale=scale)
+            assert got.dtype == _TDT[dtype] and tuple(got.shape) == want.shape
+            masks = teng.masks(lead + (d,), r, "float", scale=scale,
+                               device="cpu")
+            S = tea.float().abs() + (tep.float().abs() + masks.abs()).sum(0)
+            ulp = np.spacing(np.abs(_f32(want)).astype(np.float32)) * (
+                2.0 ** 16 if dtype == "bfloat16" else 1.0)
+            tol = (4 * K + 3) * u * _f32(S) / (K + 1) + ulp
+            err = np.abs(_f32(got) - _f32(want))
+            assert (err <= tol).all(), (r, scale, err.max())
+    g = np.random.default_rng(K).normal(size=lead + (d,)).astype(np.float32)
+    jga, jgp = jax.grad(
+        lambda ea, ep: jnp.sum(jops.blind_agg_prng(
+            ea, ep, jeng, r, mask_scale=scale).astype(jnp.float32) * g),
+        argnums=(0, 1))(jea, jep)
+    ts = [t.clone().requires_grad_(True) for t in (tea, tep)]
+    out = ops.blind_agg_prng(*ts, teng, r, mask_scale=scale)
+    (out.float() * torch.from_numpy(g)).sum().backward()
+    for a, b in zip((jga, jgp), ts):
+        assert b.grad.dtype == _TDT[dtype]
+        np.testing.assert_allclose(_f32(b.grad), _f32(a), rtol=2 * u,
+                                   atol=1e-7)
+
+
+def test_plain_blind_agg_prng_is_the_mask_engine_path():
+    """On the CPU the dispatcher's result is MaskEngine masks (cast to E's
+    dtype) through reference_blind_agg, bit for bit, and the masks cancel:
+    the result is the unmasked mean to within the masks' rounding."""
+    K = 5
+    eng = tb.cached_mask_engine(K, 7)
+    _, (tea, tep, _) = _inputs(K, (6,), 24, "float32", 1)
+    got = ops.blind_agg_prng(tea, tep, eng, 3, mask_scale=2.0)
+    masks = eng.masks((6, 24), 3, "float", scale=2.0, device="cpu")
+    want = ref.reference_blind_agg(tea, tep, masks)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    mean = (tea + tep.sum(0)) / (K + 1)
+    assert float((got - mean).abs().max()) < 1e-5
+    with pytest.raises(ValueError, match="mask engine"):
+        tba.prng_blind_agg(tea, tep[:3], eng, 0)

@@ -207,7 +207,7 @@ def _pair(grad_mode, use_kernel):
                      use_kernel=use_kernel)
     ts = TClassifier(TEasterConfig(num_passive=_C - 1, d_embed=_D),
                      [tpm.PartyArch(**vars(a)) for a in arches], _NF,
-                     grad_mode=grad_mode, device="cpu")
+                     grad_mode=grad_mode, engine="loop", device="cpu")
     return js, ts
 
 
@@ -288,15 +288,21 @@ def test_entry_points_default_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TClassifier(cfg, arches, [2, 2, 2])
-    for kw, item in (({"engine": "vectorized"}, "item 8"),
-                     ({"engine": "sharded"}, "item 14"),
-                     ({"fused_masks": True}, "queue 2 item 3"),
+    for kw, item in (({"engine": "sharded"}, "item 14"),
                      ({"compress_frac": 0.25}, "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             TClassifier(cfg, arches, [2, 2, 2], device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TClassifier(TEasterConfig(num_passive=2, d_embed=4,
-                                  mask_mode="int8"), arches, [2, 2, 2],
+    # the vectorized engine (the default), in-kernel masks and the ring
+    # wires are ported; fused masks keep the reference's two conditions
+    assert TClassifier(cfg, arches, [2, 2, 2], fused_masks=True,
+                       device="cpu").engine == "vectorized"
+    int8 = TEasterConfig(num_passive=2, d_embed=4, mask_mode="int8")
+    assert TClassifier(int8, arches, [2, 2, 2], device="cpu").masks(
+        3, 0).dtype == torch.int8
+    with pytest.raises(ValueError, match="float-mode only"):
+        TClassifier(int8, arches, [2, 2, 2], fused_masks=True, device="cpu")
+    with pytest.raises(ValueError, match="vectorized engine"):
+        TClassifier(cfg, arches, [2, 2, 2], fused_masks=True, engine="loop",
                     device="cpu")
 
 
