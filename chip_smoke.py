@@ -46,10 +46,35 @@ Phases, each printing its own lines:
           prng kernel's bound counts the operations its inputs need.
   profile host-clock split of a Table II round into masks and train step,
           and torch.profiler device time by kernel over 5 rounds.
+  flash   holds flash_attention_fwd against its plain version on the card:
+          the reference sweep (S 64-256 x five (Hq, Hkv, hd) x causal,
+          non-causal and causal window 32 x float32/bfloat16), ragged S of
+          7, 100 and 1023 (T = S), S = 50 against T = 130, the serving
+          path's prefill shapes (1 or 3, 511 | 1023 | 2047, 16/2/128)
+          causal in float32 and bfloat16 (bfloat16 also within one ulp
+          of float32 attention on the same inputs), and one vmap over 3
+          parties (one launch).
+  lm      EasterLM on qwen2.5-3b at full width and depth (36 layers, three
+          9-layer passive proxies, 6.2e9 parameters, bfloat16, random from
+          a torch.Generator seeded 0 on the card): a 4-lane ServingEngine
+          serves 8 greedy requests (prompts of 512/1024/2048 tokens from
+          numpy seed 0, 32 new tokens each) on the float wire; prefill ms
+          per request, ms per decode round, tokens/s, the launch counts
+          asserted (36 + 9 flash_attention_fwd a prefill, one
+          blind_agg_fwd a round), finite logits of the expected shape, and
+          torch.profiler windows over one 2048-token admission and 8
+          decode rounds. Then the same width with depth cut to 4 active
+          layers (passive 2) in float32 with TF32 off, against the CPU
+          port: prefill embeddings and the logits of 4 decode rounds
+          within rtol 1e-4 / atol 1e-5, identical greedy tokens.
+  timing  (flash) the kernel, its plain version and SDPA (the library
+          yardstick, never on the path) at (1, 1023 | 2047, 16/2, 128)
+          bfloat16 causal, with the bound of the causal pairs' flops at the
+          bf16 tensor-core peak.
 
 The launch counters are set to 0 just before each counted path (slice,
-joint, many-party fused, many-party joint, many-party unfused) and read
-just after. The second-to-last line is the JSON kernel record; the last
+joint, many-party fused, many-party joint, many-party unfused, qwen2.5-3b
+serving) and read just after. The second-to-last line is the JSON kernel record; the last
 line is {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no result. It needs a CUDA device and the
 repository's src/ beside it.
@@ -94,6 +119,26 @@ D_EMBED = 128
 # the many-party benchmark (benchmarks/many_party_scaling.py defaults)
 MP_C, MP_BATCH, MP_D_EMBED, MP_FEATURES, MP_CLASSES = 64, 128, 64, 1024, 10
 MP_ROUNDS = 20
+# the LM serving slice: qwen2.5-3b at full width and depth in bfloat16,
+# EasterConfig() defaults (C = 4, three 9-layer passive proxies, d_embed
+# 128, float wire, fresh masks), a 4-lane ServingEngine serving 8 greedy
+# requests of 32 new tokens; the depth-cut float32 run against the CPU
+LM_ARCH = "qwen2.5-3b"
+LM_LANES, LM_REQUESTS, LM_NEW, LM_CHUNK = 4, 8, 32, 8
+LM_PROMPTS = (512, 1024, 2048)
+LM_CUT_LAYERS, LM_CUT_BATCH, LM_CUT_PROMPT, LM_CUT_ROUNDS = 4, 2, 64, 4
+BF16_FLOPS = 989e12              # H100 SXM data sheet, dense bf16 tensor cores
+# flash_attention_fwd against its plain version: the reference sweep
+# (tests/test_kernels.py) plus ragged lengths and the qwen2.5-3b shape
+FLASH_S = (64, 128, 256)
+FLASH_RAGGED_S = (7, 100, 1023)
+FLASH_HEADS = ((4, 4, 64), (4, 2, 64), (8, 1, 64), (4, 2, 128), (2, 2, 32))
+FLASH_MASKS = ((True, 0), (False, 0), (True, 32))
+# the serving path's prefill shapes (prompt[:-1] of 512/1024/2048 tokens):
+# (B, S) for the active party (B = 1) and the folded passive group (B = 3)
+FLASH_PREFILL = ((1, 511), (1, 1023), (1, 2047), (3, 511), (3, 1023),
+                 (3, 2047))
+FLASH_PREFILL_HEADS = (16, 2, 128)
 
 
 def log(phase: str, msg: str) -> None:
@@ -939,6 +984,414 @@ def phase_timing_prng():
 
 
 # ---------------------------------------------------------------------------
+# the LM serving slice
+# ---------------------------------------------------------------------------
+
+
+def _flash_case(B, S, T, Hq, Hkv, hd, causal, window, dtype, gen):
+    """(max abs error, within tolerance) of flash_attention_fwd against
+    reference_attention on one case; tolerance as the reference sweep's:
+    atol 3e-5 (float32) or 3e-2 (bfloat16), rtol 1e-2."""
+    import torch
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+    q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, T, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, T, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    out = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = ref.reference_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs()
+    atol = 3e-5 if dtype == torch.float32 else 3e-2
+    return float(err.max()), bool((err <= atol + 1e-2 * want.float().abs())
+                                  .all())
+
+
+def _flash_prefill_case(B, S, dtype, gen):
+    """One of the serving path's prefill shapes at qwen2.5-3b's heads
+    (16/2/128, causal): (max abs error against the plain version in the
+    same dtype, the share of the ulp bound used against the plain version
+    in float32 on the same inputs, within tolerance).
+
+    bfloat16 is held to one bfloat16 ulp of float32 attention (|out -
+    exact| <= 2^-7 |exact| + 1e-5) as well as the sweep's tolerance: at
+    S = 1023 a row's output is only ~0.05, so the sweep's atol 3e-2 would
+    pass a dropped 64-key tile, which moves a late row's elements by
+    ~0.006-0.013, while the kernel (float32 throughout, one rounding of
+    the output) stays within half an ulp. float32 keeps atol 3e-5 + rtol
+    1e-2."""
+    import torch
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+    Hq, Hkv, hd = FLASH_PREFILL_HEADS
+    q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    out = tfa.flash_attention_fwd(q, k, v, causal=True).float()
+    want = ref.reference_attention(q, k, v, causal=True).float()
+    exact = ref.reference_attention(q.float(), k.float(), v.float(),
+                                    causal=True)
+    torch.cuda.synchronize()
+    err = (out - want).abs()
+    used = float(((out - exact).abs()
+                  / (2.0 ** -7 * exact.abs() + 1e-5)).max())
+    if dtype == torch.float32:
+        ok = bool((err <= 3e-5 + 1e-2 * want.abs()).all())
+    else:
+        ok = bool((err <= 3e-2 + 1e-2 * want.abs()).all()) and used <= 1
+    return float(err.max()), used, ok
+
+
+def phase_flash():
+    """flash_attention_fwd against its plain version on the card."""
+    import torch
+    from torch.func import vmap
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(2, S, S, Hq, Hkv, hd, c, w, dt)
+             for S in FLASH_S + FLASH_RAGGED_S
+             for Hq, Hkv, hd in FLASH_HEADS for c, w in FLASH_MASKS
+             for dt in (f32, bf16)]
+    cases += [(1, 50, 130, 4, 2, 64, c, w, f32) for c, w in FLASH_MASKS]
+    worst = {f32: 0.0, bf16: 0.0}
+    failed = []
+    for case in cases:
+        err, ok = _flash_case(*case, gen)
+        worst[case[-1]] = max(worst[case[-1]], err)
+        if not ok:
+            failed.append((case, err))
+    # the serving path's prefill shapes: the active party's (B = 1) and
+    # the passive group's, folded into the batch axis (B = 3)
+    for B, S in FLASH_PREFILL:
+        for dt in (f32, bf16):
+            err, used, ok = _flash_prefill_case(B, S, dt, gen)
+            worst[dt] = max(worst[dt], err)
+            tol = "atol 3e-5, rtol 1e-2" if dt == f32 else (
+                "atol 3e-2, rtol 1e-2, and one bfloat16 ulp (2^-7 |exact| "
+                "+ 1e-5) of float32 attention on the same inputs")
+            log("flash", f"prefill shape ({B}, {S}, 16/2/128) causal "
+                         f"{str(dt)[6:]}: max abs err {err:.3g} against the "
+                         f"plain version; {used:.3g} of one bfloat16 ulp "
+                         f"from float32 attention at worst; tolerance "
+                         f"{tol}: {'ok' if ok else 'FAILED'}")
+            if not ok:
+                failed.append(((B, S, S, *FLASH_PREFILL_HEADS, True, 0, dt),
+                               (err, used)))
+    if failed:
+        raise AssertionError(f"flash_attention_fwd disagrees with its plain "
+                             f"version in {len(failed)} cases: {failed[:5]}")
+    # the grouped passive parties: torch.func.vmap folds the party axis
+    # into the batch axis around one launch
+    q = torch.randn((3, 2, 100, 4, 64), generator=gen, device="cuda")
+    k = torch.randn((3, 2, 100, 2, 64), generator=gen, device="cuda")
+    v = torch.randn((3, 2, 100, 2, 64), generator=gen, device="cuda")
+    before = tfa.LAUNCHES["flash_attention_fwd"]
+    with torch.no_grad():
+        out = vmap(lambda a, b, c: tfa.flash_attention(a, b, c))(q, k, v)
+    want = torch.stack([ref.reference_attention(q[i], k[i], v[i])
+                        for i in range(3)])
+    vm_err = float((out - want).abs().max())
+    if tfa.LAUNCHES["flash_attention_fwd"] != before + 1 or vm_err > 3e-5:
+        raise AssertionError(f"vmap over the kernel: err {vm_err}, "
+                             f"{tfa.LAUNCHES['flash_attention_fwd'] - before}"
+                             f" launches")
+    log("flash", f"{len(cases) + 2 * len(FLASH_PREFILL)} cases within "
+                 f"tolerance (atol 3e-5 float32 / 3e-2 bfloat16, rtol "
+                 f"1e-2): S in {FLASH_S} and ragged {FLASH_RAGGED_S} (T = "
+                 f"S) x (Hq, Hkv, hd) in {FLASH_HEADS} x (causal, window) "
+                 f"in {FLASH_MASKS} x float32/bfloat16, S=50 T=130, and "
+                 f"the prefill shapes (B, S) in {FLASH_PREFILL} at "
+                 f"16/2/128 causal x float32/bfloat16; worst "
+                 f"float32 {worst[f32]:.3g}, bfloat16 {worst[bf16]:.3g}; "
+                 f"vmap over 3 parties: one launch, max abs err "
+                 f"{vm_err:.3g}")
+    return worst[f32]
+
+
+def _lm_system(cfg, device):
+    from repro_torch.configs.base import EasterConfig
+    from repro_torch.core.easter_lm import EasterLM
+    return EasterLM(cfg, EasterConfig(), device=device)
+
+
+def _lm_requests(vocab):
+    """8 greedy requests, prompts of 512/1024/2048 tokens from numpy seed
+    0, 32 new tokens each, no EOS."""
+    import numpy as np
+    from repro_torch.core import api
+    rng = np.random.default_rng(0)
+    return [api.ServeRequest(
+        tokens=tuple(rng.integers(0, vocab, size=LM_PROMPTS[i % 3])
+                     .tolist()), max_new_tokens=LM_NEW)
+        for i in range(LM_REQUESTS)]
+
+
+def _lm_layers(sys_):
+    """(active layers, passive layers of one proxy, passive parties)."""
+    cfgs = sys_.party_cfgs
+    return cfgs[0].n_layers, cfgs[1].n_layers, len(cfgs) - 1
+
+
+def _profile_window(label, fn, n_rounds):
+    """Device busy time and idle share of ``fn`` under torch.profiler, and
+    its top kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [r for r in prof.key_averages()
+            if r.device_type == DeviceType.CUDA]
+    busy_ms = sum(r.self_device_time_total for r in kern) / 1e3
+    n = sum(r.count for r in kern)
+    idle = 1 - busy_ms / wall_ms
+    log("lm", f"{label} under torch.profiler: wall {wall_ms:.3f} ms, device "
+              f"busy {busy_ms:.3f} ms (idle share {idle:.3f}), {n} kernels "
+              f"({n / n_rounds:.0f} a round)")
+    top = []
+    for r in sorted(kern, key=lambda r: -r.self_device_time_total)[:8]:
+        ms = r.self_device_time_total / 1e3
+        top.append((r.key[:60], r.count, ms))
+        log("lm", f"  {r.key[:60]:60s} calls {r.count:5d} device "
+                  f"{ms:.3f} ms ({ms / busy_ms:.1%})")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle,
+            "kernels": n, "top": top}
+
+
+def phase_lm():
+    """qwen2.5-3b EasterLM at full width and depth, bfloat16, served by a
+    4-lane ServingEngine on the card; the counted main path."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import api, serving
+    from repro_torch.kernels import blind_agg as tba
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(LM_ARCH)
+    sys_ = _lm_system(cfg, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = sys_.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sys_._passive_stack(params)       # raises if a step would restack
+    n_act = sum(t.numel() for t in tree_leaves(params["parties"][0]))
+    n_all = sum(t.numel() for p in params["parties"]
+                for t in tree_leaves(p))
+    La, Lp, K = _lm_layers(sys_)
+    log("lm", f"{cfg.name}: {La} layers, d_model {cfg.d_model}, heads "
+              f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; C = "
+              f"{sys_.C} ({K} passive proxies of {Lp} layers), d_embed "
+              f"{sys_.easter.d_embed}, {sys_.easter.mask_mode} wire, "
+              f"{sys_.engine} engine; {n_act / 1e9:.3f}e9 active and "
+              f"{n_all / 1e9:.3f}e9 parameters in all, drawn on the card "
+              f"from torch.Generator seed 0 in {init_s:.1f} s; device memory "
+              f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    eng = serving.ServingEngine(sys_, params, lanes=LM_LANES,
+                                max_len=max(LM_PROMPTS) + LM_NEW,
+                                chunk=LM_CHUNK)
+    prefill_ms, decode = [], []
+    prefill, decode_fn = eng._prefill, eng._decode
+
+    def timed_prefill(params_, state, req, lane, *, nonce=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = prefill(params_, state, req, lane, nonce=nonce)
+        torch.cuda.synchronize()
+        prefill_ms.append((len(req.tokens), (time.perf_counter() - t) * 1e3))
+        return state
+
+    def timed_decode(params_, state):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode_fn(params_, state)
+        torch.cuda.synchronize()
+        decode.append(((time.perf_counter() - t) * 1e3, out[2]))
+        return out
+
+    eng._prefill, eng._decode = timed_prefill, timed_decode
+    reqs = _lm_requests(cfg.vocab_size)
+    tba.reset_launches()
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    comps = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**tba.LAUNCHES, **tfa.LAUNCHES}
+    # every prefill: La active layers + Lp passive layers (the passive
+    # party axis folded into the batch around one launch); one
+    # blind_agg_fwd per protocol round (a prefill or a decode round)
+    want = {"flash_attention_fwd": LM_REQUESTS * (La + Lp),
+            "blind_agg_fwd": LM_REQUESTS + eng.rounds_run}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name}: {launches[name]} launches on the "
+                                 f"serving path, expected {n}")
+    toks = sum(len(c.tokens) for c in comps)
+    bad = [c for c in comps if len(c.tokens) != LM_NEW
+           or not all(0 <= t < cfg.vocab_size for t in c.tokens)]
+    if len(comps) != LM_REQUESTS or bad:
+        raise AssertionError(f"{len(comps)} completions, bad: {bad[:2]}")
+    per_len = {P: statistics.median(ms for n, ms in prefill_ms if n == P)
+               for P in LM_PROMPTS}
+    rounds = sum(s for _, s in decode)
+    ms_round = sum(ms for ms, _ in decode) / rounds
+    log("lm", f"served {len(comps)} requests ({LM_PROMPTS} prompt tokens, "
+              f"{LM_NEW} new each, greedy) on {LM_LANES} lanes in {wall:.2f} "
+              f"s: {toks} tokens, {toks / wall:.1f} tokens/s end to end; "
+              f"{eng.rounds_run} decode rounds in {eng.chunks_run} chunks, "
+              f"{ms_round:.2f} ms a round ({LM_LANES * 1e3 / ms_round:.1f} "
+              f"tokens/s at {LM_LANES} full lanes); prefill ms per request "
+              f"(median by prompt length, first calls included) "
+              f"{ {P: round(v, 2) for P, v in per_len.items()} }")
+    log("lm", f"launches on the serving path {launches} (expected "
+              f"flash_attention_fwd {LM_REQUESTS} x ({La} + {Lp}), "
+              f"blind_agg_fwd {LM_REQUESTS} prefills + {eng.rounds_run} "
+              f"rounds)")
+    # the output is finite and of the expected shape at full size
+    seeds = sys_.mask_seeds()
+    c1 = sys_.init_caches(1, 64)
+    tok = torch.tensor([reqs[0].tokens[:9]], dtype=torch.int32,
+                       device="cuda")
+    _, c1 = sys_.prefill(params, tok[:, :8], c1, seeds=seeds, round_idx=999)
+    logits, _ = sys_.serve_step(params, tok[:, 8:], c1, 8, seeds)
+    if tuple(logits.shape) != (1, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    # where the time goes: one 2048-token prefill and 8 decode rounds at
+    # 4 full lanes, under the profiler (not part of the counted path)
+    dcfg = api.DecodeConfig(lanes=LM_LANES, max_len=max(LM_PROMPTS) + LM_NEW,
+                            chunk=LM_CHUNK)
+    pf, df = api.build_decoder(sys_, dcfg)
+    state = api.init_decode_state(sys_, dcfg)
+    for lane in range(LM_LANES - 1):
+        state = pf(params, state, reqs[lane], lane, nonce=100 + lane)
+    box = {}
+    prof_prefill = _profile_window(
+        f"one admission of a {LM_PROMPTS[-1]}-token prompt",
+        lambda: box.update(state=pf(params, state, reqs[2], LM_LANES - 1,
+                                    nonce=200)), 1)
+    prof_decode = _profile_window(
+        f"{LM_CHUNK} decode rounds at {LM_LANES} lanes",
+        lambda: box.update(out=df(params, box["state"])), LM_CHUNK)
+    return launches, {
+        "init_s": init_s, "params": n_all, "wall_s": wall,
+        "tokens_per_s": toks / wall, "ms_per_round": ms_round,
+        "rounds": eng.rounds_run, "prefill_ms": per_len,
+        "profile_prefill": prof_prefill, "profile_decode": prof_decode}
+
+
+def phase_lm_cut():
+    """The same width with depth cut to LM_CUT_LAYERS active layers (the
+    passive proxies follow passive_cfg: 2), float32 with TF32 off: card
+    against the CPU port on the same weights and prompt."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import decode
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_CUT_LAYERS,
+                              dtype="float32")
+    card, cpu = _lm_system(cfg, "cuda"), _lm_system(cfg, "cpu")
+    params = card.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cparams = cpu.group_params({"parties": [
+        tree_map(lambda t: t.cpu(), p) for p in params["parties"]]})
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab_size,
+                          size=(LM_CUT_BATCH, LM_CUT_PROMPT)).astype(np.int32)
+    res = {}
+    for name, sys_, p in (("card", card, params), ("cpu", cpu, cparams)):
+        toks = torch.from_numpy(prompt).to(sys_.device)
+        seeds = sys_.mask_seeds()
+        caches = sys_.init_caches(LM_CUT_BATCH,
+                                  LM_CUT_PROMPT + LM_CUT_ROUNDS)
+        E, caches = sys_.prefill(p, toks[:, :-1], caches, seeds=seeds,
+                                 round_idx=5)
+        out, _, _, _, logits = decode.serve_tokens(
+            sys_, p, toks[:, -1:], caches, LM_CUT_PROMPT - 1, LM_CUT_ROUNDS,
+            seeds, return_logits=True)
+        res[name] = (E.cpu(), logits.cpu(), out.cpu())
+    errs = {}
+    for i, what in ((0, "prefill embeddings"), (1, "logits")):
+        a, b = res["card"][i], res["cpu"][i]
+        errs[what] = (float((a - b).abs().max()),
+                      float(((a - b).abs() / b.abs().clamp_min(1e-30)).max()),
+                      bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5)))
+    same = bool(torch.equal(res["card"][2], res["cpu"][2]))
+    log("lm", f"depth cut to {LM_CUT_LAYERS} active layers (passive "
+              f"{_lm_layers(card)[1]}), same width, float32, TF32 off: "
+              f"batch {LM_CUT_BATCH}, prompt {LM_CUT_PROMPT}, "
+              f"{LM_CUT_ROUNDS} greedy rounds, card vs CPU port: "
+              + "; ".join(f"{w} max abs {e:.3g} max rel {r:.3g} "
+                          f"{'ok' if ok else 'FAIL'}"
+                          for w, (e, r, ok) in errs.items())
+              + f" (rtol 1e-4, atol 1e-5); tokens identical {same} "
+              f"{res['card'][2].tolist()}")
+    if not same or not all(ok for _, _, ok in errs.values()):
+        raise AssertionError("the depth-cut run differs between card and CPU")
+    return errs
+
+
+def phase_timing_flash():
+    """flash_attention_fwd at the serving path's prefill shapes, bfloat16,
+    beside its plain version and SDPA (the library yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    Hq, Hkv, hd = 16, 2, 128
+    for S in (1023, 2047):
+        q = torch.randn((1, S, Hq, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k = torch.randn((1, S, Hkv, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        v = torch.randn((1, S, Hkv, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kern = lambda: tfa.flash_attention_fwd(q, k, v, causal=True)
+        plain = lambda: ref.reference_attention(q, k, v, causal=True)
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True,
+                                                     enable_gqa=True)
+        # turns: plain, kernel, kernel, plain; then the library call
+        p1 = _time_ms(plain, reps=10, inner=5)
+        k1 = _time_ms(kern, reps=10, inner=5)
+        k2 = _time_ms(kern, reps=10, inner=5)
+        p2 = _time_ms(plain, reps=10, inner=5)
+        l1 = _time_ms(lib, reps=10, inner=5)
+        flops = 4 * hd * Hq * S * (S + 1) // 2
+        nbytes = 2 * (2 * S * Hq * hd + 2 * S * Hkv * hd)
+        op_ms = flops / BF16_FLOPS * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(op_ms, byte_ms)
+        out[S] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                  "library_ms": l1, "bound_ms": bound,
+                  "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+                  "flops": flops, "bytes": nbytes}
+        log("timing", f"flash_attention_fwd (1, {S}, {Hq}/{Hkv}, {hd}) "
+                      f"causal bfloat16: kernel {k1:.4f}/{k2:.4f} ms, plain "
+                      f"{p1:.4f}/{p2:.4f} ms, SDPA (library yardstick) "
+                      f"{l1:.4f} ms; bound {bound:.5f} ms ({flops} flops of "
+                      f"the causal pairs at 989 TFLOP/s bf16 "
+                      f"{op_ms:.5f} ms; {nbytes} B at 3.35 TB/s "
+                      f"{byte_ms:.5f} ms; data-sheet peaks), kernel at "
+                      f"{min(k1, k2) / bound:.1f}x it")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def _table2_batches(n):
@@ -1034,24 +1487,31 @@ def main() -> int:
     timing = phase_timing()
     timing_prng = phase_timing_prng()
     phase_profile(batches, params0)
+    worst_f32["flash_attention_fwd"] = phase_flash()
+    lm_launches, lm = phase_lm()
+    lm_cut = phase_lm_cut()
+    timing_flash = phase_timing_flash()
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
     if bad:
         raise AssertionError(f"the port imported {bad[:5]}")
 
     paths = (slice_launches, joint_launches, many_launches, many_joint,
-             many_unfused)
-    launches = {name: sum(p[name] for p in paths)
+             many_unfused, lm_launches)
+    launches = {name: sum(p.get(name, 0) for p in paths)
                 for name in ("blind_agg_fwd", "blind_agg_bwd",
-                             "blind_agg_prng_fwd")}
+                             "blind_agg_prng_fwd", "flash_attention_fwd")}
     log("launches", f"main paths {launches} (Table II slice "
                     f"{slice_launches}, Table II joint {joint_launches}, "
                     f"many-party fused {many_launches}, many-party joint "
-                    f"{many_joint}, many-party unfused {many_unfused})")
+                    f"{many_joint}, many-party unfused {many_unfused}, "
+                    f"qwen2.5-3b serving {lm_launches})")
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"blind_agg_fwd": "src/repro/kernels/blind_agg.py:38",
                 "blind_agg_bwd": "src/repro/kernels/blind_agg.py:57",
-                "blind_agg_prng_fwd": "src/repro/kernels/blind_agg.py:164"}
+                "blind_agg_prng_fwd": "src/repro/kernels/blind_agg.py:164",
+                "flash_attention_fwd":
+                    "src/repro/kernels/flash_attention.py:22"}
     kernels = []
     for name in ("blind_agg_fwd", "blind_agg_bwd"):
         t = timing["slice"][name]
@@ -1071,12 +1531,23 @@ def main() -> int:
         "max_abs_err": worst_f32["blind_agg_prng_fwd"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None})
+    t = timing_flash[1023]
+    kernels.append({
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": csrc + "flash_attention.cu",
+        "replaces": replaces["flash_attention_fwd"],
+        "launches": launches["flash_attention_fwd"],
+        "max_abs_err": worst_f32["flash_attention_fwd"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels, "slice_ms_per_round": ms_round,
                       "table2_engines": engines,
                       "many_party_ms_per_round": {"fused": fused_ms,
                                                   "unfused": unfused_ms},
                       "many_party": timing["many_party"],
-                      "prng": {str(k): v for k, v in timing_prng.items()}}))
+                      "prng": {str(k): v for k, v in timing_prng.items()},
+                      "flash": {str(k): v for k, v in timing_flash.items()},
+                      "lm": lm, "lm_depth_cut": lm_cut}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

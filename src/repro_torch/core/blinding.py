@@ -368,13 +368,21 @@ class MaskEngine:
 
         Every distinct pair mask is drawn once, in one batched threefry
         call; the per-party sums are a left fold over the ascending-j pair
-        axis, the loop oracle's addition order."""
+        axis, the loop oracle's addition order. ``round_idx`` may be an
+        (R,) sequence or tensor of per-lane rounds (batched serving):
+        ``shape`` then leads with the lane axis R and each lane's slice is
+        drawn under its own round, as R scalar calls of ``shape[1:]``."""
         device = resolve_device(device)
         K = self.n_passive
         shape = tuple(shape)
         mshape = () if scalar else shape
         if isinstance(round_idx, torch.Tensor):
-            round_idx = round_idx.item()
+            round_idx = round_idx.tolist()
+        lanes = (list(round_idx) if isinstance(round_idx, (list, tuple))
+                 else None)
+        if lanes is not None and (not mshape or mshape[0] != len(lanes)):
+            raise ValueError(f"per-lane rounds ({len(lanes)},) need a "
+                             f"leading lane axis on the shape, got {mshape}")
         n = math.prod(mshape)
         words = sorted({(int(h), int(l)) for h, l in
                         zip(self.seed_hi[:, :K - 1].ravel(),
@@ -383,8 +391,14 @@ class MaskEngine:
         total = torch.zeros((K,) + mshape, dtype=mask_dtype(mode),
                             device=device)
         if words:
-            keys = [_pair_key(h, l, round_idx) for h, l in words]
-            pm = _draw(keys, n, mode, device)
+            # one draw of n / R elements per (lane, pair) key, laid out as
+            # the lanes' consecutive slices of each pair's mask (R = 1:
+            # one scalar round)
+            rounds = [round_idx] if lanes is None else lanes
+            R, P = len(rounds), len(words)
+            keys = [_pair_key(h, l, r) for r in rounds for h, l in words]
+            pm = _draw(keys, n // R, mode, device)
+            pm = pm.reshape(R, P, n // R).transpose(0, 1).reshape(P, n)
             idx = torch.tensor([[row[(int(h), int(l))] for h, l in
                                  zip(self.seed_hi[k, :K - 1],
                                      self.seed_lo[k, :K - 1])]

@@ -1,0 +1,403 @@
+"""EASTER at LLM scale: the serving half (prefill and the blinded decode
+round) in PyTorch.
+
+Counterpart of ``repro.core.easter_lm``. Parties:
+  * party 0 (ACTIVE): the full architecture as its backbone;
+  * parties 1..K (PASSIVE): reduced-depth proxies of the same family
+    (depth x ``passive_depth_frac``, ``passive_cfg``).
+
+Per-party local model = backbone hidden states -> linear projection into
+the shared embedding space R^{d_embed} (the paper's embedding layer), then
+an MLP decision stack and an LM head (the paper's decision layers). Every
+round (prefill or decode) blinds the passive uplink with pairwise PRF
+masks and aggregates through ``_aggregate``: the float wire goes through
+``aggregation.blind_and_aggregate`` (the ``blind_agg_fwd`` kernel on the
+card), the int32/int8 ring wires through ``aggregation.aggregate_ring``.
+
+Engines: ``engine="vectorized"`` (the default, as in the reference) runs
+the K structurally identical passive proxies as one ``torch.func.vmap``
+over their stacked parameters; on the card the prompt attention inside it
+folds the party axis into the batch axis around one flash-kernel launch
+per layer. The passive group is stacked once, by ``init_params``,
+``load_params`` or ``group_params``, into ``params["passive_stacked"]``;
+the per-party trees are row views of it, and the per-step path reads it
+as it is and copies no weight (the reference restacks on every step,
+which costs nothing under jit and about 6 GB a round in eager torch at
+qwen2.5-3b). ``engine="loop"`` is
+the per-party oracle. ``engine="sharded"`` raises (ROADMAP.md queue 1
+item 14); training (``loss_fn``, ``train_chunk``) raises until the LM
+training slice.
+
+Serving entry points run under ``torch.no_grad()`` and on the system's
+device (None = the card).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from dataclasses import dataclass
+from typing import Any, Dict, List
+
+import torch
+from torch.func import vmap
+
+from repro_torch import checkpoint
+from repro_torch.configs.base import EasterConfig, ModelConfig
+from repro_torch.core import aggregation, blinding
+from repro_torch.core.party_engine import stack_trees, unstack_tree
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.layers import (apply_norm, init_linear, init_mlp,
+                                       init_norm, linear, mlp)
+from repro_torch.tree import tree_map
+
+# the EasterLM federation's fixed ceremony seed, as in the reference
+CEREMONY_SEED = 1729
+LM_TRAINING_TODO = ("EasterLM training (loss_fn, chunked_lm_head_xent, "
+                    "train_chunk, Trainer, launch/train.py) is the next slice "
+                    "of the port (ROADMAP.md queue 1)")
+
+
+def passive_cfg(cfg: ModelConfig, easter: EasterConfig, k: int) -> ModelConfig:
+    """Heterogeneous passive-party proxy: reduced depth, same family. An
+    MoE active with ``moe_dense_passive`` gets dense proxies whose FFN
+    width matches the MoE's active FLOPs."""
+    frac = easter.passive_depth_frac
+    n = max(2, int(round(cfg.n_layers * frac)))
+    if cfg.family == "hybrid":
+        n = max(len(cfg.hybrid.pattern), n - n % len(cfg.hybrid.pattern))
+    kw = dict(n_layers=n, tie_embeddings=True,
+              name=f"{cfg.name}-passive{k}")
+    if cfg.family == "moe" and easter.moe_dense_passive:
+        from repro_torch.configs.base import MoEConfig
+        kw.update(family="dense",
+                  d_ff=cfg.moe.d_expert_ff
+                  * (cfg.moe.top_k + cfg.moe.n_shared_experts),
+                  moe=MoEConfig())
+    return dataclasses.replace(cfg, **kw)
+
+
+@dataclass
+class EasterLM:
+    cfg: ModelConfig                 # active party's architecture
+    easter: EasterConfig
+    grad_mode: str = "easter"        # easter (paper) | joint (beyond-paper)
+    # vectorized: the K passive proxies share one config, so they run as
+    # one vmap over their stacked parameters; loop: the per-party oracle
+    engine: str = "vectorized"
+    device: Any = None               # None = the card
+
+    def __post_init__(self):
+        if self.engine == "sharded":
+            raise NotImplementedError(
+                "engine='sharded': the sharded party engine is ROADMAP.md "
+                "queue 1 item 14")
+        if self.engine not in ("vectorized", "loop"):
+            raise ValueError(f"engine {self.engine!r}")
+        if self.grad_mode not in ("easter", "joint"):
+            raise ValueError(f"grad_mode {self.grad_mode!r}")
+        if self.easter.mask_mode not in ("float",) + blinding.RING_MODES:
+            raise ValueError(f"mask_mode {self.easter.mask_mode!r}")
+        for pcfg in self.party_cfgs:
+            transformer._check_family(pcfg)
+        self.device = resolve_device(self.device)
+
+    @functools.cached_property
+    def party_cfgs(self) -> List[ModelConfig]:
+        active = dataclasses.replace(self.cfg, tie_embeddings=True)
+        return [active] + [passive_cfg(self.cfg, self.easter, k)
+                           for k in range(1, self.easter.num_passive + 1)]
+
+    @property
+    def C(self) -> int:
+        return self.easter.num_passive + 1
+
+    # -- blinding setup (host-side DH ceremony) -----------------------------
+    def mask_seeds(self):
+        """Mask synthesis state: a MaskEngine (vectorized engine) or the
+        raw pair-seed dict (loop oracle); None when fewer than two passive
+        parties or blinding is off. Memoized, as the ceremony costs
+        K(K-1)/2 2048-bit modexps."""
+        if self.easter.num_passive < 2 or not self.easter.enabled:
+            return None
+        if self.engine == "vectorized":
+            return blinding.cached_mask_engine(self.easter.num_passive,
+                                               CEREMONY_SEED)
+        return blinding.cached_passive_setup(self.easter.num_passive,
+                                             CEREMONY_SEED)[1]
+
+    # -- params --------------------------------------------------------------
+    def init_party(self, gen: torch.Generator,
+                   pcfg: ModelConfig) -> Dict[str, Any]:
+        d_e = self.easter.d_embed
+        dtype = transformer.torch_dtype(pcfg.dtype)
+        backbone = transformer.init_lm(gen, pcfg)
+        proj = init_linear(gen, pcfg.d_model, d_e, False, dtype)
+        decision = [{"ln": init_norm(pcfg.norm, d_e, dtype, gen.device),
+                     "mlp": init_mlp(gen, d_e, 4 * d_e, pcfg.act, dtype)}
+                    for _ in range(self.easter.decision_layers)]
+        return {
+            "backbone": backbone,
+            "proj": proj,
+            "decision": decision,
+            "final_norm": init_norm(pcfg.norm, d_e, dtype, gen.device),
+            "head": init_linear(gen, d_e, pcfg.vocab_size, False, dtype),
+        }
+
+    def init_params(self, gen: torch.Generator) -> Dict[str, Any]:
+        """{"parties": [active, passive 1..K]} drawn from ``gen`` on its
+        own device (a CUDA generator draws a large model on the card), on
+        ``self.device``, grouped (``group_params``). Weights drawn from a
+        torch generator differ from the reference's jax.random ones; tests
+        hand the reference's weights over with ``load_params``."""
+        parties = []
+        for pcfg in self.party_cfgs:
+            party = self.init_party(gen, pcfg)
+            parties.append(tree_map(
+                lambda t: t.to(self.device), party))
+        return self.group_params({"parties": parties})
+
+    def load_params(self, trees) -> Dict[str, Any]:
+        """The reference's ``init_params`` tree as numpy arrays (bfloat16
+        included) -> this system's grouped tensors on ``self.device``."""
+        return self.group_params(checkpoint.params_from_numpy(
+            trees, self.device, requires_grad=False))
+
+    @staticmethod
+    def export_params(params) -> Dict[str, Any]:
+        """The inverse of ``load_params``: the reference's
+        ``{"parties": [...]}`` tree as numpy arrays (the stacked passive
+        group stays behind)."""
+        return checkpoint.params_to_numpy({"parties": params["parties"]})
+
+    def group_params(self, params) -> Dict[str, Any]:
+        """Stack the passive group once (vectorized engine) into
+        ``params["passive_stacked"]``, which the grouped steps read as it
+        is; the returned passive parties are row views of it. Other
+        engines: unchanged."""
+        if not self._passive_group_ok():
+            return params
+        stacked = stack_trees(params["parties"][1:])
+        return {**params, "passive_stacked": stacked,
+                "parties": [params["parties"][0]]
+                + unstack_tree(stacked, self.easter.num_passive)}
+
+    @staticmethod
+    def _passive_stack(params):
+        """The stacked passive tree of ``params`` (no copy)."""
+        if "passive_stacked" not in params:
+            raise ValueError(
+                "the passive group is not stacked: build params with "
+                "EasterLM.init_params, load_params or group_params (the "
+                "vectorized engine reads the stacked weights as they are "
+                "instead of copying every passive weight each round)")
+        return params["passive_stacked"]
+
+    # -- protocol pieces -----------------------------------------------------
+    def local_embed(self, pparams, pcfg: ModelConfig, tokens, *, caches=None,
+                    pos_offset=0, window_override=-1):
+        h, new_caches, aux = transformer.apply_lm(
+            pparams["backbone"], tokens, pcfg, caches=caches,
+            pos_offset=pos_offset, window_override=window_override,
+            return_hidden=True)
+        E = linear(pparams["proj"], h)                 # (B, S, d_embed)
+        return E, new_caches, aux
+
+    def masks_for(self, shape, round_idx, seeds):
+        """(K, *shape) masks for ``round_idx`` (a scalar or an (R,) tensor
+        of per-lane rounds); ``fresh_masks=False`` collapses every round to
+        0, the paper's single static pad (per lane when per-lane)."""
+        if seeds is None:
+            return None
+        if self.easter.fresh_masks:
+            r = round_idx
+        elif isinstance(round_idx, torch.Tensor):
+            r = torch.zeros_like(round_idx)
+        else:
+            r = 0
+        if isinstance(seeds, blinding.MaskEngine):
+            return seeds.masks(shape, r, self.easter.mask_mode,
+                               device=self.device)
+        return blinding.all_party_masks(self.easter.num_passive, seeds, shape,
+                                        r, self.easter.mask_mode,
+                                        device=self.device)
+
+    def decide_hidden(self, pparams, pcfg: ModelConfig, E):
+        x = E
+        for blk in pparams["decision"]:
+            x = x + mlp(blk["mlp"], apply_norm(blk["ln"], x, pcfg.rms_eps),
+                        pcfg.act)
+        return apply_norm(pparams["final_norm"], x, pcfg.rms_eps)
+
+    def decide(self, pparams, pcfg: ModelConfig, E):
+        x = self.decide_hidden(pparams, pcfg, E)
+        return linear(pparams["head"], x)              # (B, S, vocab)
+
+    def _passive_group_ok(self) -> bool:
+        """True when parties 1..K are structurally identical (they are by
+        construction of passive_cfg: only the name differs) and the
+        vectorized engine is selected."""
+        if self.engine != "vectorized" or self.easter.num_passive < 1:
+            return False
+        anon = [dataclasses.replace(c, name="") for c in self.party_cfgs[1:]]
+        return all(c == anon[0] for c in anon)
+
+    def _aggregate(self, E_all, round_idx, seeds, lane_mask=None):
+        """Blind + aggregate (C, B, S, d) -> (E_all, global E).
+
+        ``lane_mask`` (B,) bool: rows of finished request lanes are zeroed
+        in both the embeddings and the masks before blinding, so a frozen
+        lane's uplink is exactly 0 on the wire (int32 included) and it
+        moves neither the int8 scale nor the wire bytes."""
+        masks = self.masks_for(tuple(E_all.shape[1:]), round_idx, seeds)
+        if lane_mask is not None:
+            keep = lane_mask.reshape((1, -1) + (1,) * (E_all.dim() - 2))
+            E_all = torch.where(keep, E_all, 0)
+            if masks is not None:
+                masks = torch.where(keep, masks, 0)
+        if masks is not None and self.easter.mask_mode in blinding.RING_MODES:
+            E = aggregation.aggregate_ring(E_all, masks,
+                                           self.easter.mask_mode)
+        else:
+            E = aggregation.blind_and_aggregate(E_all, masks)
+        return E_all, E
+
+    def _aggregate_grouped(self, E_a, up_p, blinded: bool, scale=None):
+        """Aggregate the active embedding with an already-gathered passive
+        uplink (blinded when ``blinded``: float E+r, ring quantize(E)+r;
+        int8 needs the round's ``scale``), in ``_aggregate``'s op order."""
+        if not blinded:
+            return torch.mean(torch.cat([E_a[None], up_p], dim=0), dim=0)
+        if self.easter.mask_mode == "int8":
+            return aggregation.aggregate_int8_blinded(
+                torch.cat([blinding.quantize_ring(E_a, "int8", scale)[None],
+                           up_p], 0), scale)
+        if self.easter.mask_mode == "int32":
+            return aggregation.aggregate_int32_blinded(
+                torch.cat([blinding.quantize(E_a)[None], up_p], 0))
+        return aggregation.aggregate(E_a, up_p)
+
+    # -- training (next slice) -------------------------------------------
+    def loss_fn(self, params, batch, round_idx, seeds):
+        raise NotImplementedError(LM_TRAINING_TODO)
+
+    def train_chunk(self, params, opt_state, batches, step0, opt):
+        raise NotImplementedError(LM_TRAINING_TODO)
+
+    # -- serving -------------------------------------------------------------
+    def init_caches(self, batch: int, cache_len: int,
+                    window_override: int = -1, per_lane: bool = False):
+        """KV caches for every party on ``self.device``. ``per_lane=True``
+        gives each batch row its own position counter (continuous-batching
+        decode slots, required whenever ``serve_step`` gets a vector
+        pos)."""
+        return [transformer.init_cache(pcfg, batch, cache_len,
+                                       window_override, per_lane,
+                                       device=self.device)
+                for pcfg in self.party_cfgs]
+
+    def _check_frontend(self, fe_list) -> None:
+        if fe_list:
+            raise transformer._unported("per-party frontend inputs")
+
+    @torch.no_grad()
+    def serve_step(self, params, tokens, caches, pos, seeds,
+                   window_override: int = -1, fe_list=None, *,
+                   lane_mask=None, nonces=None):
+        """One decode round: tokens (B, 1). Returns (active logits,
+        caches).
+
+        The decode uplink is blinded like every other round:
+        SERVE_DOMAIN + ``pos`` is the round index, or, with per-lane
+        ``nonces`` (B,), ``blinding.serve_round(nonce, pos)`` per lane so
+        that concurrent lanes never share a pad. ``pos`` may be a (B,)
+        tensor (each lane at its own position; caches must then be
+        per-lane); ``lane_mask`` (B,) zeroes finished lanes' uplink rows
+        (see ``_aggregate``)."""
+        self._check_frontend(fe_list)
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
+        if nonces is None:
+            round_idx = blinding.SERVE_DOMAIN + pos
+        else:
+            round_idx = blinding.serve_round(torch.as_tensor(
+                nonces, dtype=torch.int32, device=self.device), pos)
+        if lane_mask is not None:
+            lane_mask = torch.as_tensor(lane_mask, device=self.device)
+        po = pos[:, None] if pos.dim() == 1 else pos
+        if self._passive_group_ok():
+            return self._serve_step_grouped(params, tokens, caches, po, seeds,
+                                            window_override, round_idx,
+                                            lane_mask)
+        Es, new_caches = [], []
+        for k, pcfg in enumerate(self.party_cfgs):
+            E_k, nc, _ = self.local_embed(
+                params["parties"][k], pcfg, tokens, caches=caches[k],
+                pos_offset=po, window_override=window_override)
+            Es.append(E_k)
+            new_caches.append(nc)
+        E_all, E = self._aggregate(torch.stack(Es), round_idx, seeds,
+                                   lane_mask)
+        logits = self.decide(params["parties"][0], self.party_cfgs[0],
+                             E.to(E_all.dtype))
+        return logits, new_caches
+
+    def _passive_embed_grouped(self, params, tokens, caches, pos,
+                               window_override):
+        """The K passive parties' embeddings (K, B, S, d) and stacked new
+        caches from one vmap over the stacked group."""
+        pcfg_p = self.party_cfgs[1]
+        sp = self._passive_stack(params)
+        sc = stack_trees(caches[1:])
+
+        def one(p, c):
+            E_k, nc, _ = self.local_embed(p, pcfg_p, tokens, caches=c,
+                                          pos_offset=pos,
+                                          window_override=window_override)
+            return E_k, nc
+
+        return vmap(one)(sp, sc)
+
+    def _serve_step_grouped(self, params, tokens, caches, pos, seeds,
+                            window_override, round_idx, lane_mask=None):
+        pcfg_a = self.party_cfgs[0]
+        E_a, nc_a, _ = self.local_embed(
+            params["parties"][0], pcfg_a, tokens, caches=caches[0],
+            pos_offset=pos, window_override=window_override)
+        E_p, nc_p = self._passive_embed_grouped(params, tokens, caches, pos,
+                                                window_override)
+        E_all, E = self._aggregate(torch.cat([E_a[None], E_p], dim=0),
+                                   round_idx, seeds, lane_mask)
+        logits = self.decide(params["parties"][0], pcfg_a, E.to(E_all.dtype))
+        new_caches = [nc_a] + unstack_tree(nc_p, self.easter.num_passive)
+        return logits, new_caches
+
+    @torch.no_grad()
+    def prefill(self, params, tokens, caches, window_override: int = -1,
+                fe_list=None, seeds=None, round_idx=0):
+        """Cache-building forward over the prompt; returns (E, caches).
+
+        The prompt-phase uplink is blinded like every other round under
+        PREFILL_DOMAIN + ``round_idx``, a per-request nonce: two prefills
+        under one round would reuse the pairwise pads. ``seeds=None`` is
+        the unblinded oracle."""
+        self._check_frontend(fe_list)
+        r = blinding.PREFILL_DOMAIN + round_idx
+        if self._passive_group_ok():
+            pcfg_a = self.party_cfgs[0]
+            E_a, nc_a, _ = self.local_embed(
+                params["parties"][0], pcfg_a, tokens, caches=caches[0],
+                window_override=window_override)
+            E_p, nc_p = self._passive_embed_grouped(params, tokens, caches, 0,
+                                                    window_override)
+            _, E = self._aggregate(torch.cat([E_a[None], E_p], dim=0), r,
+                                   seeds)
+            return E, [nc_a] + unstack_tree(nc_p, self.easter.num_passive)
+        Es, new_caches = [], []
+        for k, pcfg in enumerate(self.party_cfgs):
+            E_k, nc, _ = self.local_embed(
+                params["parties"][k], pcfg, tokens, caches=caches[k],
+                window_override=window_override)
+            Es.append(E_k)
+            new_caches.append(nc)
+        _, E = self._aggregate(torch.stack(Es), r, seeds)
+        return E, new_caches

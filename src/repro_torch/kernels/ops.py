@@ -1,14 +1,17 @@
 """Public kernel entry points, dispatched on the tensors' device.
 
-CUDA tensors go to the hand-written kernels (``blind_agg``), which launch
-or raise; CPU tensors go to the plain versions in ``ref``. Nothing falls
-back from the kernel to the plain version."""
+CUDA tensors go to the hand-written kernels (``blind_agg``,
+``flash_attention``), which launch or raise; CPU tensors go to the plain
+versions in ``ref``. Nothing falls back from the kernel to the plain
+version."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import blind_agg as _ba
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+
 
 def blind_agg(E_active: torch.Tensor, E_passive: torch.Tensor,
               masks: torch.Tensor) -> torch.Tensor:
@@ -39,4 +42,19 @@ def blind_agg_prng(E_active: torch.Tensor, E_passive: torch.Tensor, engine,
         return ref.reference_blind_agg_prng(E_active, E_passive, engine,
                                             round_idx, mask_scale=mask_scale)
     raise ValueError(f"blind_agg_prng needs all inputs on one device type, "
+                     f"got {sorted(devices)}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Causal and/or sliding-window GQA attention, forward only.
+    q (B,S,Hq,hd), k/v (B,T,Hkv,hd) -> (B,S,Hq,hd) in q's dtype. Runs
+    under ``torch.func.vmap`` on the card (the vmapped axis is folded into
+    the batch axis around one launch)."""
+    devices = {q.device.type, k.device.type, v.device.type}
+    if devices == {"cuda"}:
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    if devices == {"cpu"}:
+        return ref.reference_attention(q, k, v, causal=causal, window=window)
+    raise ValueError(f"flash_attention needs all inputs on one device type, "
                      f"got {sorted(devices)}")

@@ -2,6 +2,8 @@
 what the dispatcher in ``ops`` runs for CPU tensors)."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import blinding
@@ -38,3 +40,27 @@ def reference_blind_agg_prng(E_active, E_passive, engine, round_idx, *,
                          scale=mask_scale, device=E_passive.device)
     return reference_blind_agg(E_active, E_passive,
                                masks.to(E_passive.dtype))
+
+
+def reference_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (B,S,Hq,hd), k/v (B,T,Hkv,hd) -> (B,S,Hq,hd) in q's dtype. Naive
+    materialized GQA attention in float32 (query head h reads kv head
+    h // (Hq / Hkv)); masked logits are -1e30, as the flash kernel's."""
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kr = torch.repeat_interleave(k, G, dim=2)
+    vr = torch.repeat_interleave(v, G, dim=2)
+    logits = torch.einsum("bshd,bthd->bhst", q.float(),
+                          kr.float()) / math.sqrt(hd)
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window > 0:
+        mask = mask & (k_pos > q_pos - window)
+    logits = torch.where(mask[None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs, vr.float())
+    return out.to(q.dtype)

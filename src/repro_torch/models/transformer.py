@@ -1,0 +1,277 @@
+"""Decoder-only transformer stacks of the dense family.
+
+Counterpart of ``repro.models.transformer``. The layer stack keeps the
+reference's (pattern, repeats) *segments* and its stacked parameter
+layout: each segment position holds one tree whose leaves carry a leading
+(reps, ...) axis, so the reference's weights carry over leaf for leaf.
+Where the reference scans a segment with ``lax.scan``, the port loops over
+the reps in Python, indexing each stacked leaf (a view, no copy).
+
+  dense (no SWA):     [(("attn",), n_layers)]
+  gemma3-like (l:g):  [(("local",)*l + ("global",)*g, reps), (rem, 1)]
+
+Caches mirror the segment structure: per segment, per pattern position,
+a stacked (reps, B, ...) tree. The MoE, SSM, RG-LRU, cross-attention,
+encoder-decoder and vision families raise ``NotImplementedError``
+(ROADMAP.md queue 1 item 13).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (
+    apply_norm, embed, init_attention, init_embedding, init_linear, init_mlp,
+    init_norm, linear, mlp, rope_cos_sin, self_attention,
+)
+from repro_torch.tree import tree_map
+
+Params = Dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+_DENSE_KINDS = ("attn", "local", "global")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _unported(what: str):
+    return NotImplementedError(
+        f"{what}: only the dense transformer family is ported; the MoE, "
+        f"SSM, RG-LRU, cross-attention, encoder-decoder and vision parties "
+        f"are ROADMAP.md queue 1 item 13")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise _unported(f"family {cfg.family!r}")
+
+
+# ---------------------------------------------------------------------------
+# stack plan
+# ---------------------------------------------------------------------------
+
+
+def stack_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    if cfg.family == "moe":
+        kinds = ("moe",)
+    elif cfg.family == "ssm":
+        kinds = ("ssm",)
+    elif cfg.family == "hybrid":
+        kinds = tuple(cfg.hybrid.pattern)
+    elif cfg.window > 0:
+        l, g = cfg.swa_pattern
+        kinds = ("local",) * l + ("global",) * g
+    else:
+        kinds = ("attn",)
+    p = len(kinds)
+    reps, rem = divmod(cfg.n_layers, p)
+    plan = []
+    if reps:
+        plan.append((kinds, reps))
+    if rem:
+        plan.append((kinds[:rem], 1))
+    return plan
+
+
+def _layer_window(cfg: ModelConfig, kind: str) -> int:
+    if kind == "local":
+        return cfg.window
+    if kind == "attn" and cfg.family == "hybrid":
+        return cfg.hybrid.window
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# per-kind block init / apply
+# ---------------------------------------------------------------------------
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
+    if kind not in _DENSE_KINDS:
+        raise _unported(f"block kind {kind!r}")
+    dtype = torch_dtype(cfg.dtype)
+    d = cfg.d_model
+    dev = gen.device
+    return {"ln1": init_norm(cfg.norm, d, dtype, dev),
+            "attn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim, cfg.qkv_bias,
+                                   dtype),
+            "ln2": init_norm(cfg.norm, d, dtype, dev),
+            "mlp": init_mlp(gen, d, cfg.d_ff, cfg.act, dtype)}
+
+
+def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
+                cos, sin, cache: Optional[dict], window_override: int = -1,
+                causal: bool = True):
+    """Returns (x, new_cache, aux)."""
+    if kind not in _DENSE_KINDS:
+        raise _unported(f"block kind {kind!r}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    window = (_layer_window(cfg, kind) if window_override < 0
+              else window_override)
+    h, new_cache = self_attention(
+        p["attn"], apply_norm(p["ln1"], x, cfg.rms_eps),
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, causal=causal, window=window,
+        cos=cos, sin=sin, cache=cache)
+    x = x + h
+    h = mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.rms_eps), cfg.act)
+    return x + h, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                 window_override: int = -1, per_lane: bool = False,
+                 device=None):
+    if kind not in _DENSE_KINDS:
+        raise _unported(f"block kind {kind!r}")
+    dtype = torch_dtype(cfg.dtype)
+    window = (_layer_window(cfg, kind) if window_override < 0
+              else window_override)
+    T = min(cache_len, window) if window > 0 else cache_len
+    hd = cfg.resolved_head_dim
+    # per_lane: each batch row decodes at its own position (continuous
+    # batching): "idx" is (batch,) and the decode path writes and masks
+    # per row (layers.self_attention)
+    idx0 = torch.zeros((batch,) if per_lane else (), dtype=torch.int32,
+                       device=device)
+    shape = (batch, T, cfg.n_kv_heads, hd)
+    if cfg.kv_quant:
+        sshape = (batch, T, cfg.n_kv_heads, 1)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=torch.bfloat16,
+                                       device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_scale": torch.zeros(sshape, dtype=torch.bfloat16,
+                                       device=device),
+                "idx": idx0}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "idx": idx0}
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               window_override: int = -1, per_lane: bool = False,
+               device=None):
+    """Stacked cache tree mirroring stack_plan: a list of segments, each a
+    {"p<i>": leaves with a leading (reps,) axis} dict."""
+    _check_family(cfg)
+    segs = []
+    for kinds, reps in stack_plan(cfg):
+        seg = {}
+        for i, kind in enumerate(kinds):
+            one = _block_cache(cfg, kind, batch, cache_len, window_override,
+                               per_lane, device)
+            seg[f"p{i}"] = tree_map(
+                lambda a: a[None].repeat((reps,) + (1,) * a.dim()), one)
+        segs.append(seg)
+    return segs
+
+
+# ---------------------------------------------------------------------------
+# LM init / apply
+# ---------------------------------------------------------------------------
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Backbone parameters on the generator's device, in the reference's
+    layout (segment leaves stacked over the reps axis)."""
+    _check_family(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    params: Params = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype),
+        "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = init_linear(gen, cfg.d_model, cfg.vocab_size, False,
+                                     dtype)
+    segs = []
+    for kinds, reps in stack_plan(cfg):
+        seg = {}
+        for i, kind in enumerate(kinds):
+            blocks = [init_block(gen, cfg, kind) for _ in range(reps)]
+            seg[f"p{i}"] = tree_map(lambda *xs: torch.stack(xs), *blocks)
+            del blocks
+        segs.append(seg)
+    params["segments"] = segs
+    return params
+
+
+def _cos_sin(cfg: ModelConfig, positions: torch.Tensor):
+    if cfg.rope_theta <= 0:
+        return None, None
+    if cfg.family == "vlm":
+        raise _unported("M-RoPE (qwen2-vl)")
+    return rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
+                  window_override: int = -1):
+    """Every layer of every (pattern, reps) segment in order. Returns
+    (x, new_caches, aux)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = []
+    for si, (kinds, reps) in enumerate(stack_plan(cfg)):
+        seg_params = params["segments"][si]
+        seg_cache = caches[si] if caches is not None else None
+        per_rep = []
+        for r in range(reps):
+            new_c = {}
+            for i, kind in enumerate(kinds):
+                blk = tree_map(lambda a: a[r], seg_params[f"p{i}"])
+                blk_cache = (tree_map(lambda a: a[r], seg_cache[f"p{i}"])
+                             if seg_cache is not None else None)
+                x, nc, a = apply_block(
+                    blk, x, cfg=cfg, kind=kind, cos=cos, sin=sin,
+                    cache=blk_cache, window_override=window_override)
+                if nc is not None:
+                    new_c[f"p{i}"] = nc
+                aux_total = aux_total + a
+            per_rep.append(new_c)
+        if seg_cache is not None:
+            new_caches.append({
+                key: tree_map(lambda *xs: torch.stack(xs),
+                              *[c[key] for c in per_rep])
+                for key in per_rep[0]})
+        else:
+            new_caches.append(None)
+    return x, (new_caches if caches is not None else None), aux_total
+
+
+def apply_lm(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+             positions: Optional[torch.Tensor] = None, caches=None,
+             pos_offset=0, window_override: int = -1,
+             return_hidden: bool = False, **frontend):
+    """Forward pass. tokens (B, S). Returns (logits | hidden, new_caches,
+    aux). Decode: pass ``caches`` (from init_cache or the previous step)
+    and ``pos_offset`` = the current sequence index (an int, a 0-d tensor
+    or a (B, 1) tensor of per-lane positions)."""
+    _check_family(cfg)
+    if frontend:
+        raise _unported(f"frontend inputs {sorted(frontend)}")
+    B, S = tokens.shape
+    x = embed(params["embed"], tokens)
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)[None] + pos_offset
+        positions = positions.expand(B, S)
+    cos, sin = _cos_sin(cfg, positions)
+    x, new_caches, aux = _run_segments(
+        params, x, cfg=cfg, cos=cos, sin=sin, caches=caches,
+        window_override=window_override)
+    x = apply_norm(params["final_norm"], x, cfg.rms_eps)
+    if return_hidden:
+        return x, new_caches, aux
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["table"].T
+    else:
+        logits = linear(params["head"], x)
+    return logits, new_caches, aux

@@ -14,7 +14,10 @@ its plain version (MaskEngine masks on the card through
 evaluate the same float32 steps with the same CUDA log1pf and sqrtf), so
 only the order of the float32 sum over parties differs: within
 (K + 2) * 2^-24 * S / C, S = |E_a| + sum_k (|E_k| + |r_k|), plus one ulp
-of the output in its dtype.
+of the output in its dtype. Flash attention against its plain version:
+the reference sweep's tolerance, atol 3e-5 (float32) or 3e-2 (bfloat16)
+and rtol 1e-2; at the serving path's prefill shapes bfloat16 also within
+one bfloat16 ulp of float32 attention on the same inputs.
 """
 import numpy as np
 import pytest
@@ -26,7 +29,8 @@ from repro_torch.core import blinding
 from repro_torch.core.party_models import PartyArch
 from repro_torch.core.protocol import EasterClassifier
 from repro_torch.kernels import blind_agg as tba
-from repro_torch.kernels import ref
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops, ref
 from repro_torch.tree import tree_leaves
 
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -198,3 +202,159 @@ def test_cuda_fused_mask_step_matches_cpu(cuda):
     torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=0)
     for a, b in zip(out[0][1], out[1][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the LM serving slice
+# ---------------------------------------------------------------------------
+
+_FLASH_HEADS = [(4, 4, 64), (4, 2, 64), (8, 1, 64), (4, 2, 128), (2, 2, 32)]
+_FLASH_MASKS = [(True, 0), (False, 0), (True, 32)]
+
+
+def _flash_inputs(B, S, T, Hq, Hkv, hd, dtype, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=gen).to(dtype).to(device)
+            for s in ((B, S, Hq, hd), (B, T, Hkv, hd), (B, T, Hkv, hd))]
+
+
+def _flash_close(out, want, dtype):
+    """The reference sweep's tolerance: atol 3e-5 (float32) or 3e-2
+    (bfloat16), rtol 1e-2."""
+    atol = 3e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float().cpu(), want.float().cpu(),
+                               atol=atol, rtol=1e-2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", _FLASH_MASKS)
+@pytest.mark.parametrize("Hq,Hkv,hd", _FLASH_HEADS)
+@pytest.mark.parametrize("S", [64, 128, 256, 7, 100, 1023])
+def test_cuda_flash_matches_plain(cuda, S, Hq, Hkv, hd, causal, window,
+                                  dtype):
+    """The reference sweep (S 64-256) plus ragged lengths (T = S), which
+    the kernel takes as they are: tail rows unwritten, tail columns
+    masked."""
+    dt = _TDT[dtype]
+    q, k, v = _flash_inputs(2, S, S, Hq, Hkv, hd, dt, cuda, S + hd)
+    before = tfa.LAUNCHES["flash_attention_fwd"]
+    out = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_fwd"] == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    _flash_close(out, ref.reference_attention(q, k, v, causal=causal,
+                                              window=window), dt)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S", [(1, 511), (1, 1023), (1, 2047), (3, 511),
+                                 (3, 1023), (3, 2047)])
+def test_cuda_flash_matches_plain_at_prefill_shapes(cuda, B, S, dtype):
+    """The serving path's prefill shapes at qwen2.5-3b's heads (16/2/128,
+    causal): the active party's (B = 1) and the passive group's folded
+    into the batch axis (B = 3). bfloat16 is also held within one
+    bfloat16 ulp (2^-7 |exact| + 1e-5) of float32 attention on the same
+    inputs: the sweep's atol 3e-2 is near a row's size at these lengths
+    (~0.05 at S = 1023) and would pass a dropped 64-key tile, which moves
+    a late row's elements by ~0.006-0.013; the kernel, float32 throughout
+    with one rounding of the output, stays within half an ulp."""
+    dt = _TDT[dtype]
+    q, k, v = _flash_inputs(B, S, S, 16, 2, 128, dt, cuda, B * S)
+    out = tfa.flash_attention_fwd(q, k, v, causal=True)
+    _flash_close(out, ref.reference_attention(q, k, v), dt)
+    if dt == torch.bfloat16:
+        exact = ref.reference_attention(q.float(), k.float(), v.float())
+        assert bool(((out.float() - exact).abs()
+                     <= 2.0 ** -7 * exact.abs() + 1e-5).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("causal,window", _FLASH_MASKS + [(False, 32)])
+def test_cuda_flash_s_differs_from_t(cuda, causal, window):
+    q, k, v = _flash_inputs(1, 50, 130, 4, 2, 64, torch.float32, cuda, 1)
+    _flash_close(tfa.flash_attention_fwd(q, k, v, causal=causal,
+                                         window=window),
+                 ref.reference_attention(q, k, v, causal=causal,
+                                         window=window), torch.float32)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_flash_under_vmap_folds_the_party_axis(cuda):
+    from torch.func import vmap
+    q, k, v = _flash_inputs(3, 37, 37, 16, 2, 128, torch.bfloat16, cuda, 2)
+    before = tfa.LAUNCHES["flash_attention_fwd"]
+    with torch.no_grad():
+        out = vmap(lambda a, b, c: ops.flash_attention(a[None], b[None],
+                                                       c[None])[0])(q, k, v)
+    assert tfa.LAUNCHES["flash_attention_fwd"] == before + 1
+    _flash_close(out, ref.reference_attention(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _flash_inputs(1, 8, 8, 4, 2, 64, torch.float32, cuda, 3)
+    with pytest.raises(TypeError, match="dtype"):
+        tfa.flash_attention_fwd(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_fwd(q[..., :48].contiguous(),
+                                k[..., :48].contiguous(),
+                                v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2))
+    with pytest.raises(ValueError, match="group"):
+        tfa.flash_attention_fwd(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(TypeError, match="dtype"):
+        tfa.flash_attention_fwd(q.half(), k.half(), v.half())
+    # the attention modes choose among CPU paths: on the card they raise
+    from repro_torch.models import layers
+    with pytest.raises(ValueError, match="CPU path"):
+        layers._attend(q, k, v, True, 0, "chunked", 8)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("engine", ["vectorized", "loop"])
+def test_cuda_easter_lm_prefill_and_serve_step_match_cpu(cuda, engine):
+    """The smoke variant of qwen2.5-3b: prefill of a ragged 11-token
+    prompt and one decode round with per-lane nonces and a frozen lane,
+    on the card against the CPU port (float32, TF32 off): embeddings and
+    logits within rtol 1e-4 / atol 1e-5. On the card every prefill layer
+    runs flash_attention_fwd (the vectorized engine folds the passive
+    group into one launch a layer) and every round one blind_agg_fwd."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.core.easter_lm import EasterLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_config("qwen2.5-3b"))
+    card = EasterLM(cfg, EasterConfig(), engine=engine)
+    cpu = EasterLM(cfg, EasterConfig(), engine=engine, device="cpu")
+    params0 = cpu.export_params(
+        cpu.init_params(torch.Generator().manual_seed(0)))
+    tok = torch.randint(0, cfg.vocab_size, (2, 12),
+                        generator=torch.Generator().manual_seed(1))
+    out = []
+    for sys_ in (card, cpu):
+        params = sys_.load_params(params0)
+        seeds = sys_.mask_seeds()
+        tba.reset_launches()
+        tfa.reset_launches()
+        t = tok.to(sys_.device)
+        E, caches = sys_.prefill(params, t[:, :-1],
+                                 sys_.init_caches(2, 16, per_lane=True),
+                                 seeds=seeds, round_idx=3)
+        logits, _ = sys_.serve_step(
+            params, t[:, -1:], caches, torch.tensor([11, 11]), seeds,
+            lane_mask=torch.tensor([True, False], device=sys_.device),
+            nonces=torch.tensor([1, 2]))
+        out.append((E.cpu(), logits.cpu(),
+                    tfa.LAUNCHES["flash_attention_fwd"],
+                    tba.LAUNCHES["blind_agg_fwd"]))
+    La, Lp = card.party_cfgs[0].n_layers, card.party_cfgs[1].n_layers
+    K = card.easter.num_passive
+    assert out[0][2] == La + (Lp if engine == "vectorized" else K * Lp)
+    assert out[0][3] == 2 and out[1][2:] == (0, 0)
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-5)
