@@ -47,13 +47,14 @@ Phases, each printing its own lines:
   profile host-clock split of a Table II round into masks and train step,
           and torch.profiler device time by kernel over 5 rounds.
   flash   holds flash_attention_fwd against its plain version on the card:
-          the reference sweep (S 64-256 x five (Hq, Hkv, hd) x causal,
-          non-causal and causal window 32 x float32/bfloat16), ragged S of
-          7, 100 and 1023 (T = S), S = 50 against T = 130, the serving
-          path's prefill shapes (1 or 3, 511 | 1023 | 2047, 16/2/128)
-          causal in float32 and bfloat16 (bfloat16 also within one ulp
-          of float32 attention on the same inputs), and one vmap over 3
-          parties (one launch).
+          the reference sweep (S 64-256 x six (Hq, Hkv, hd), 16/1/256
+          among them, x causal, non-causal and causal window 32 x
+          float32/bfloat16), ragged S of 7, 100 and 1023 (T = S), S = 50
+          against T = 130, the serving paths' prefill shapes (1 or 3, 511
+          | 1023 | 2047) at 16/2/128 causal and 16/1/256 causal window 2048
+          in float32 and bfloat16 (bfloat16 also within one ulp of float32
+          attention on the same inputs), and one vmap over 3 parties (one
+          launch).
   lm      EasterLM on qwen2.5-3b at full width and depth (36 layers, three
           9-layer passive proxies, 6.2e9 parameters, bfloat16, random from
           a torch.Generator seeded 0 on the card): a 4-lane ServingEngine
@@ -67,14 +68,38 @@ Phases, each printing its own lines:
           layers (passive 2) in float32 with TF32 off, against the CPU
           port: prefill embeddings and the logits of 4 decode rounds
           within rtol 1e-4 / atol 1e-5, identical greedy tokens.
+  rglru   holds rglru_scan_fwd against its plain version on the card
+          (rtol = atol = 1e-6; bit-identical expected): the reference sweep
+          (2,64,128), (1,128,256), (4,32,64), (3,96,128), ragged L and W
+          (7 and 1000 x 100 and 4000), the serving shapes (1 or 3, 511 |
+          1023 | 2047, 4096), each with float32 and bfloat16 a and b from a
+          non-zero h0, the 512-step decay case (a = 0.99, b = 0.01), and
+          one vmap over 3 parties (one launch).
+  rg      EasterLM on recurrentgemma-9b at full width and depth (38 layers:
+          12 x (lru, lru, attn) + (lru, lru); d_model and lru_width 4096;
+          MQA 16/1 x 256 with a local window of 2048; three 9-layer
+          passive proxies; 15.3e9 parameters, bfloat16, random from a
+          torch.Generator seeded 0 on the card), served as in lm after the
+          qwen2.5-3b model is freed; launch counts asserted (26 + 6
+          rglru_scan_fwd and 12 + 3 flash_attention_fwd a prefill, one
+          blind_agg_fwd a round); profiler windows as in lm.
+  rg_cut  recurrentgemma-9b cut to one pattern repeat (3 active layers,
+          3 per passive proxy; 6.35e9 parameters, 25.4 GB in float32),
+          TF32 off, against the CPU port on the same weights as in lm's
+          depth cut; the host copy is made leaf by leaf, and the passive
+          parties are cut to 1 if the host's available memory is under
+          twice the weights.
   timing  (flash) the kernel, its plain version and SDPA (the library
           yardstick, never on the path) at (1, 1023 | 2047, 16/2, 128)
-          bfloat16 causal, with the bound of the causal pairs' flops at the
-          bf16 tensor-core peak.
+          bfloat16 causal and at (1, 2047, 16/1, 256) bfloat16 causal
+          window 2048, with the bound of the causal pairs' flops at the
+          bf16 tensor-core peak; (rglru) the kernel and its plain version
+          at (1 | 3, 2047, 4096) float32 beside the bytes bound.
 
 The launch counters are set to 0 just before each counted path (slice,
 joint, many-party fused, many-party joint, many-party unfused, qwen2.5-3b
-serving) and read just after. The second-to-last line is the JSON kernel record; the last
+serving, recurrentgemma-9b serving) and read just after; every kernel
+must have launched on some path. The second-to-last line is the JSON kernel record; the last
 line is {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no result. It needs a CUDA device and the
 repository's src/ beside it.
@@ -132,13 +157,27 @@ BF16_FLOPS = 989e12              # H100 SXM data sheet, dense bf16 tensor cores
 # (tests/test_kernels.py) plus ragged lengths and the qwen2.5-3b shape
 FLASH_S = (64, 128, 256)
 FLASH_RAGGED_S = (7, 100, 1023)
-FLASH_HEADS = ((4, 4, 64), (4, 2, 64), (8, 1, 64), (4, 2, 128), (2, 2, 32))
+FLASH_HEADS = ((4, 4, 64), (4, 2, 64), (8, 1, 64), (4, 2, 128), (2, 2, 32),
+               (16, 1, 256))
 FLASH_MASKS = ((True, 0), (False, 0), (True, 32))
 # the serving path's prefill shapes (prompt[:-1] of 512/1024/2048 tokens):
 # (B, S) for the active party (B = 1) and the folded passive group (B = 3)
 FLASH_PREFILL = ((1, 511), (1, 1023), (1, 2047), (3, 511), (3, 1023),
                  (3, 2047))
 FLASH_PREFILL_HEADS = (16, 2, 128)
+# the recurrentgemma-9b serving slice: the same serving run on Griffin
+# parties (38 layers: 12 x (lru, lru, attn) + (lru, lru); three 9-layer
+# passive proxies), 16/1/256 heads with a local window of 2048; the depth
+# cut keeps one pattern repeat (3 active layers, 3 per passive proxy)
+RG_ARCH = "recurrentgemma-9b"
+RG_CUT_LAYERS = 3
+RG_FLASH_HEADS, RG_WINDOW = (16, 1, 256), 2048
+# rglru_scan_fwd against its plain version: the reference sweep
+# (tests/test_kernels.py), ragged L and W, and the serving path's prefill
+# shapes (B = 1, and 3 for the folded passive group) at width 4096
+RGLRU_SWEEP = ((2, 64, 128), (1, 128, 256), (4, 32, 64), (3, 96, 128))
+RGLRU_RAGGED = ((2, 7, 100), (1, 1000, 4000), (3, 7, 4000), (1, 1000, 100))
+RGLRU_SERVE = tuple((B, L, 4096) for B in (1, 3) for L in (511, 1023, 2047))
 
 
 def log(phase: str, msg: str) -> None:
@@ -1007,9 +1046,11 @@ def _flash_case(B, S, T, Hq, Hkv, hd, causal, window, dtype, gen):
                                   .all())
 
 
-def _flash_prefill_case(B, S, dtype, gen):
-    """One of the serving path's prefill shapes at qwen2.5-3b's heads
-    (16/2/128, causal): (max abs error against the plain version in the
+def _flash_prefill_case(B, S, dtype, gen, heads=FLASH_PREFILL_HEADS,
+                        window=0):
+    """One of the serving paths' prefill shapes, causal, at qwen2.5-3b's
+    heads (16/2/128) or recurrentgemma-9b's (16/1/256 with its window of
+    2048): (max abs error against the plain version in the
     same dtype, the share of the ulp bound used against the plain version
     in float32 on the same inputs, within tolerance).
 
@@ -1023,14 +1064,16 @@ def _flash_prefill_case(B, S, dtype, gen):
     import torch
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ref
-    Hq, Hkv, hd = FLASH_PREFILL_HEADS
+    Hq, Hkv, hd = heads
     q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
-    out = tfa.flash_attention_fwd(q, k, v, causal=True).float()
-    want = ref.reference_attention(q, k, v, causal=True).float()
+    out = tfa.flash_attention_fwd(q, k, v, causal=True,
+                                  window=window).float()
+    want = ref.reference_attention(q, k, v, causal=True,
+                                   window=window).float()
     exact = ref.reference_attention(q.float(), k.float(), v.float(),
-                                    causal=True)
+                                    causal=True, window=window)
     torch.cuda.synchronize()
     err = (out - want).abs()
     used = float(((out - exact).abs()
@@ -1062,23 +1105,31 @@ def phase_flash():
         worst[case[-1]] = max(worst[case[-1]], err)
         if not ok:
             failed.append((case, err))
-    # the serving path's prefill shapes: the active party's (B = 1) and
-    # the passive group's, folded into the batch axis (B = 3)
-    for B, S in FLASH_PREFILL:
-        for dt in (f32, bf16):
-            err, used, ok = _flash_prefill_case(B, S, dt, gen)
-            worst[dt] = max(worst[dt], err)
-            tol = "atol 3e-5, rtol 1e-2" if dt == f32 else (
-                "atol 3e-2, rtol 1e-2, and one bfloat16 ulp (2^-7 |exact| "
-                "+ 1e-5) of float32 attention on the same inputs")
-            log("flash", f"prefill shape ({B}, {S}, 16/2/128) causal "
-                         f"{str(dt)[6:]}: max abs err {err:.3g} against the "
-                         f"plain version; {used:.3g} of one bfloat16 ulp "
-                         f"from float32 attention at worst; tolerance "
-                         f"{tol}: {'ok' if ok else 'FAILED'}")
-            if not ok:
-                failed.append(((B, S, S, *FLASH_PREFILL_HEADS, True, 0, dt),
-                               (err, used)))
+    # the serving paths' prefill shapes: the active party's (B = 1) and
+    # the passive group's, folded into the batch axis (B = 3), at
+    # qwen2.5-3b's and recurrentgemma-9b's heads
+    for heads, window in ((FLASH_PREFILL_HEADS, 0),
+                          (RG_FLASH_HEADS, RG_WINDOW)):
+        for B, S in FLASH_PREFILL:
+            for dt in (f32, bf16):
+                err, used, ok = _flash_prefill_case(B, S, dt, gen, heads,
+                                                    window)
+                worst[dt] = max(worst[dt], err)
+                tol = "atol 3e-5, rtol 1e-2" if dt == f32 else (
+                    "atol 3e-2, rtol 1e-2, and one bfloat16 ulp (2^-7 "
+                    "|exact| + 1e-5) of float32 attention on the same "
+                    "inputs")
+                log("flash", f"prefill shape ({B}, {S}, "
+                             f"{'/'.join(map(str, heads))}) causal"
+                             f"{f' window {window}' if window else ''} "
+                             f"{str(dt)[6:]}: max abs err {err:.3g} against "
+                             f"the plain version; {used:.3g} of one "
+                             f"bfloat16 ulp from float32 attention at "
+                             f"worst; tolerance {tol}: "
+                             f"{'ok' if ok else 'FAILED'}")
+                if not ok:
+                    failed.append(((B, S, S, *heads, True, window, dt),
+                                   (err, used)))
     if failed:
         raise AssertionError(f"flash_attention_fwd disagrees with its plain "
                              f"version in {len(failed)} cases: {failed[:5]}")
@@ -1097,23 +1148,152 @@ def phase_flash():
         raise AssertionError(f"vmap over the kernel: err {vm_err}, "
                              f"{tfa.LAUNCHES['flash_attention_fwd'] - before}"
                              f" launches")
-    log("flash", f"{len(cases) + 2 * len(FLASH_PREFILL)} cases within "
+    log("flash", f"{len(cases) + 4 * len(FLASH_PREFILL)} cases within "
                  f"tolerance (atol 3e-5 float32 / 3e-2 bfloat16, rtol "
                  f"1e-2): S in {FLASH_S} and ragged {FLASH_RAGGED_S} (T = "
                  f"S) x (Hq, Hkv, hd) in {FLASH_HEADS} x (causal, window) "
                  f"in {FLASH_MASKS} x float32/bfloat16, S=50 T=130, and "
                  f"the prefill shapes (B, S) in {FLASH_PREFILL} at "
-                 f"16/2/128 causal x float32/bfloat16; worst "
+                 f"16/2/128 causal and 16/1/256 causal window "
+                 f"{RG_WINDOW} x float32/bfloat16; worst "
                  f"float32 {worst[f32]:.3g}, bfloat16 {worst[bf16]:.3g}; "
                  f"vmap over 3 parties: one launch, max abs err "
                  f"{vm_err:.3g}")
     return worst[f32]
 
 
-def _lm_system(cfg, device):
+def _rglru_inputs(B, L, W, dtype, gen, decay=False):
+    """a in (0, 1), b ~ 0.1 N(0, 1), h0 ~ N(0, 1) on the card (a = 0.99,
+    b = 0.01, h0 = 0 for the decay case); a and b in ``dtype``."""
+    import torch
+    if decay:
+        a = torch.full((B, L, W), 0.99, device="cuda")
+        b = torch.full((B, L, W), 0.01, device="cuda")
+        h0 = torch.zeros((B, W), device="cuda")
+    else:
+        a = torch.sigmoid(torch.randn((B, L, W), generator=gen,
+                                      device="cuda"))
+        b = torch.randn((B, L, W), generator=gen, device="cuda") * 0.1
+        h0 = torch.randn((B, W), generator=gen, device="cuda")
+    return a.to(dtype), b.to(dtype), h0
+
+
+def _rglru_case(B, L, W, dtype, gen, decay=False):
+    """(max abs error, elements not bit-identical, within tolerance) of
+    rglru_scan_fwd against reference_rglru on the same inputs. Tolerance
+    rtol 1e-6 / atol 1e-6: both compute a float32 multiply, then an add,
+    each rounded, so bit-identical results are expected."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rg_lru as trg
+    a, b, h0 = _rglru_inputs(B, L, W, dtype, gen, decay)
+    h, last = trg.rglru_scan_fwd(a, b, h0)
+    wh, wl = ref.reference_rglru(a, b, h0)
+    torch.cuda.synchronize()
+    err = max(float((h - wh).abs().max()), float((last - wl).abs().max()))
+    diff = int((h != wh).sum()) + int((last != wl).sum())
+    ok = all(bool(((x - y).abs() <= 1e-6 + 1e-6 * y.abs()).all())
+             for x, y in ((h, wh), (last, wl)))
+    return err, diff, ok
+
+
+def phase_rglru():
+    """rglru_scan_fwd against its plain version on the card."""
+    import torch
+    from torch.func import vmap
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rg_lru as trg
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(B, L, W, dt, False)
+             for B, L, W in RGLRU_SWEEP + RGLRU_RAGGED + RGLRU_SERVE
+             for dt in (f32, bf16)]
+    cases += [(1, 512, 64, dt, True) for dt in (f32, bf16)]
+    worst, diffs, failed = 0.0, 0, []
+    for B, L, W, dt, decay in cases:
+        err, diff, ok = _rglru_case(B, L, W, dt, gen, decay)
+        worst, diffs = max(worst, err), diffs + diff
+        if (B, L, W) in RGLRU_SERVE or decay:
+            log("rglru", f"({B}, {L}, {W}) {str(dt)[6:]}"
+                         f"{' decay a=0.99 b=0.01' if decay else ''}: max "
+                         f"abs err {err:.3g}, {diff} elements not "
+                         f"bit-identical: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(((B, L, W, str(dt), decay), err))
+    if failed:
+        raise AssertionError(f"rglru_scan_fwd disagrees with its plain "
+                             f"version in {len(failed)} cases: {failed[:5]}")
+    # the grouped passive parties: torch.func.vmap folds the party axis
+    # into the batch axis around one launch
+    a, b, h0 = _rglru_inputs(3, 511, 4096, f32, gen)
+    before = trg.LAUNCHES["rglru_scan_fwd"]
+    with torch.no_grad():
+        h, last = vmap(lambda x, y, z: ops.rglru_scan(x, y, z))(
+            a[:, None], b[:, None], h0[:, None])
+    wh, wl = ref.reference_rglru(a, b, h0)
+    vm_err = max(float((h[:, 0] - wh).abs().max()),
+                 float((last[:, 0] - wl).abs().max()))
+    if trg.LAUNCHES["rglru_scan_fwd"] != before + 1 or vm_err > 1e-6:
+        raise AssertionError(f"vmap over the kernel: err {vm_err}, "
+                             f"{trg.LAUNCHES['rglru_scan_fwd'] - before} "
+                             f"launches")
+    log("rglru", f"{len(cases)} cases within tolerance (rtol 1e-6, atol "
+                 f"1e-6; both round a float32 multiply, then an add): the "
+                 f"reference sweep {RGLRU_SWEEP}, ragged {RGLRU_RAGGED}, the "
+                 f"serving shapes {RGLRU_SERVE} x float32/bfloat16 a and b "
+                 f"from a non-zero h0, and the 512-step decay case; worst "
+                 f"{worst:.3g}, {diffs} elements not bit-identical in all; "
+                 f"vmap over 3 parties at (1, 511, 4096): one launch, max "
+                 f"abs err {vm_err:.3g}")
+    return worst
+
+
+def phase_timing_rglru():
+    """rglru_scan_fwd and its plain version at the serving path's largest
+    prefill shapes, float32, beside the bytes bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rg_lru as trg
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    for B in (1, 3):
+        L, W = 2047, 4096
+        a, b, h0 = _rglru_inputs(B, L, W, torch.float32, gen)
+        kern = lambda: trg.rglru_scan_fwd(a, b, h0)
+        plain = lambda: ref.reference_rglru(a, b, h0)
+        # turns: plain, kernel, kernel, plain; the plain version is a
+        # Python loop of 2 L launches, bound by the host: host clock
+        p1 = _wall_ms(plain)
+        k1 = _time_ms(kern, reps=10, inner=5)
+        k2 = _time_ms(kern, reps=10, inner=5)
+        p2 = _wall_ms(plain)
+        nbytes = 3 * B * L * W * 4 + 2 * B * W * 4
+        ops_ = 2 * B * L * W
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = ops_ / FP32_FLOPS * 1e3
+        bound = max(byte_ms, op_ms)
+        out[B] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                  "bound_ms": bound,
+                  "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                  "bytes": nbytes, "ops": ops_,
+                  "gb_per_s": nbytes / (min(k1, k2) * 1e-3) / 1e9}
+        log("timing", f"rglru_scan_fwd ({B}, {L}, {W}) float32: kernel "
+                      f"{k1:.4f}/{k2:.4f} ms, plain (host clock) "
+                      f"{p1:.3f}/{p2:.3f} ms; bound {bound:.5f} ms ({nbytes} "
+                      f"B at 3.35 TB/s, data-sheet peak; bound by bytes; "
+                      f"{ops_} FP32 operations {op_ms:.5f} ms), kernel at "
+                      f"{min(k1, k2) / bound:.2f}x it "
+                      f"({out[B]['gb_per_s']:.0f} GB/s); no single PyTorch "
+                      f"call computes it (library_ms null)")
+    return out
+
+
+def _lm_system(cfg, device, num_passive=None):
     from repro_torch.configs.base import EasterConfig
     from repro_torch.core.easter_lm import EasterLM
-    return EasterLM(cfg, EasterConfig(), device=device)
+    easter = (EasterConfig() if num_passive is None
+              else EasterConfig(num_passive=num_passive))
+    return EasterLM(cfg, easter, device=device)
 
 
 def _lm_requests(vocab):
@@ -1128,13 +1308,21 @@ def _lm_requests(vocab):
         for i in range(LM_REQUESTS)]
 
 
-def _lm_layers(sys_):
-    """(active layers, passive layers of one proxy, passive parties)."""
-    cfgs = sys_.party_cfgs
-    return cfgs[0].n_layers, cfgs[1].n_layers, len(cfgs) - 1
+def _layer_kinds(cfg):
+    """(attention layers, RG-LRU layers) of one party's stack."""
+    from repro_torch.models import transformer
+    kinds = [k for ks, reps in transformer.stack_plan(cfg) for k in ks * reps]
+    return (sum(k != "lru" for k in kinds), sum(k == "lru" for k in kinds))
 
 
-def _profile_window(label, fn, n_rounds):
+def _free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _profile_window(tag, label, fn, n_rounds):
     """Device busy time and idle share of ``fn`` under torch.profiler, and
     its top kernels by device time."""
     import torch
@@ -1152,30 +1340,32 @@ def _profile_window(label, fn, n_rounds):
     busy_ms = sum(r.self_device_time_total for r in kern) / 1e3
     n = sum(r.count for r in kern)
     idle = 1 - busy_ms / wall_ms
-    log("lm", f"{label} under torch.profiler: wall {wall_ms:.3f} ms, device "
-              f"busy {busy_ms:.3f} ms (idle share {idle:.3f}), {n} kernels "
-              f"({n / n_rounds:.0f} a round)")
+    log(tag, f"{label} under torch.profiler: wall {wall_ms:.3f} ms, device "
+             f"busy {busy_ms:.3f} ms (idle share {idle:.3f}), {n} kernels "
+             f"({n / n_rounds:.0f} a round)")
     top = []
     for r in sorted(kern, key=lambda r: -r.self_device_time_total)[:8]:
         ms = r.self_device_time_total / 1e3
         top.append((r.key[:60], r.count, ms))
-        log("lm", f"  {r.key[:60]:60s} calls {r.count:5d} device "
-                  f"{ms:.3f} ms ({ms / busy_ms:.1%})")
+        log(tag, f"  {r.key[:60]:60s} calls {r.count:5d} device "
+                 f"{ms:.3f} ms ({ms / busy_ms:.1%})")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle,
             "kernels": n, "top": top}
 
 
-def phase_lm():
-    """qwen2.5-3b EasterLM at full width and depth, bfloat16, served by a
-    4-lane ServingEngine on the card; the counted main path."""
+def _serve_phase(tag, arch):
+    """EasterLM on ``arch`` at full width and depth, bfloat16, served by a
+    4-lane ServingEngine on the card; a counted main path."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.core import api, serving
     from repro_torch.kernels import blind_agg as tba
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import rg_lru as trg
     from repro_torch.tree import tree_leaves
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     sys_ = _lm_system(cfg, "cuda")
+    _free_card()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = sys_.init_params(torch.Generator(device="cuda").manual_seed(0))
@@ -1185,16 +1375,20 @@ def phase_lm():
     n_act = sum(t.numel() for t in tree_leaves(params["parties"][0]))
     n_all = sum(t.numel() for p in params["parties"]
                 for t in tree_leaves(p))
-    La, Lp, K = _lm_layers(sys_)
-    log("lm", f"{cfg.name}: {La} layers, d_model {cfg.d_model}, heads "
-              f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim}, d_ff "
-              f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; C = "
-              f"{sys_.C} ({K} passive proxies of {Lp} layers), d_embed "
-              f"{sys_.easter.d_embed}, {sys_.easter.mask_mode} wire, "
-              f"{sys_.engine} engine; {n_act / 1e9:.3f}e9 active and "
-              f"{n_all / 1e9:.3f}e9 parameters in all, drawn on the card "
-              f"from torch.Generator seed 0 in {init_s:.1f} s; device memory "
-              f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    cfgs = sys_.party_cfgs
+    La, Lp, K = cfgs[0].n_layers, cfgs[1].n_layers, len(cfgs) - 1
+    (attn_a, lru_a), (attn_p, lru_p) = _layer_kinds(cfgs[0]), \
+        _layer_kinds(cfgs[1])
+    log(tag, f"{cfg.name}: {La} layers ({attn_a} attention, {lru_a} "
+             f"RG-LRU), d_model {cfg.d_model}, heads {cfg.n_heads}/"
+             f"{cfg.n_kv_heads}x{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+             f"vocab {cfg.vocab_size}, {cfg.dtype}; C = {sys_.C} ({K} "
+             f"passive proxies of {Lp} layers), d_embed "
+             f"{sys_.easter.d_embed}, {sys_.easter.mask_mode} wire, "
+             f"{sys_.engine} engine; {n_act / 1e9:.3f}e9 active and "
+             f"{n_all / 1e9:.3f}e9 parameters in all, drawn on the card "
+             f"from torch.Generator seed 0 in {init_s:.1f} s; device memory "
+             f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
     eng = serving.ServingEngine(sys_, params, lanes=LM_LANES,
                                 max_len=max(LM_PROMPTS) + LM_NEW,
                                 chunk=LM_CHUNK)
@@ -1221,15 +1415,19 @@ def phase_lm():
     reqs = _lm_requests(cfg.vocab_size)
     tba.reset_launches()
     tfa.reset_launches()
+    trg.reset_launches()
     t0 = time.perf_counter()
     comps = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**tba.LAUNCHES, **tfa.LAUNCHES}
-    # every prefill: La active layers + Lp passive layers (the passive
-    # party axis folded into the batch around one launch); one
-    # blind_agg_fwd per protocol round (a prefill or a decode round)
-    want = {"flash_attention_fwd": LM_REQUESTS * (La + Lp),
+    launches = {**tba.LAUNCHES, **tfa.LAUNCHES, **trg.LAUNCHES}
+    # every prefill: one flash launch per attention layer and one
+    # rglru_scan_fwd per RG-LRU layer of the active party and of one
+    # passive proxy (the passive party axis folded into the batch around
+    # one launch); one blind_agg_fwd per protocol round (a prefill or a
+    # decode round); decode runs neither prompt kernel
+    want = {"flash_attention_fwd": LM_REQUESTS * (attn_a + attn_p),
+            "rglru_scan_fwd": LM_REQUESTS * (lru_a + lru_p),
             "blind_agg_fwd": LM_REQUESTS + eng.rounds_run}
     for name, n in want.items():
         if launches[name] != n:
@@ -1244,18 +1442,19 @@ def phase_lm():
                for P in LM_PROMPTS}
     rounds = sum(s for _, s in decode)
     ms_round = sum(ms for ms, _ in decode) / rounds
-    log("lm", f"served {len(comps)} requests ({LM_PROMPTS} prompt tokens, "
-              f"{LM_NEW} new each, greedy) on {LM_LANES} lanes in {wall:.2f} "
-              f"s: {toks} tokens, {toks / wall:.1f} tokens/s end to end; "
-              f"{eng.rounds_run} decode rounds in {eng.chunks_run} chunks, "
-              f"{ms_round:.2f} ms a round ({LM_LANES * 1e3 / ms_round:.1f} "
-              f"tokens/s at {LM_LANES} full lanes); prefill ms per request "
-              f"(median by prompt length, first calls included) "
-              f"{ {P: round(v, 2) for P, v in per_len.items()} }")
-    log("lm", f"launches on the serving path {launches} (expected "
-              f"flash_attention_fwd {LM_REQUESTS} x ({La} + {Lp}), "
-              f"blind_agg_fwd {LM_REQUESTS} prefills + {eng.rounds_run} "
-              f"rounds)")
+    log(tag, f"served {len(comps)} requests ({LM_PROMPTS} prompt tokens, "
+             f"{LM_NEW} new each, greedy) on {LM_LANES} lanes in {wall:.2f} "
+             f"s: {toks} tokens, {toks / wall:.1f} tokens/s end to end; "
+             f"{eng.rounds_run} decode rounds in {eng.chunks_run} chunks, "
+             f"{ms_round:.2f} ms a round ({LM_LANES * 1e3 / ms_round:.1f} "
+             f"tokens/s at {LM_LANES} full lanes); prefill ms per request "
+             f"(median by prompt length, first calls included) "
+             f"{ {P: round(v, 2) for P, v in per_len.items()} }")
+    log(tag, f"launches on the serving path {launches} (expected "
+             f"flash_attention_fwd {LM_REQUESTS} x ({attn_a} + {attn_p}), "
+             f"rglru_scan_fwd {LM_REQUESTS} x ({lru_a} + {lru_p}), "
+             f"blind_agg_fwd {LM_REQUESTS} prefills + {eng.rounds_run} "
+             f"rounds)")
     # the output is finite and of the expected shape at full size
     seeds = sys_.mask_seeds()
     c1 = sys_.init_caches(1, 64)
@@ -1277,11 +1476,11 @@ def phase_lm():
         state = pf(params, state, reqs[lane], lane, nonce=100 + lane)
     box = {}
     prof_prefill = _profile_window(
-        f"one admission of a {LM_PROMPTS[-1]}-token prompt",
+        tag, f"one admission of a {LM_PROMPTS[-1]}-token prompt",
         lambda: box.update(state=pf(params, state, reqs[2], LM_LANES - 1,
                                     nonce=200)), 1)
     prof_decode = _profile_window(
-        f"{LM_CHUNK} decode rounds at {LM_LANES} lanes",
+        tag, f"{LM_CHUNK} decode rounds at {LM_LANES} lanes",
         lambda: box.update(out=df(params, box["state"])), LM_CHUNK)
     return launches, {
         "init_s": init_s, "params": n_all, "wall_s": wall,
@@ -1290,22 +1489,61 @@ def phase_lm():
         "profile_prefill": prof_prefill, "profile_decode": prof_decode}
 
 
-def phase_lm_cut():
-    """The same width with depth cut to LM_CUT_LAYERS active layers (the
-    passive proxies follow passive_cfg: 2), float32 with TF32 off: card
-    against the CPU port on the same weights and prompt."""
+def _host_gib():
+    """MemAvailable of the host, in GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2 ** 20
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _cut_phase(tag, arch, n_layers, *, check_host=False):
+    """The same width with depth cut to ``n_layers`` active layers (the
+    passive proxies follow passive_cfg), float32 with TF32 off: card
+    against the CPU port on the same weights and prompt. The host copy is
+    made leaf by leaf from the card's tensors (the stacked passive group
+    once, then viewed per party), with no second copy beside it. With
+    ``check_host`` the passive parties are cut to 1 when the host cannot
+    hold the weights twice over."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.core import decode
-    from repro_torch.tree import tree_map
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_CUT_LAYERS,
+    from repro_torch.core.party_engine import unstack_tree
+    from repro_torch.tree import tree_leaves, tree_map
+    _free_card()
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                               dtype="float32")
-    card, cpu = _lm_system(cfg, "cuda"), _lm_system(cfg, "cpu")
+    card = _lm_system(cfg, "cuda")
+    num_passive = None
     params = card.init_params(torch.Generator(device="cuda").manual_seed(0))
-    cparams = cpu.group_params({"parties": [
-        tree_map(lambda t: t.cpu(), p) for p in params["parties"]]})
+    nbytes = sum(t.numel() * t.element_size() for p in params["parties"]
+                 for t in tree_leaves(p))
+    avail = _host_gib()
+    if check_host and avail < 2 * nbytes / 2 ** 30:
+        num_passive = 1
+        log(tag, f"host has {avail:.1f} GiB available, under twice the "
+                 f"{nbytes / 2 ** 30:.1f} GiB of weights: passive parties "
+                 f"cut to 1 for this check")
+        del params
+        _free_card()
+        card = _lm_system(cfg, "cuda", num_passive)
+        params = card.init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        nbytes = sum(t.numel() * t.element_size() for p in params["parties"]
+                     for t in tree_leaves(p))
+    cpu = _lm_system(cfg, "cpu", num_passive)
+    stacked = tree_map(lambda t: t.cpu(), params["passive_stacked"])
+    cparams = {"parties": [tree_map(lambda t: t.cpu(), params["parties"][0])]
+               + unstack_tree(stacked, cpu.easter.num_passive),
+               "passive_stacked": stacked}
+    log(tag, f"{cfg.name} cut to {n_layers} active layers (passive "
+             f"{card.party_cfgs[1].n_layers}, {card.easter.num_passive} "
+             f"passive parties), float32: {nbytes / 1e9:.1f} GB of weights "
+             f"on the card and copied to the host ({avail:.1f} GiB were "
+             f"available)")
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, cfg.vocab_size,
                           size=(LM_CUT_BATCH, LM_CUT_PROMPT)).astype(np.int32)
@@ -1328,66 +1566,76 @@ def phase_lm_cut():
                       float(((a - b).abs() / b.abs().clamp_min(1e-30)).max()),
                       bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5)))
     same = bool(torch.equal(res["card"][2], res["cpu"][2]))
-    log("lm", f"depth cut to {LM_CUT_LAYERS} active layers (passive "
-              f"{_lm_layers(card)[1]}), same width, float32, TF32 off: "
-              f"batch {LM_CUT_BATCH}, prompt {LM_CUT_PROMPT}, "
-              f"{LM_CUT_ROUNDS} greedy rounds, card vs CPU port: "
-              + "; ".join(f"{w} max abs {e:.3g} max rel {r:.3g} "
-                          f"{'ok' if ok else 'FAIL'}"
-                          for w, (e, r, ok) in errs.items())
-              + f" (rtol 1e-4, atol 1e-5); tokens identical {same} "
-              f"{res['card'][2].tolist()}")
+    log(tag, f"depth cut to {n_layers} active layers, same width, float32, "
+             f"TF32 off: batch {LM_CUT_BATCH}, prompt {LM_CUT_PROMPT}, "
+             f"{LM_CUT_ROUNDS} greedy rounds, card vs CPU port: "
+             + "; ".join(f"{w} max abs {e:.3g} max rel {r:.3g} "
+                         f"{'ok' if ok else 'FAIL'}"
+                         for w, (e, r, ok) in errs.items())
+             + f" (rtol 1e-4, atol 1e-5); tokens identical {same} "
+             f"{res['card'][2].tolist()}")
     if not same or not all(ok for _, _, ok in errs.values()):
         raise AssertionError("the depth-cut run differs between card and CPU")
-    return errs
+    return {"errors": errs, "num_passive": card.easter.num_passive,
+            "weights_gb": nbytes / 1e9}
 
 
-def phase_timing_flash():
-    """flash_attention_fwd at the serving path's prefill shapes, bfloat16,
-    beside its plain version and SDPA (the library yardstick)."""
+def _flash_timing_case(S, heads, window, gen):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ref
+    Hq, Hkv, hd = heads
+    q = torch.randn((1, S, Hq, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k = torch.randn((1, S, Hkv, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    v = torch.randn((1, S, Hkv, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kern = lambda: tfa.flash_attention_fwd(q, k, v, causal=True,
+                                           window=window)
+    plain = lambda: ref.reference_attention(q, k, v, causal=True,
+                                            window=window)
+    # a window of at least S keeps every causal pair: SDPA's causal mask
+    # is then the same function
+    assert window == 0 or window >= S
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+    # turns: plain, kernel, kernel, plain; then the library call
+    p1 = _time_ms(plain, reps=10, inner=5)
+    k1 = _time_ms(kern, reps=10, inner=5)
+    k2 = _time_ms(kern, reps=10, inner=5)
+    p2 = _time_ms(plain, reps=10, inner=5)
+    l1 = _time_ms(lib, reps=10, inner=5)
+    flops = 4 * hd * Hq * S * (S + 1) // 2
+    nbytes = 2 * (2 * S * Hq * hd + 2 * S * Hkv * hd)
+    op_ms = flops / BF16_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(op_ms, byte_ms)
+    log("timing", f"flash_attention_fwd (1, {S}, {Hq}/{Hkv}, {hd}) causal"
+                  f"{f' window {window}' if window else ''} bfloat16: kernel "
+                  f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA "
+                  f"(library yardstick) {l1:.4f} ms; bound {bound:.5f} ms "
+                  f"({flops} flops of the causal pairs at 989 TFLOP/s bf16 "
+                  f"{op_ms:.5f} ms; {nbytes} B at 3.35 TB/s {byte_ms:.5f} "
+                  f"ms; data-sheet peaks), kernel at "
+                  f"{min(k1, k2) / bound:.1f}x it")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": l1,
+            "bound_ms": bound,
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def phase_timing_flash():
+    """flash_attention_fwd at the serving paths' prefill shapes, bfloat16,
+    beside its plain version and SDPA (the library yardstick): qwen2.5-3b
+    at S = 1023 and 2047, recurrentgemma-9b's window-2048 heads at 2047."""
+    import torch
     gen = torch.Generator(device="cuda").manual_seed(7)
-    out = {}
-    Hq, Hkv, hd = 16, 2, 128
-    for S in (1023, 2047):
-        q = torch.randn((1, S, Hq, hd), generator=gen,
-                        device="cuda").to(torch.bfloat16)
-        k = torch.randn((1, S, Hkv, hd), generator=gen,
-                        device="cuda").to(torch.bfloat16)
-        v = torch.randn((1, S, Hkv, hd), generator=gen,
-                        device="cuda").to(torch.bfloat16)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        kern = lambda: tfa.flash_attention_fwd(q, k, v, causal=True)
-        plain = lambda: ref.reference_attention(q, k, v, causal=True)
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                     is_causal=True,
-                                                     enable_gqa=True)
-        # turns: plain, kernel, kernel, plain; then the library call
-        p1 = _time_ms(plain, reps=10, inner=5)
-        k1 = _time_ms(kern, reps=10, inner=5)
-        k2 = _time_ms(kern, reps=10, inner=5)
-        p2 = _time_ms(plain, reps=10, inner=5)
-        l1 = _time_ms(lib, reps=10, inner=5)
-        flops = 4 * hd * Hq * S * (S + 1) // 2
-        nbytes = 2 * (2 * S * Hq * hd + 2 * S * Hkv * hd)
-        op_ms = flops / BF16_FLOPS * 1e3
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        bound = max(op_ms, byte_ms)
-        out[S] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                  "library_ms": l1, "bound_ms": bound,
-                  "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-                  "flops": flops, "bytes": nbytes}
-        log("timing", f"flash_attention_fwd (1, {S}, {Hq}/{Hkv}, {hd}) "
-                      f"causal bfloat16: kernel {k1:.4f}/{k2:.4f} ms, plain "
-                      f"{p1:.4f}/{p2:.4f} ms, SDPA (library yardstick) "
-                      f"{l1:.4f} ms; bound {bound:.5f} ms ({flops} flops of "
-                      f"the causal pairs at 989 TFLOP/s bf16 "
-                      f"{op_ms:.5f} ms; {nbytes} B at 3.35 TB/s "
-                      f"{byte_ms:.5f} ms; data-sheet peaks), kernel at "
-                      f"{min(k1, k2) / bound:.1f}x it")
+    out = {S: _flash_timing_case(S, FLASH_PREFILL_HEADS, 0, gen)
+           for S in (1023, 2047)}
+    out["rg_2047"] = _flash_timing_case(2047, RG_FLASH_HEADS, RG_WINDOW, gen)
     return out
 
 
@@ -1488,30 +1736,41 @@ def main() -> int:
     timing_prng = phase_timing_prng()
     phase_profile(batches, params0)
     worst_f32["flash_attention_fwd"] = phase_flash()
-    lm_launches, lm = phase_lm()
-    lm_cut = phase_lm_cut()
+    lm_launches, lm = _serve_phase("lm", LM_ARCH)
+    lm_cut = _cut_phase("lm", LM_ARCH, LM_CUT_LAYERS)
+    worst_f32["rglru_scan_fwd"] = phase_rglru()
+    rg_launches, rg = _serve_phase("rg", RG_ARCH)
+    rg_cut = _cut_phase("rg_cut", RG_ARCH, RG_CUT_LAYERS, check_host=True)
     timing_flash = phase_timing_flash()
+    timing_rglru = phase_timing_rglru()
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
     if bad:
         raise AssertionError(f"the port imported {bad[:5]}")
 
     paths = (slice_launches, joint_launches, many_launches, many_joint,
-             many_unfused, lm_launches)
+             many_unfused, lm_launches, rg_launches)
     launches = {name: sum(p.get(name, 0) for p in paths)
                 for name in ("blind_agg_fwd", "blind_agg_bwd",
-                             "blind_agg_prng_fwd", "flash_attention_fwd")}
+                             "blind_agg_prng_fwd", "flash_attention_fwd",
+                             "rglru_scan_fwd")}
     log("launches", f"main paths {launches} (Table II slice "
                     f"{slice_launches}, Table II joint {joint_launches}, "
                     f"many-party fused {many_launches}, many-party joint "
                     f"{many_joint}, many-party unfused {many_unfused}, "
-                    f"qwen2.5-3b serving {lm_launches})")
+                    f"qwen2.5-3b serving {lm_launches}, recurrentgemma-9b "
+                    f"serving {rg_launches})")
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on a main path: "
+                             f"{missing}")
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"blind_agg_fwd": "src/repro/kernels/blind_agg.py:38",
                 "blind_agg_bwd": "src/repro/kernels/blind_agg.py:57",
                 "blind_agg_prng_fwd": "src/repro/kernels/blind_agg.py:164",
                 "flash_attention_fwd":
-                    "src/repro/kernels/flash_attention.py:22"}
+                    "src/repro/kernels/flash_attention.py:22",
+                "rglru_scan_fwd": "src/repro/kernels/rg_lru.py:25"}
     kernels = []
     for name in ("blind_agg_fwd", "blind_agg_bwd"):
         t = timing["slice"][name]
@@ -1540,6 +1799,15 @@ def main() -> int:
         "max_abs_err": worst_f32["flash_attention_fwd"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = timing_rglru[1]
+    kernels.append({
+        "name": "rglru_scan_fwd", "route": "cuda",
+        "source": csrc + "rg_lru.cu",
+        "replaces": replaces["rglru_scan_fwd"],
+        "launches": launches["rglru_scan_fwd"],
+        "max_abs_err": worst_f32["rglru_scan_fwd"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels, "slice_ms_per_round": ms_round,
                       "table2_engines": engines,
                       "many_party_ms_per_round": {"fused": fused_ms,
@@ -1547,7 +1815,9 @@ def main() -> int:
                       "many_party": timing["many_party"],
                       "prng": {str(k): v for k, v in timing_prng.items()},
                       "flash": {str(k): v for k, v in timing_flash.items()},
-                      "lm": lm, "lm_depth_cut": lm_cut}))
+                      "rglru": {str(k): v for k, v in timing_rglru.items()},
+                      "lm": lm, "lm_depth_cut": lm_cut, "rg": rg,
+                      "rg_depth_cut": rg_cut}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

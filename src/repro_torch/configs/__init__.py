@@ -7,4 +7,5 @@ importing them registers each config under its public ``--arch`` id.
 ARCH_MODULES = [
     "qwen2_5_3b",
     "qwen2_1_5b",
+    "recurrentgemma_9b",
 ]

@@ -3,9 +3,9 @@ the protocol and training configs.
 
 Own copy of the reference's ``repro.configs.base`` (``ModelConfig`` with
 its sub-configs, ``register``/``get_config``/``list_archs``,
-``smoke_variant``, ``EasterConfig``, ``TrainConfig``). The MoE, SSM and
-hybrid sub-configs are fields only: the port runs the dense family
-(ROADMAP.md queue 1 item 13 brings the rest).
+``smoke_variant``, ``EasterConfig``, ``TrainConfig``). The port runs the
+dense and hybrid (RG-LRU) families; the MoE and SSM sub-configs are
+fields only (ROADMAP.md queue 1 item 13 brings the rest).
 """
 from __future__ import annotations
 

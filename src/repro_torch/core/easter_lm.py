@@ -14,11 +14,16 @@ masks and aggregates through ``_aggregate``: the float wire goes through
 ``aggregation.blind_and_aggregate`` (the ``blind_agg_fwd`` kernel on the
 card), the int32/int8 ring wires through ``aggregation.aggregate_ring``.
 
+Parties are dense transformers or hybrid (RG-LRU + local attention,
+recurrentgemma) stacks (``models.transformer``); their caches hold K/V
+for attention layers and the conv history and float32 state for RG-LRU
+layers.
+
 Engines: ``engine="vectorized"`` (the default, as in the reference) runs
 the K structurally identical passive proxies as one ``torch.func.vmap``
-over their stacked parameters; on the card the prompt attention inside it
-folds the party axis into the batch axis around one flash-kernel launch
-per layer. The passive group is stacked once, by ``init_params``,
+over their stacked parameters; on the card the prompt attention and the
+RG-LRU recurrence inside it fold the party axis into the batch axis
+around one kernel launch per layer. The passive group is stacked once, by ``init_params``,
 ``load_params`` or ``group_params``, into ``params["passive_stacked"]``;
 the per-party trees are row views of it, and the per-step path reads it
 as it is and copies no weight (the reference restacks on every step,

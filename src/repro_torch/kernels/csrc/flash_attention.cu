@@ -38,8 +38,10 @@
 //     T are masked, so ragged prompt lengths (S = 511, 1023, 7) need no
 //     padding by the caller.
 // Dtypes: float32 and bfloat16 (q, k, v and out share one);
-// hd in {32, 64, 128}. The entry point returns cudaGetLastError() after
-// its launch.
+// hd in {32, 64, 128, 256}. At hd = 256 (recurrentgemma's heads) the tiles
+// take 213,760 B of shared memory, under the 232,448 B a block may opt into,
+// so one CTA runs on an SM at a time. The entry point returns
+// cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -238,6 +240,8 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
       return launch<T, 64>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, window, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, window, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -18,7 +18,7 @@ binds it:
     keeps ``dot_attention`` under autograd).
 
 The wrapper takes contiguous CUDA tensors of float32 or bfloat16 with hd
-in {32, 64, 128} and raises on anything else; the plain version
+in {32, 64, 128, 256} and raises on anything else; the plain version
 for CPU tensors is ``ref.reference_attention``, chosen by ``ops``. Each
 launch adds one to ``LAUNCHES["flash_attention_fwd"]``.
 """
@@ -33,7 +33,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 # launches of the kernel in this process; reset with reset_launches()
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}

@@ -1,15 +1,16 @@
 """Public kernel entry points, dispatched on the tensors' device.
 
 CUDA tensors go to the hand-written kernels (``blind_agg``,
-``flash_attention``), which launch or raise; CPU tensors go to the plain
-versions in ``ref``. Nothing falls back from the kernel to the plain
-version."""
+``flash_attention``, ``rglru_scan``), which launch or raise; CPU tensors
+go to the plain versions in ``ref``. Nothing falls back from the kernel
+to the plain version."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import blind_agg as _ba
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rg_lru as _rg
 from repro_torch.kernels import ref
 
 
@@ -58,3 +59,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.reference_attention(q, k, v, causal=causal, window=window)
     raise ValueError(f"flash_attention needs all inputs on one device type, "
                      f"got {sorted(devices)}")
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """The RG-LRU recurrence h_t = a_t * h_{t-1} + b_t, forward only.
+    a/b (B,L,W), h0 (B,W) -> (h (B,L,W), h_last (B,W)) in float32. Runs
+    under ``torch.func.vmap`` on the card (the vmapped axis is folded into
+    the batch axis around one launch)."""
+    devices = {a.device.type, b.device.type, h0.device.type}
+    if devices == {"cuda"}:
+        return _rg.rglru_scan(a, b, h0)
+    if devices == {"cpu"}:
+        return ref.reference_rglru(a, b, h0)
+    raise ValueError(f"rglru_scan needs all inputs on one device type, got "
+                     f"{sorted(devices)}")

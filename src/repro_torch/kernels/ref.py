@@ -64,3 +64,18 @@ def reference_attention(q, k, v, *, causal: bool = True, window: int = 0):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, vr.float())
     return out.to(q.dtype)
+
+
+def reference_rglru(a, b, h0):
+    """Sequential h_t = a_t * h_{t-1} + b_t in float32 (a multiply, then
+    an add, each rounded). a/b (B,L,W) of any float dtype, h0 (B,W).
+    Returns (h (B,L,W) float32, h_last (B,W) float32)."""
+    a32, b32 = a.float(), b.float()
+    h = h0.float()
+    hs = []
+    for t in range(a32.shape[1]):
+        h = a32[:, t] * h + b32[:, t]
+        hs.append(h)
+    if not hs:
+        return a32.new_zeros(a32.shape), h
+    return torch.stack(hs, dim=1), h

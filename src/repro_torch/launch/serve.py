@@ -11,6 +11,9 @@ Request-stream serving (continuous batching + EOS early-exit):
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
         --requests 8 --poisson [--device cpu]
 
+``--arch`` takes any ported architecture: the dense qwen2.5-3b and
+qwen2-1.5b, and the hybrid (RG-LRU + local attention) recurrentgemma-9b.
+
 Both modes run on the typed serving surface (core/api.py): requests are
 ``ServeRequest``s admitted into decode slots by the ``ServingEngine``
 (core/serving.py); every decoded token is one blinded protocol round

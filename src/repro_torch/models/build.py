@@ -1,5 +1,5 @@
 """Config -> model functions (counterpart of ``repro.models.build``), for
-the dense family."""
+the dense and hybrid (RG-LRU) families."""
 from __future__ import annotations
 
 from dataclasses import dataclass

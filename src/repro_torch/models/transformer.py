@@ -1,4 +1,4 @@
-"""Decoder-only transformer stacks of the dense family.
+"""Decoder-only transformer stacks of the dense and hybrid families.
 
 Counterpart of ``repro.models.transformer``. The layer stack keeps the
 reference's (pattern, repeats) *segments* and its stacked parameter
@@ -9,11 +9,14 @@ the reps in Python, indexing each stacked leaf (a view, no copy).
 
   dense (no SWA):     [(("attn",), n_layers)]
   gemma3-like (l:g):  [(("local",)*l + ("global",)*g, reps), (rem, 1)]
+  hybrid (1:2):       [(("lru","lru","attn"), reps), (rem_pattern, 1)]
 
 Caches mirror the segment structure: per segment, per pattern position,
-a stacked (reps, B, ...) tree. The MoE, SSM, RG-LRU, cross-attention,
-encoder-decoder and vision families raise ``NotImplementedError``
-(ROADMAP.md queue 1 item 13).
+a stacked (reps, B, ...) tree: K/V caches for attention, {"conv" (reps,
+B, 3, W), "state" (reps, B, W)} for an RG-LRU block
+(``models.griffin``). The MoE, SSM, cross-attention, encoder-decoder and
+vision families raise ``NotImplementedError`` (ROADMAP.md queue 1 item
+13).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import griffin
 from repro_torch.models.layers import (
     apply_norm, embed, init_attention, init_embedding, init_linear, init_mlp,
     init_norm, linear, mlp, rope_cos_sin, self_attention,
@@ -33,6 +37,8 @@ Params = Dict[str, Any]
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 _DENSE_KINDS = ("attn", "local", "global")
+_KINDS = _DENSE_KINDS + ("lru",)
+_FAMILIES = ("dense", "hybrid")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -41,13 +47,13 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def _unported(what: str):
     return NotImplementedError(
-        f"{what}: only the dense transformer family is ported; the MoE, "
-        f"SSM, RG-LRU, cross-attention, encoder-decoder and vision parties "
+        f"{what}: only the dense and hybrid (RG-LRU) families are ported; "
+        f"the MoE, SSM, cross-attention, encoder-decoder and vision parties "
         f"are ROADMAP.md queue 1 item 13")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         raise _unported(f"family {cfg.family!r}")
 
 
@@ -92,11 +98,17 @@ def _layer_window(cfg: ModelConfig, kind: str) -> int:
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
-    if kind not in _DENSE_KINDS:
+    if kind not in _KINDS:
         raise _unported(f"block kind {kind!r}")
     dtype = torch_dtype(cfg.dtype)
     d = cfg.d_model
     dev = gen.device
+    if kind == "lru":
+        w = cfg.hybrid.lru_width or d
+        return {"ln1": init_norm(cfg.norm, d, dtype, dev),
+                "rec": griffin.init_rglru(gen, d, w, dtype),
+                "ln2": init_norm(cfg.norm, d, dtype, dev),
+                "mlp": init_mlp(gen, d, cfg.d_ff, cfg.act, dtype)}
     return {"ln1": init_norm(cfg.norm, d, dtype, dev),
             "attn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.resolved_head_dim, cfg.qkv_bias,
@@ -109,9 +121,15 @@ def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
                 cos, sin, cache: Optional[dict], window_override: int = -1,
                 causal: bool = True):
     """Returns (x, new_cache, aux)."""
-    if kind not in _DENSE_KINDS:
+    if kind not in _KINDS:
         raise _unported(f"block kind {kind!r}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "lru":
+        h, new_cache = griffin.recurrent_block(
+            p["rec"], apply_norm(p["ln1"], x, cfg.rms_eps), cache)
+        x = x + h
+        x = x + mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.rms_eps), cfg.act)
+        return x, new_cache, aux
     window = (_layer_window(cfg, kind) if window_override < 0
               else window_override)
     h, new_cache = self_attention(
@@ -132,9 +150,12 @@ def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                  window_override: int = -1, per_lane: bool = False,
                  device=None):
-    if kind not in _DENSE_KINDS:
+    if kind not in _KINDS:
         raise _unported(f"block kind {kind!r}")
     dtype = torch_dtype(cfg.dtype)
+    if kind == "lru":
+        return griffin.init_rglru_cache(
+            batch, cfg.hybrid.lru_width or cfg.d_model, dtype, device)
     window = (_layer_window(cfg, kind) if window_override < 0
               else window_override)
     T = min(cache_len, window) if window > 0 else cache_len

@@ -17,7 +17,9 @@ only the order of the float32 sum over parties differs: within
 of the output in its dtype. Flash attention against its plain version:
 the reference sweep's tolerance, atol 3e-5 (float32) or 3e-2 (bfloat16)
 and rtol 1e-2; at the serving path's prefill shapes bfloat16 also within
-one bfloat16 ulp of float32 attention on the same inputs.
+one bfloat16 ulp of float32 attention on the same inputs. The RG-LRU
+recurrence against its plain version: within rtol 1e-6 / atol 1e-6 (both
+round a multiply, then an add, in float32: bit for bit is expected).
 """
 import numpy as np
 import pytest
@@ -31,6 +33,7 @@ from repro_torch.core.protocol import EasterClassifier
 from repro_torch.kernels import blind_agg as tba
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rg_lru as trg
 from repro_torch.tree import tree_leaves
 
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -208,7 +211,8 @@ def test_cuda_fused_mask_step_matches_cpu(cuda):
 # flash attention and the LM serving slice
 # ---------------------------------------------------------------------------
 
-_FLASH_HEADS = [(4, 4, 64), (4, 2, 64), (8, 1, 64), (4, 2, 128), (2, 2, 32)]
+_FLASH_HEADS = [(4, 4, 64), (4, 2, 64), (8, 1, 64), (4, 2, 128), (2, 2, 32),
+                (16, 1, 256)]
 _FLASH_MASKS = [(True, 0), (False, 0), (True, 32)]
 
 
@@ -266,6 +270,25 @@ def test_cuda_flash_matches_plain_at_prefill_shapes(cuda, B, S, dtype):
     _flash_close(out, ref.reference_attention(q, k, v), dt)
     if dt == torch.bfloat16:
         exact = ref.reference_attention(q.float(), k.float(), v.float())
+        assert bool(((out.float() - exact).abs()
+                     <= 2.0 ** -7 * exact.abs() + 1e-5).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S", [(1, 511), (1, 2047), (3, 1023)])
+def test_cuda_flash_matches_plain_at_recurrentgemma_prefill_shapes(cuda, B, S,
+                                                                   dtype):
+    """recurrentgemma-9b's local attention (16/1/256, causal, window
+    2048) at its prefill shapes, with the tolerances of the qwen2.5-3b
+    prefill shapes above."""
+    dt = _TDT[dtype]
+    q, k, v = _flash_inputs(B, S, S, 16, 1, 256, dt, cuda, B * S + 1)
+    out = tfa.flash_attention_fwd(q, k, v, causal=True, window=2048)
+    _flash_close(out, ref.reference_attention(q, k, v, window=2048), dt)
+    if dt == torch.bfloat16:
+        exact = ref.reference_attention(q.float(), k.float(), v.float(),
+                                        window=2048)
         assert bool(((out.float() - exact).abs()
                      <= 2.0 ** -7 * exact.abs() + 1e-5).all())
 
@@ -356,5 +379,120 @@ def test_cuda_easter_lm_prefill_and_serve_step_match_cpu(cuda, engine):
     K = card.easter.num_passive
     assert out[0][2] == La + (Lp if engine == "vectorized" else K * Lp)
     assert out[0][3] == 2 and out[1][2:] == (0, 0)
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU recurrence and the recurrentgemma serving slice
+# ---------------------------------------------------------------------------
+
+
+def _rglru_inputs(B, L, W, dtype, device, seed, decay=False):
+    gen = torch.Generator().manual_seed(seed)
+    if decay:
+        a = torch.full((B, L, W), 0.99)
+        b = torch.full((B, L, W), 0.01)
+        h0 = torch.zeros((B, W))
+    else:
+        a = torch.sigmoid(torch.randn((B, L, W), generator=gen))
+        b = torch.randn((B, L, W), generator=gen) * 0.1
+        h0 = torch.randn((B, W), generator=gen)
+    return a.to(dtype).to(device), b.to(dtype).to(device), h0.to(device)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,W,decay", [
+    (2, 64, 128, False), (1, 128, 256, False), (4, 32, 64, False),
+    (3, 96, 128, False), (1, 512, 64, True), (2, 7, 100, False),
+    (1, 1000, 4000, False), (3, 33, 1, False), (1, 2047, 4096, False)])
+def test_cuda_rglru_matches_plain(cuda, B, L, W, decay, dtype):
+    """The reference sweep, the 512-step decay case, ragged L and W, and
+    recurrentgemma's width, from a non-zero h0 (zero for the decay)."""
+    a, b, h0 = _rglru_inputs(B, L, W, _TDT[dtype], cuda, B * L + W, decay)
+    before = trg.LAUNCHES["rglru_scan_fwd"]
+    h, last = trg.rglru_scan_fwd(a, b, h0)
+    torch.cuda.synchronize()
+    assert trg.LAUNCHES["rglru_scan_fwd"] == before + 1
+    assert h.dtype == last.dtype == torch.float32
+    assert h.shape == (B, L, W) and last.shape == (B, W)
+    want_h, want_last = ref.reference_rglru(a, b, h0)
+    torch.testing.assert_close(h, want_h, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(last, want_last, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_rglru_under_vmap_folds_the_party_axis(cuda):
+    from torch.func import vmap
+    a, b, h0 = _rglru_inputs(3, 50, 96, torch.float32, cuda, 4)
+    a, b = a.reshape(3, 1, 50, 96), b.reshape(3, 1, 50, 96)
+    before = trg.LAUNCHES["rglru_scan_fwd"]
+    with torch.no_grad():
+        h, last = vmap(lambda x, y: ops.rglru_scan(x, y, h0[:1]))(a, b)
+    assert trg.LAUNCHES["rglru_scan_fwd"] == before + 1
+    for i in range(3):
+        wh, wl = ref.reference_rglru(a[i], b[i], h0[:1])
+        torch.testing.assert_close(h[i], wh, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(last[i], wl, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_rglru_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    a, b, h0 = _rglru_inputs(2, 8, 16, torch.float32, cuda, 5)
+    with pytest.raises(TypeError, match="dtypes"):
+        trg.rglru_scan_fwd(a, b.bfloat16(), h0)
+    with pytest.raises(TypeError, match="h0"):
+        trg.rglru_scan_fwd(a, b, h0.bfloat16())
+    with pytest.raises(ValueError, match="shape"):
+        trg.rglru_scan_fwd(a, b, h0[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        trg.rglru_scan_fwd(a.transpose(1, 2), b.transpose(1, 2),
+                           h0[:, :8])
+    with pytest.raises(ValueError, match="CUDA"):
+        trg.rglru_scan_fwd(a, b.cpu(), h0)
+    with pytest.raises(ValueError, match="one device type"):
+        ops.rglru_scan(a, b.cpu(), h0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("engine", ["vectorized", "loop"])
+def test_cuda_griffin_easter_lm_matches_cpu(cuda, engine):
+    """The smoke variant of recurrentgemma-9b: prefill of a 40-token
+    prompt (past the window of 32) and one decode round, on the card
+    against the CPU port (float32, TF32 off): embeddings and logits within
+    rtol 1e-4 / atol 1e-5. Every prefill's RG-LRU layer runs
+    rglru_scan_fwd and every attention layer flash_attention_fwd (the
+    vectorized engine folds the passive group into one launch a layer)."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.core.easter_lm import EasterLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_config("recurrentgemma-9b"))
+    card = EasterLM(cfg, EasterConfig(), engine=engine)
+    cpu = EasterLM(cfg, EasterConfig(), engine=engine, device="cpu")
+    params0 = cpu.export_params(
+        cpu.init_params(torch.Generator().manual_seed(0)))
+    tok = torch.randint(0, cfg.vocab_size, (2, 41),
+                        generator=torch.Generator().manual_seed(1))
+    out = []
+    for sys_ in (card, cpu):
+        params = sys_.load_params(params0)
+        seeds = sys_.mask_seeds()
+        trg.reset_launches()
+        tfa.reset_launches()
+        t = tok.to(sys_.device)
+        E, caches = sys_.prefill(params, t[:, :-1],
+                                 sys_.init_caches(2, 48, per_lane=True),
+                                 seeds=seeds, round_idx=3)
+        logits, _ = sys_.serve_step(
+            params, t[:, -1:], caches, torch.tensor([40, 40]), seeds,
+            lane_mask=torch.tensor([True, False], device=sys_.device),
+            nonces=torch.tensor([1, 2]))
+        out.append((E.cpu(), logits.cpu(), trg.LAUNCHES["rglru_scan_fwd"],
+                    tfa.LAUNCHES["flash_attention_fwd"]))
+    K = card.easter.num_passive
+    per = 1 if engine == "vectorized" else K
+    assert out[0][2:] == (2 + 2 * per, 1 + per)
+    assert out[1][2:] == (0, 0)
     torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-5)

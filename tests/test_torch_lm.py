@@ -348,12 +348,12 @@ def test_transformer_matches(backbone):
 
 
 def test_unported_families_raise():
-    for family in ("moe", "ssm", "hybrid", "encdec", "vlm"):
+    for family in ("moe", "ssm", "encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="item 13"):
             TT.init_lm(torch.Generator(), tcfg.ModelConfig(family=family))
     _, tc = _cfgs("qwen2.5-3b")
     with pytest.raises(NotImplementedError, match="item 13"):
-        TT.init_block(torch.Generator(), tc, "lru")
+        TT.init_block(torch.Generator(), tc, "ssm")
     with pytest.raises(NotImplementedError, match="item 14"):
         TLM(tc, tcfg.EasterConfig(), engine="sharded", device="cpu")
     sys_ = TLM(tc, tcfg.EasterConfig(), device="cpu")

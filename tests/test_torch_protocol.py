@@ -310,7 +310,8 @@ def test_port_imports_neither_jax_nor_repro():
     code = ("import sys; import repro_torch.core.protocol, "
             "repro_torch.checkpoint, repro_torch.data, repro_torch.kernels.ops, "
             "repro_torch.core.easter_lm, repro_torch.core.serving, "
-            "repro_torch.launch.serve, repro_torch.models.build; "
+            "repro_torch.launch.serve, repro_torch.models.build, "
+            "repro_torch.models.griffin, repro_torch.kernels.rg_lru; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
