@@ -5,6 +5,11 @@ library with a plain C interface under ``build/kernels/`` at the root of
 the checkout (git ignores it). The library's file name carries a hash of
 the source and the flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is. A failed build raises with the compiler's output.
+
+Every source gets ``NVCC_FLAGS``; ``EXTRA_FLAGS`` adds what one source
+alone needs: ``flash_attention.cu`` builds its TMA tensor maps with the
+driver's ``cuTensorMapEncodeTiled``, so it links ``-lcuda`` (nvcc finds
+the driver library, or the toolkit's stub of it, on its default paths).
 """
 from __future__ import annotations
 
@@ -16,12 +21,13 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"flash_attention": ("-lcuda",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -40,7 +46,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
@@ -52,7 +59,8 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu"),
+           *EXTRA_FLAGS.get(name, ())]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

@@ -18,9 +18,12 @@ binds it:
     keeps ``dot_attention`` under autograd).
 
 The wrapper takes contiguous CUDA tensors of float32 or bfloat16 with hd
-in {32, 64, 128, 256} and raises on anything else; the plain version
-for CPU tensors is ``ref.reference_attention``, chosen by ``ops``. Each
-launch adds one to ``LAUNCHES["flash_attention_fwd"]``.
+in {32, 64, 128, 256} and raises on anything else; bfloat16 runs the
+wgmma + TMA kernel, whose tensor maps need each data pointer 16-byte
+aligned (checked; a misaligned tensor raises, it never falls back), and
+float32 the SIMT kernel. The plain version for CPU tensors is
+``ref.reference_attention``, chosen by ``ops``. Each launch adds one to
+``LAUNCHES["flash_attention_fwd"]``.
 """
 from __future__ import annotations
 
@@ -54,6 +57,9 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_fwd.restype = i32
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        ip = ctypes.POINTER(i32)
+        lib.flash_attention_wgmma_info.argtypes = [i32, ip, ip, ip]
+        lib.flash_attention_wgmma_info.restype = i32
         lib._argtypes_set = True
     return lib
 
@@ -85,6 +91,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: data pointer {t.data_ptr():#x} is not "
+                             f"16-byte aligned, as the bfloat16 kernel's TMA "
+                             f"tensor maps need")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not supported (one of {HEAD_DIMS})")
     if Hkv == 0 or Hq % Hkv:
@@ -106,6 +116,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"({code})")
     LAUNCHES["flash_attention_fwd"] += 1
     return out
+
+
+def wgmma_info(hd: int) -> Dict[str, int]:
+    """The bfloat16 kernel at head dim ``hd`` as built: registers a thread,
+    local memory a thread (spills) and shared memory a CTA."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    code = _lib().flash_attention_wgmma_info(hd, *map(ctypes.byref, vals))
+    if code != 0:
+        raise RuntimeError(f"flash_attention_wgmma_info({hd}) failed "
+                           f"({code})")
+    return dict(zip(("registers", "local_bytes", "smem_bytes"),
+                    (v.value for v in vals)))
 
 
 class _FlashAttention(torch.autograd.Function):

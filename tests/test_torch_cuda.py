@@ -16,8 +16,10 @@ only the order of the float32 sum over parties differs: within
 (K + 2) * 2^-24 * S / C, S = |E_a| + sum_k (|E_k| + |r_k|), plus one ulp
 of the output in its dtype. Flash attention against its plain version:
 the reference sweep's tolerance, atol 3e-5 (float32) or 3e-2 (bfloat16)
-and rtol 1e-2; at the serving path's prefill shapes bfloat16 also within
-one bfloat16 ulp of float32 attention on the same inputs. The RG-LRU
+and rtol 1e-2; bfloat16 (whose kernel rounds P to bfloat16 for the PV
+product) also within |out - exact| <= ulp_bf16(exact) + 2^-8 A(q, k, |v|)
++ 1e-5 of float32 attention on the same inputs, A being attention with
+|v| in place of v (see ``_bf16_bound_used``). The RG-LRU
 recurrence against its plain version: within rtol 1e-6 / atol 1e-6 (both
 round a multiply, then an add, in float32: bit for bit is expected).
 """
@@ -230,6 +232,49 @@ def _flash_close(out, want, dtype):
                                atol=atol, rtol=1e-2)
 
 
+def _bf16_bound_used(out, q, k, v, causal=True, window=0):
+    """The largest share of the bfloat16 kernel's error bound that ``out``
+    uses: |out - exact| <= ulp_bf16(exact) + 2^-8 A(q, k, |v|) + 1e-5, with
+    exact float32 attention on the same (bfloat16) inputs and A(q, k, |v|)
+    float32 attention with |v| in place of v. Rounding P to bfloat16 for
+    the PV product moves each term p_j v_j by at most 2^-9 relative, so the
+    output by at most 2^-9 A; the output's own rounding is within one ulp;
+    2^-8 leaves a factor of two for the float32 score product and exp2. At
+    the prefill shapes 2^-8 A is ~0.003, well under the 0.006-0.013 by which
+    a dropped 64-key tile moves a late row, so a dropped tile still fails.
+    Rows with nothing unmasked are held to 0 (the kernel writes 0 there;
+    the plain version's softmax over all -1e30 gives the mean of v)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    exact = ref.reference_attention(qf, kf, vf, causal=causal, window=window)
+    mag = ref.reference_attention(qf, kf, vf.abs(), causal=causal,
+                                  window=window)
+    S, T = q.shape[1], k.shape[1]
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    seen = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        seen &= k_pos <= q_pos
+    if window > 0:
+        seen &= k_pos > q_pos - window
+    exact = torch.where(seen.any(1)[None, :, None, None], exact, 0.0)
+    _, e = torch.frexp(exact.abs().clamp_min(torch.finfo(torch.float32).tiny))
+    ulp = torch.ldexp(torch.ones_like(exact), e - 8)
+    return float(((out.float() - exact).abs()
+                  / (ulp + 2.0 ** -8 * mag + 1e-5)).max())
+
+
+def _flash_bf16_check(q, k, v, causal=True, window=0):
+    """One bfloat16 launch held to the sweep's tolerance (where every row
+    sees a key) and to the kernel's error bound."""
+    before = tfa.LAUNCHES["flash_attention_fwd"]
+    out = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_fwd"] == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _bf16_bound_used(out, q, k, v, causal, window) <= 1
+    return out
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", _FLASH_MASKS)
@@ -258,20 +303,17 @@ def test_cuda_flash_matches_plain(cuda, S, Hq, Hkv, hd, causal, window,
 def test_cuda_flash_matches_plain_at_prefill_shapes(cuda, B, S, dtype):
     """The serving path's prefill shapes at qwen2.5-3b's heads (16/2/128,
     causal): the active party's (B = 1) and the passive group's folded
-    into the batch axis (B = 3). bfloat16 is also held within one
-    bfloat16 ulp (2^-7 |exact| + 1e-5) of float32 attention on the same
-    inputs: the sweep's atol 3e-2 is near a row's size at these lengths
-    (~0.05 at S = 1023) and would pass a dropped 64-key tile, which moves
-    a late row's elements by ~0.006-0.013; the kernel, float32 throughout
-    with one rounding of the output, stays within half an ulp."""
+    into the batch axis (B = 3). bfloat16 is also held to the kernel's
+    error bound against float32 attention on the same inputs
+    (``_bf16_bound_used``): the sweep's atol 3e-2 is near a row's size at
+    these lengths (~0.05 at S = 1023) and would pass a dropped 64-key
+    tile, which moves a late row's elements by ~0.006-0.013."""
     dt = _TDT[dtype]
     q, k, v = _flash_inputs(B, S, S, 16, 2, 128, dt, cuda, B * S)
     out = tfa.flash_attention_fwd(q, k, v, causal=True)
     _flash_close(out, ref.reference_attention(q, k, v), dt)
     if dt == torch.bfloat16:
-        exact = ref.reference_attention(q.float(), k.float(), v.float())
-        assert bool(((out.float() - exact).abs()
-                     <= 2.0 ** -7 * exact.abs() + 1e-5).all())
+        assert _bf16_bound_used(out, q, k, v) <= 1
 
 
 @pytest.mark.requires_cuda
@@ -287,10 +329,7 @@ def test_cuda_flash_matches_plain_at_recurrentgemma_prefill_shapes(cuda, B, S,
     out = tfa.flash_attention_fwd(q, k, v, causal=True, window=2048)
     _flash_close(out, ref.reference_attention(q, k, v, window=2048), dt)
     if dt == torch.bfloat16:
-        exact = ref.reference_attention(q.float(), k.float(), v.float(),
-                                        window=2048)
-        assert bool(((out.float() - exact).abs()
-                     <= 2.0 ** -7 * exact.abs() + 1e-5).all())
+        assert _bf16_bound_used(out, q, k, v, window=2048) <= 1
 
 
 @pytest.mark.requires_cuda
@@ -313,6 +352,95 @@ def test_cuda_flash_under_vmap_folds_the_party_axis(cuda):
                                                        c[None])[0])(q, k, v)
     assert tfa.LAUNCHES["flash_attention_fwd"] == before + 1
     _flash_close(out, ref.reference_attention(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("Hq,Hkv,hd", [(4, 2, 32), (4, 2, 64), (16, 2, 128),
+                                       (16, 1, 256)])
+@pytest.mark.parametrize("S", [1, 63, 65, 127, 129, 2047])
+def test_cuda_flash_bf16_tile_edges(cuda, S, Hq, Hkv, hd):
+    """The bfloat16 kernel's tiles (128 query rows a CTA, 64 a warpgroup;
+    128 kv rows a stage, 64 at hd 256) at lengths one short of, one past
+    and inside them, at every head dim."""
+    q, k, v = _flash_inputs(1, S, S, Hq, Hkv, hd, torch.bfloat16, cuda,
+                            S + hd)
+    out = _flash_bf16_check(q, k, v)
+    _flash_close(out, ref.reference_attention(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 100),
+                                           (False, 100)])
+@pytest.mark.parametrize("S,T", [(50, 130), (130, 50), (200, 129),
+                                 (129, 300)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_cuda_flash_bf16_s_differs_from_t(cuda, hd, S, T, causal, window):
+    """S != T: rows past S unwritten by TMA's clipped store, columns past T
+    zero-filled by TMA and masked (no row here is left without a key)."""
+    q, k, v = _flash_inputs(1, S, T, 16 if hd > 64 else 4, 2, hd,
+                            torch.bfloat16, cuda, S * T + hd)
+    out = _flash_bf16_check(q, k, v, causal, window)
+    _flash_close(out, ref.reference_attention(q, k, v, causal=causal,
+                                              window=window), torch.bfloat16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [37, 100, 200])
+@pytest.mark.parametrize("Hq,Hkv,hd", [(16, 2, 128), (16, 1, 256)])
+def test_cuda_flash_bf16_window_cuts_mid_tile(cuda, Hq, Hkv, hd, window,
+                                              causal):
+    """Windows whose edge falls inside a kv tile, so that the per-element
+    mask runs on tiles left of the diagonal as well."""
+    q, k, v = _flash_inputs(1, 700, 700, Hq, Hkv, hd, torch.bfloat16, cuda,
+                            window + hd)
+    out = _flash_bf16_check(q, k, v, causal, window)
+    _flash_close(out, ref.reference_attention(q, k, v, causal=causal,
+                                              window=window), torch.bfloat16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("Hq,Hkv,hd", [(16, 2, 128), (16, 1, 128),
+                                       (16, 2, 256), (16, 1, 256)])
+def test_cuda_flash_bf16_batch_and_groups(cuda, Hq, Hkv, hd):
+    """B = 3 (the folded passive group) with 8 and 16 query heads per kv
+    head: each (batch, head) CTA reads its own kv head's tiles."""
+    q, k, v = _flash_inputs(3, 300, 300, Hq, Hkv, hd, torch.bfloat16, cuda,
+                            Hq // Hkv + hd)
+    out = _flash_bf16_check(q, k, v)
+    _flash_close(out, ref.reference_attention(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_rows_with_nothing_unmasked_are_zero(cuda, dtype):
+    """S = 130 > T = 50 with a window of 32: rows 81-129 see no key. Both
+    kernels write them as 0 (the plain version's softmax over all -1e30
+    gives the mean of v there); every other row agrees with it."""
+    dt = _TDT[dtype]
+    q, k, v = _flash_inputs(1, 130, 50, 4, 2, 64, dt, cuda, 11)
+    for causal in (True, False):
+        out = tfa.flash_attention_fwd(q, k, v, causal=causal, window=32)
+        want = ref.reference_attention(q, k, v, causal=causal, window=32)
+        assert bool((out[:, 81:] == 0).all())
+        _flash_close(out[:, :81], want[:, :81], dt)
+        if dt == torch.bfloat16:
+            assert _bf16_bound_used(out, q, k, v, causal, 32) <= 1
+
+
+@pytest.mark.requires_cuda
+def test_cuda_flash_bf16_rejects_a_misaligned_pointer(cuda):
+    """The bfloat16 kernel's TMA tensor maps need 16-byte aligned data: a
+    view 2 bytes into a buffer raises, and nothing falls back."""
+    q, k, v = _flash_inputs(1, 8, 8, 4, 2, 64, torch.bfloat16, cuda, 4)
+    buf = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:q.numel() + 1].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    before = tfa.LAUNCHES["flash_attention_fwd"]
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_fwd(shifted, k, v)
+    assert tfa.LAUNCHES["flash_attention_fwd"] == before
 
 
 @pytest.mark.requires_cuda
