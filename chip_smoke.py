@@ -5,13 +5,17 @@
     python3 chip_smoke.py --phase engines    # one timing phase alone
     python3 chip_smoke.py --phase many
     python3 chip_smoke.py --phase flash
+    python3 chip_smoke.py --phase rglru
+    python3 chip_smoke.py --phase prng --save OUT.pt    # or --compare OUT.pt
 
 Phases, each printing its own lines:
 
   build   nvcc-builds every CUDA kernel source of the port (sm_90a), all
           sources at once; prints the bfloat16 flash kernel's registers,
           shared memory and spills at each head dim, and fails unless its
-          SASS (cuobjdump -sass) holds HGMMA (wgmma) and UTMALDG (TMA).
+          SASS (cuobjdump -sass) holds HGMMA (wgmma) and UTMALDG (TMA);
+          prints the same for the RG-LRU TMA kernel (float32 and bfloat16
+          a and b) and fails unless its SASS holds UTMALDG.
   kernel  holds blind_agg_fwd / blind_agg_bwd against their plain PyTorch
           version on the card, values and autograd gradients, over party
           counts K up to 127, odd and even (N, d), a 4-D input, float32 and
@@ -53,7 +57,10 @@ Phases, each printing its own lines:
           the reference sweep (S 64-256 x six (Hq, Hkv, hd), 16/1/256
           among them, x causal, non-causal and causal window 32 x
           float32/bfloat16), ragged S of 1, 7, 63, 65, 100, 127, 129 and
-          1023 (T = S), S = 50 against T = 130, the serving paths' prefill
+          1023 (T = S), S = 50 against T = 130, S > T + window - 1
+          (130 / 50 / 4-2-64 window 32, 400 / 129 / 16-1-256 window 100,
+          causal and not, float32 and bfloat16: rows that see no key are
+          the plain version's mean of v), the serving paths' prefill
           shapes (1 or 3, 511 | 1023 | 2047) at 16/2/128 causal and
           16/1/256 causal window 2048 in float32 and bfloat16 (bfloat16
           also within the kernel's bound |out - exact| <= ulp_bf16(exact)
@@ -77,9 +84,12 @@ Phases, each printing its own lines:
           (rtol = atol = 1e-6; bit-identical expected): the reference sweep
           (2,64,128), (1,128,256), (4,32,64), (3,96,128), ragged L and W
           (7 and 1000 x 100 and 4000), the serving shapes (1 or 3, 511 |
-          1023 | 2047, 4096), each with float32 and bfloat16 a and b from a
+          1023 | 2047, 4096), widths of rows not a multiple of 16 bytes
+          and L = 0, each with float32 and bfloat16 a and b from a
           non-zero h0, the 512-step decay case (a = 0.99, b = 0.01), and
-          one vmap over 3 parties (one launch).
+          one vmap over 3 parties (one launch); each case must take the
+          kernel path its shape selects (the TMA ring at every serving
+          shape, one thread per column where TMA cannot read the rows).
   rg      EasterLM on recurrentgemma-9b at full width and depth (38 layers:
           12 x (lru, lru, attn) + (lru, lru); d_model and lru_width 4096;
           MQA 16/1 x 256 with a local window of 2048; three 9-layer
@@ -87,7 +97,8 @@ Phases, each printing its own lines:
           torch.Generator seeded 0 on the card), served as in lm after the
           qwen2.5-3b model is freed; launch counts asserted (26 + 6
           rglru_scan_fwd and 12 + 3 flash_attention_fwd a prefill, one
-          blind_agg_fwd a round); profiler windows as in lm.
+          blind_agg_fwd a round), every rglru_scan_fwd on the TMA path;
+          profiler windows as in lm.
   rg_cut  recurrentgemma-9b cut to one pattern repeat (3 active layers,
           3 per passive proxy; 6.35e9 parameters, 25.4 GB in float32),
           TF32 off, against the CPU port on the same weights as in lm's
@@ -102,7 +113,14 @@ Phases, each printing its own lines:
           flops at the bf16 tensor-core peak, the achieved TFLOP/s and the
           bound's share of the kernel's time; (rglru) the kernel and its
           plain version at (1 | 3, 2047, 4096) float32 beside the bytes
-          bound.
+          bound, its output checked bit for bit against the plain one.
+
+--phase runs one timing phase alone after the build, for comparing two
+checkouts in turns (the other checkout's tree given this script):
+engines, many, rg (the recurrentgemma-9b serving run), flash, rglru (the
+rglru timing) or prng (the prng cases, their outputs saved with --save or
+compared bit for bit with another checkout's file with --compare, then
+the prng timing).
 
 The launch counters are set to 0 just before each counted path (slice,
 joint, many-party fused, many-party joint, many-party unfused, qwen2.5-3b
@@ -114,6 +132,7 @@ repository's src/ beside it.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -168,6 +187,9 @@ FLASH_RAGGED_S = (1, 7, 63, 65, 100, 127, 129, 1023)
 FLASH_HEADS = ((4, 4, 64), (4, 2, 64), (8, 1, 64), (4, 2, 128), (2, 2, 32),
                (16, 1, 256))
 FLASH_MASKS = ((True, 0), (False, 0), (True, 32))
+# S > T + window - 1: the rows from T + window - 1 on see no key, and are
+# the mean of v (B, S, T, Hq, Hkv, hd, window), causal and not
+FLASH_EMPTY_ROWS = ((1, 130, 50, 4, 2, 64, 32), (1, 400, 129, 16, 1, 256, 100))
 # the serving path's prefill shapes (prompt[:-1] of 512/1024/2048 tokens):
 # (B, S) for the active party (B = 1) and the folded passive group (B = 3)
 FLASH_PREFILL = ((1, 511), (1, 1023), (1, 2047), (3, 511), (3, 1023),
@@ -191,6 +213,9 @@ FLASH_TIMING = tuple((B, S, FLASH_PREFILL_HEADS, 0) for B in (1, 3)
 RGLRU_SWEEP = ((2, 64, 128), (1, 128, 256), (4, 32, 64), (3, 96, 128))
 RGLRU_RAGGED = ((2, 7, 100), (1, 1000, 4000), (3, 7, 4000), (1, 1000, 100))
 RGLRU_SERVE = tuple((B, L, 4096) for B in (1, 3) for L in (511, 1023, 2047))
+# widths whose rows are not a multiple of 16 bytes, and L = 0: the kernel
+# of one thread per column
+RGLRU_PER_COLUMN = ((2, 7, 101), (1, 1000, 102), (2, 0, 64))
 
 
 def log(phase: str, msg: str) -> None:
@@ -225,22 +250,13 @@ def flash_bound_used(out, q, k, v, causal=True, window=0):
     bfloat16 for the PV product (each term p_j v_j moves by at most 2^-9
     relative, the output by at most 2^-9 A) and rounds the output once;
     2^-8 leaves a factor of two for the float32 score product and exp2.
-    Rows with nothing unmasked are held to 0, as the kernel writes them."""
-    import torch
+    Rows with nothing unmasked are held to the plain version's mean of v
+    there, as everywhere else."""
     from repro_torch.kernels import ref
     qf, kf, vf = q.float(), k.float(), v.float()
     exact = ref.reference_attention(qf, kf, vf, causal=causal, window=window)
     mag = ref.reference_attention(qf, kf, vf.abs(), causal=causal,
                                   window=window)
-    q_pos = torch.arange(q.shape[1], device=q.device)[:, None]
-    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
-    seen = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
-                      device=q.device)
-    if causal:
-        seen &= k_pos <= q_pos
-    if window > 0:
-        seen &= k_pos > q_pos - window
-    exact = torch.where(seen.any(1)[None, :, None, None], exact, 0.0)
     return float(((out.float() - exact).abs()
                   / (bf16_ulp(exact) + 2.0 ** -8 * mag + 1e-5)).max())
 
@@ -272,44 +288,77 @@ def phase_build():
     return dict(zip(names, paths))
 
 
-def _check_flash_build(path):
-    """The bfloat16 flash kernel as built: registers, shared memory and
-    spills at each head dim (ptxas -v and cudaFuncGetAttributes), and its
-    SASS must issue wgmma (HGMMA) and TMA loads (UTMALDG)."""
-    from pathlib import Path
-    from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as tfa
+def _ptxas_spills(path, kernel_re):
+    """{instantiation tag: (spill stores, spill loads) in bytes} from the
+    ptxas -v log of library ``path``, for the entry functions whose mangled
+    name matches ``kernel_re`` (its group 1 is the tag)."""
     text = path.with_suffix(".log").read_text()
-    ptxas = {}
+    out = {}
     for block in text.split("Compiling entry function")[1:]:
-        m = re.search(r"flash_fwd_wgmmaILi(\d+)E", block)
+        m = re.search(kernel_re, block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
         if m and spill:
-            ptxas[int(m.group(1))] = (int(spill.group(1)),
-                                      int(spill.group(2)))
-    for hd in tfa.HEAD_DIMS:
-        info = tfa.wgmma_info(hd)
-        st, ld = ptxas.get(hd, ("?", "?"))
-        log("build", f"flash_fwd_wgmma<{hd}> (bfloat16): {info['registers']}"
-                     f" registers, {info['smem_bytes']} B shared memory a "
-                     f"CTA, {info['local_bytes']} B local memory; ptxas "
-                     f"spill stores {st} B, loads {ld} B")
+            out[m.group(1)] = (int(spill.group(1)), int(spill.group(2)))
+    return out
+
+
+def _sass_counts(path, kernel, ops):
+    """(functions, {op: count}) of the SASS instructions ``ops`` in the
+    functions of library ``path`` whose name holds ``kernel``."""
+    from pathlib import Path
+    from repro_torch.kernels import build
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     funcs = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
-             if "flash_fwd_wgmma" in f.splitlines()[0]]
-    counts = {op: sum(len(re.findall(rf"\b{op}\b", f)) for f in funcs)
-              for op in ("HGMMA", "UTMALDG", "UTMASTG")}
-    log("build", f"flash_fwd_wgmma SASS ({len(funcs)} instantiations): "
-                 f"{counts}")
-    if len(funcs) != len(tfa.HEAD_DIMS) or not counts["HGMMA"] \
+             if kernel in f.splitlines()[0]]
+    return len(funcs), {op: sum(len(re.findall(rf"\b{op}\b", f))
+                                for f in funcs) for op in ops}
+
+
+def _check_flash_build(path):
+    """The bfloat16 flash kernel as built: registers, shared memory and
+    spills at each head dim (ptxas -v and cudaFuncGetAttributes), and its
+    SASS must issue wgmma (HGMMA) and TMA loads (UTMALDG)."""
+    from repro_torch.kernels import flash_attention as tfa
+    ptxas = _ptxas_spills(path, r"flash_fwd_wgmmaILi(\d+)E")
+    for hd in tfa.HEAD_DIMS:
+        info = tfa.wgmma_info(hd)
+        st, ld = ptxas.get(str(hd), ("?", "?"))
+        log("build", f"flash_fwd_wgmma<{hd}> (bfloat16): {info['registers']}"
+                     f" registers, {info['smem_bytes']} B shared memory a "
+                     f"CTA, {info['local_bytes']} B local memory; ptxas "
+                     f"spill stores {st} B, loads {ld} B")
+    n, counts = _sass_counts(path, "flash_fwd_wgmma",
+                             ("HGMMA", "UTMALDG", "UTMASTG"))
+    log("build", f"flash_fwd_wgmma SASS ({n} instantiations): {counts}")
+    if n != len(tfa.HEAD_DIMS) or not counts["HGMMA"] \
             or not counts["UTMALDG"]:
         raise AssertionError(f"the bfloat16 flash kernel's SASS lacks wgmma "
-                             f"or TMA loads: {len(funcs)} functions, "
-                             f"{counts}")
+                             f"or TMA loads: {n} functions, {counts}")
+
+
+def _check_rglru_build(path):
+    """The RG-LRU TMA kernel as built: registers, shared memory and spills
+    for float32 and bfloat16 a and b, and its SASS must issue TMA loads
+    (UTMALDG) in both."""
+    import torch
+    from repro_torch.kernels import rg_lru as trg
+    ptxas = _ptxas_spills(path, r"rglru_tma_kernelI(\w+?)EEv")
+    for dt, tag in ((torch.float32, "f"), (torch.bfloat16, "13__nv_bfloat16")):
+        info = trg.tma_info(dt)
+        st, ld = ptxas.get(tag, ("?", "?"))
+        log("build", f"rglru_tma_kernel ({str(dt)[6:]} a and b): "
+                     f"{info['registers']} registers, {info['smem_bytes']} B "
+                     f"shared memory a CTA, {info['local_bytes']} B local "
+                     f"memory; ptxas spill stores {st} B, loads {ld} B")
+    n, counts = _sass_counts(path, "rglru_tma_kernel", ("UTMALDG",))
+    log("build", f"rglru_tma_kernel SASS ({n} instantiations): {counts}")
+    if n != 2 or not counts["UTMALDG"]:
+        raise AssertionError(f"the RG-LRU kernel's SASS lacks TMA loads: {n} "
+                             f"functions, {counts}")
 
 
 def _case(K, lead, d, dtype, mdtype, gen):
@@ -436,11 +485,12 @@ def _prng_case(K, lead, d, dtype, pdtype, scale, rnd, gen):
     i = int(torch.argmax(err))
     return (float(err.max()), float(tol.flatten()[i]), bool((err <= tol).all()),
             float(cerr.max()), float(ctol.max()), bool((cerr <= ctol).all()),
-            gok)
+            gok, out.detach())
 
 
-def phase_prng():
-    """blind_agg_prng_fwd against its plain version on the card."""
+def phase_prng(outputs=None):
+    """blind_agg_prng_fwd against its plain version on the card; the
+    kernel's outputs are appended to ``outputs`` when it is a list."""
     import torch
     from repro_torch.core import blinding
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -466,8 +516,10 @@ def phase_prng():
     worst = {f32: [0.0, 0.0], bf16: [0.0, 0.0]}
     failed = []
     for K, lead, d, dt, pdt, scale, rnd in cases:
-        err, tol, ok, cerr, ctol, cok, gok = _prng_case(K, lead, d, dt, pdt,
-                                                        scale, rnd, gen)
+        err, tol, ok, cerr, ctol, cok, gok, out = _prng_case(
+            K, lead, d, dt, pdt, scale, rnd, gen)
+        if outputs is not None:
+            outputs.append(out)
         if err > worst[dt][0]:
             worst[dt] = [err, tol]
         tag = (f"K={K} shape={lead + (d,)} {str(dt)[6:]} E_k "
@@ -1175,6 +1227,9 @@ def phase_flash():
              for Hq, Hkv, hd in FLASH_HEADS for c, w in FLASH_MASKS
              for dt in (f32, bf16)]
     cases += [(1, 50, 130, 4, 2, 64, c, w, f32) for c, w in FLASH_MASKS]
+    cases += [(B, S, T, Hq, Hkv, hd, c, w, dt)
+              for B, S, T, Hq, Hkv, hd, w in FLASH_EMPTY_ROWS
+              for c in (True, False) for dt in (f32, bf16)]
     worst = {f32: 0.0, bf16: 0.0}
     failed = []
     for case in cases:
@@ -1229,7 +1284,10 @@ def phase_flash():
                  f"tolerance (atol 3e-5 float32 / 3e-2 bfloat16, rtol "
                  f"1e-2): S in {FLASH_S} and ragged {FLASH_RAGGED_S} (T = "
                  f"S) x (Hq, Hkv, hd) in {FLASH_HEADS} x (causal, window) "
-                 f"in {FLASH_MASKS} x float32/bfloat16, S=50 T=130, and "
+                 f"in {FLASH_MASKS} x float32/bfloat16, S=50 T=130, "
+                 f"(B, S, T, Hq, Hkv, hd, window) in {FLASH_EMPTY_ROWS} "
+                 f"causal and not x float32/bfloat16 (rows from T + "
+                 f"window - 1 on see no key: the mean of v), and "
                  f"the prefill shapes (B, S) in {FLASH_PREFILL} at "
                  f"16/2/128 causal and 16/1/256 causal window "
                  f"{RG_WINDOW} x float32/bfloat16; worst "
@@ -1256,22 +1314,26 @@ def _rglru_inputs(B, L, W, dtype, gen, decay=False):
 
 
 def _rglru_case(B, L, W, dtype, gen, decay=False):
-    """(max abs error, elements not bit-identical, within tolerance) of
-    rglru_scan_fwd against reference_rglru on the same inputs. Tolerance
-    rtol 1e-6 / atol 1e-6: both compute a float32 multiply, then an add,
-    each rounded, so bit-identical results are expected."""
+    """(max abs error, elements not bit-identical, within tolerance, the
+    kernel path it took) of rglru_scan_fwd against reference_rglru on the
+    same inputs. Tolerance rtol 1e-6 / atol 1e-6: both compute a float32
+    multiply, then an add, each rounded, so bit-identical results are
+    expected."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rg_lru as trg
     a, b, h0 = _rglru_inputs(B, L, W, dtype, gen, decay)
+    before = dict(trg.PATH_LAUNCHES)
     h, last = trg.rglru_scan_fwd(a, b, h0)
     wh, wl = ref.reference_rglru(a, b, h0)
     torch.cuda.synchronize()
-    err = max(float((h - wh).abs().max()), float((last - wl).abs().max()))
+    path = [p for p, n in trg.PATH_LAUNCHES.items() if n != before[p]]
+    err = float(torch.cat([(h - wh).flatten(), (last - wl).flatten()])
+                .abs().max())
     diff = int((h != wh).sum()) + int((last != wl).sum())
     ok = all(bool(((x - y).abs() <= 1e-6 + 1e-6 * y.abs()).all())
              for x, y in ((h, wh), (last, wl)))
-    return err, diff, ok
+    return err, diff, ok, "/".join(path)
 
 
 def phase_rglru():
@@ -1282,24 +1344,30 @@ def phase_rglru():
     from repro_torch.kernels import rg_lru as trg
     gen = torch.Generator(device="cuda").manual_seed(11)
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(B, L, W, dt, False)
-             for B, L, W in RGLRU_SWEEP + RGLRU_RAGGED + RGLRU_SERVE
+    shapes = RGLRU_SWEEP + RGLRU_RAGGED + RGLRU_SERVE + RGLRU_PER_COLUMN
+    cases = [(B, L, W, dt, False) for B, L, W in shapes
              for dt in (f32, bf16)]
     cases += [(1, 512, 64, dt, True) for dt in (f32, bf16)]
-    worst, diffs, failed = 0.0, 0, []
+    worst, diffs, failed, paths = 0.0, 0, [], {}
     for B, L, W, dt, decay in cases:
-        err, diff, ok = _rglru_case(B, L, W, dt, gen, decay)
+        err, diff, ok, path = _rglru_case(B, L, W, dt, gen, decay)
         worst, diffs = max(worst, err), diffs + diff
+        paths[path] = paths.get(path, 0) + 1
+        # the path is chosen by shape: TMA wherever it takes the rows
+        want = "per_column" if (B, L, W) in RGLRU_PER_COLUMN or (
+            dt == bf16 and W % 8) else "tma"
         if (B, L, W) in RGLRU_SERVE or decay:
             log("rglru", f"({B}, {L}, {W}) {str(dt)[6:]}"
                          f"{' decay a=0.99 b=0.01' if decay else ''}: max "
                          f"abs err {err:.3g}, {diff} elements not "
-                         f"bit-identical: {'ok' if ok else 'FAILED'}")
-        if not ok:
-            failed.append(((B, L, W, str(dt), decay), err))
+                         f"bit-identical, {path} path: "
+                         f"{'ok' if ok and path == want else 'FAILED'}")
+        if not ok or path != want:
+            failed.append(((B, L, W, str(dt), decay), err, path))
     if failed:
         raise AssertionError(f"rglru_scan_fwd disagrees with its plain "
-                             f"version in {len(failed)} cases: {failed[:5]}")
+                             f"version or took the wrong path in "
+                             f"{len(failed)} cases: {failed[:5]}")
     # the grouped passive parties: torch.func.vmap folds the party axis
     # into the batch axis around one launch
     a, b, h0 = _rglru_inputs(3, 511, 4096, f32, gen)
@@ -1317,11 +1385,12 @@ def phase_rglru():
     log("rglru", f"{len(cases)} cases within tolerance (rtol 1e-6, atol "
                  f"1e-6; both round a float32 multiply, then an add): the "
                  f"reference sweep {RGLRU_SWEEP}, ragged {RGLRU_RAGGED}, the "
-                 f"serving shapes {RGLRU_SERVE} x float32/bfloat16 a and b "
-                 f"from a non-zero h0, and the 512-step decay case; worst "
+                 f"serving shapes {RGLRU_SERVE}, the per-column shapes "
+                 f"{RGLRU_PER_COLUMN} x float32/bfloat16 a and b from a "
+                 f"non-zero h0, and the 512-step decay case; worst "
                  f"{worst:.3g}, {diffs} elements not bit-identical in all; "
-                 f"vmap over 3 parties at (1, 511, 4096): one launch, max "
-                 f"abs err {vm_err:.3g}")
+                 f"cases by kernel path {paths}; vmap over 3 parties at "
+                 f"(1, 511, 4096): one launch, max abs err {vm_err:.3g}")
     return worst
 
 
@@ -1344,6 +1413,8 @@ def phase_timing_rglru():
         k1 = _time_ms(kern, reps=10, inner=5)
         k2 = _time_ms(kern, reps=10, inner=5)
         p2 = _wall_ms(plain)
+        (h, last), (wh, wl) = kern(), plain()
+        diff = int((h != wh).sum()) + int((last != wl).sum())
         nbytes = 3 * B * L * W * 4 + 2 * B * W * 4
         ops_ = 2 * B * L * W
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1353,15 +1424,20 @@ def phase_timing_rglru():
                   "bound_ms": bound,
                   "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                   "bytes": nbytes, "ops": ops_,
-                  "gb_per_s": nbytes / (min(k1, k2) * 1e-3) / 1e9}
+                  "gb_per_s": nbytes / (min(k1, k2) * 1e-3) / 1e9,
+                  "not_bit_identical": diff}
         log("timing", f"rglru_scan_fwd ({B}, {L}, {W}) float32: kernel "
                       f"{k1:.4f}/{k2:.4f} ms, plain (host clock) "
                       f"{p1:.3f}/{p2:.3f} ms; bound {bound:.5f} ms ({nbytes} "
                       f"B at 3.35 TB/s, data-sheet peak; bound by bytes; "
                       f"{ops_} FP32 operations {op_ms:.5f} ms), kernel at "
                       f"{min(k1, k2) / bound:.2f}x it "
-                      f"({out[B]['gb_per_s']:.0f} GB/s); no single PyTorch "
-                      f"call computes it (library_ms null)")
+                      f"({out[B]['gb_per_s']:.0f} GB/s); {diff} elements "
+                      f"not bit for bit the plain version's; no single "
+                      f"PyTorch call computes it (library_ms null)")
+        if diff:
+            raise AssertionError(f"rglru_scan_fwd at ({B}, {L}, {W}): {diff} "
+                                 f"elements differ from the plain version")
     return out
 
 
@@ -1510,6 +1586,10 @@ def _serve_phase(tag, arch):
         if launches[name] != n:
             raise AssertionError(f"{name}: {launches[name]} launches on the "
                                  f"serving path, expected {n}")
+    # by kernel path (None where the kernel has one path: another
+    # checkout's tree, timed in turns with --phase rg)
+    paths = getattr(trg, "PATH_LAUNCHES", None)
+    paths = dict(paths) if paths is not None else None
     toks = sum(len(c.tokens) for c in comps)
     bad = [c for c in comps if len(c.tokens) != LM_NEW
            or not all(0 <= t < cfg.vocab_size for t in c.tokens)]
@@ -1531,7 +1611,7 @@ def _serve_phase(tag, arch):
              f"flash_attention_fwd {LM_REQUESTS} x ({attn_a} + {attn_p}), "
              f"rglru_scan_fwd {LM_REQUESTS} x ({lru_a} + {lru_p}), "
              f"blind_agg_fwd {LM_REQUESTS} prefills + {eng.rounds_run} "
-             f"rounds)")
+             f"rounds); rglru_scan_fwd by path {paths}")
     # the output is finite and of the expected shape at full size
     seeds = sys_.mask_seeds()
     c1 = sys_.init_caches(1, 64)
@@ -1563,7 +1643,8 @@ def _serve_phase(tag, arch):
         "init_s": init_s, "params": n_all, "wall_s": wall,
         "tokens_per_s": toks / wall, "ms_per_round": ms_round,
         "rounds": eng.rounds_run, "prefill_ms": per_len,
-        "profile_prefill": prof_prefill, "profile_decode": prof_decode}
+        "profile_prefill": prof_prefill, "profile_decode": prof_decode,
+        "rglru_paths": paths}
 
 
 def _host_gib():
@@ -1754,12 +1835,32 @@ def _table2_batches(n):
     return ds, batches
 
 
-def run_phase(name: str) -> int:
+def _same_bits(outs, path):
+    """How many of ``outs`` equal, bit for bit, the tensors saved at
+    ``path`` by another run (of another checkout) on the same inputs."""
+    import torch
+    theirs = torch.load(path)
+    if len(theirs) != len(outs):
+        raise AssertionError(f"{path} holds {len(theirs)} outputs, this run "
+                             f"{len(outs)}")
+    bits = lambda t: t.cpu().contiguous().view(torch.uint8)
+    return sum(a.dtype == b.dtype and a.shape == b.shape
+               and torch.equal(bits(a), bits(b)) for a, b in zip(outs, theirs))
+
+
+def run_phase(name, save=None, compare=None):
     """One timing phase alone (after the build), for comparing two
     checkouts in turns: ``engines`` (the Table II train step on both
-    engines), ``many`` (three times 20 fused many-party rounds) or
-    ``flash`` (flash_attention_fwd at its timing shapes). Prints its
-    numbers as one JSON line; checks nothing else."""
+    engines), ``many`` (three times 20 fused many-party rounds), ``rg``
+    (the recurrentgemma-9b serving run, prefill and decode times and
+    profiler windows), ``flash`` (flash_attention_fwd at its timing
+    shapes), ``rglru``
+    (rglru_scan_fwd at its timing shapes, checked bit for bit against its
+    plain version) or ``prng`` (blind_agg_prng_fwd's cases against its
+    plain version, then its timing shapes; ``save`` writes the kernel's
+    outputs at those cases to a file, ``compare`` checks them bit for bit
+    against such a file from another checkout). Prints its numbers as one
+    JSON line."""
     import torch
     from repro_torch import checkpoint
     phase_build()
@@ -1782,6 +1883,23 @@ def run_phase(name: str) -> int:
                     f"{MP_ROUNDS - 1}), three times: {res['fused_ms']}")
     elif name == "flash":
         res = phase_timing_flash()
+    elif name == "rglru":
+        res = {str(k): v for k, v in phase_timing_rglru().items()}
+    elif name == "rg":
+        res = _serve_phase("rg", RG_ARCH)[1]
+    elif name == "prng":
+        outs = []
+        phase_prng(outs)
+        res = {str(k): v for k, v in phase_timing_prng().items()}
+        if save:
+            torch.save([o.cpu() for o in outs], save)
+        if compare:
+            same = _same_bits(outs, compare)
+            log("prng", f"{same} of {len(outs)} outputs bit for bit those "
+                        f"in {compare}")
+            res["bit_identical_to_compared"] = f"{same}/{len(outs)}"
+            if same != len(outs):
+                raise AssertionError(f"prng outputs differ from {compare}")
     else:
         raise ValueError(f"unknown phase {name!r}")
     print(json.dumps({"phase": name, **res}))
@@ -1805,8 +1923,15 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:2] == ["--phase"]:
-        return run_phase(sys.argv[2])
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                             "GPU; see the module docstring")
+    ap.add_argument("--phase", help="run one timing phase alone")
+    ap.add_argument("--save", help="--phase prng: save the outputs here")
+    ap.add_argument("--compare", help="--phase prng: compare the outputs "
+                                      "bit for bit with a saved file")
+    args = ap.parse_args()
+    if args.phase:
+        return run_phase(args.phase, args.save, args.compare)
     log("setup", f"torch {torch.__version__} cuda {torch.version.cuda} on "
                  f"{torch.cuda.get_device_name(0)}; "
                  f"torch.backends.cuda.matmul.allow_tf32="
@@ -1814,7 +1939,9 @@ def main() -> int:
                  f"torch.backends.cudnn.allow_tf32="
                  f"{torch.backends.cudnn.allow_tf32}")
 
-    _check_flash_build(phase_build()["flash_attention"])
+    libs = phase_build()
+    _check_flash_build(libs["flash_attention"])
+    _check_rglru_build(libs["rg_lru"])
     worst_f32 = phase_kernels()
     worst_f32["blind_agg_prng_fwd"] = phase_prng()
 
@@ -1843,6 +1970,11 @@ def main() -> int:
     lm_cut = _cut_phase("lm", LM_ARCH, LM_CUT_LAYERS)
     worst_f32["rglru_scan_fwd"] = phase_rglru()
     rg_launches, rg = _serve_phase("rg", RG_ARCH)
+    # every prefill scan runs at a width of 4096: the TMA ring
+    if rg["rglru_paths"] != {"tma": rg_launches["rglru_scan_fwd"],
+                             "per_column": 0}:
+        raise AssertionError(f"rglru_scan_fwd paths on the serving path: "
+                             f"{rg['rglru_paths']}")
     rg_cut = _cut_phase("rg_cut", RG_ARCH, RG_CUT_LAYERS, check_host=True)
     timing_flash = phase_timing_flash()
     timing_rglru = phase_timing_rglru()

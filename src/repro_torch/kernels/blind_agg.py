@@ -16,7 +16,10 @@ module binds them:
     kernels;
   * ``blind_agg_prng_fwd(ea, ep, seed_hi, seed_lo, signs, round,
     mask_scale)`` -> (N, d): the forward with every pair mask made inside
-    the kernel from a MaskEngine's seed tables (no (K, N, d) mask tensor);
+    the kernel from a MaskEngine's seed tables (no (K, N, d) mask tensor;
+    each pair's normal drawn once, so the tables must hold pair (k, p)'s
+    seed words in row k and in row p, as a MaskEngine's do; K at most
+    240, for one tile's pair normals in shared memory);
   * ``prng_blind_agg``, its differentiable public function, whose
     backward is ``blind_agg_bwd`` without the mask cotangent.
 
@@ -74,6 +77,8 @@ def _prng_lib() -> ctypes.CDLL:
         lib.blind_agg_prng_fwd.restype = i32
         lib.blind_agg_prng_error_string.argtypes = [i32]
         lib.blind_agg_prng_error_string.restype = ctypes.c_char_p
+        lib.blind_agg_prng_max_parties.argtypes = []
+        lib.blind_agg_prng_max_parties.restype = i32
         lib._argtypes_set = True
     return lib
 
@@ -244,10 +249,15 @@ def blind_agg_prng_fwd(ea: torch.Tensor, ep: torch.Tensor,
     round_idx = int(round_idx)
     if not 0 <= round_idx < 1 << 32:
         raise ValueError(f"round {round_idx} is not a uint32")
-    out = torch.empty_like(ea)
-    keys = torch.empty((max(2 * K * (K - 1), 2),), dtype=torch.int32,
-                       device=ea.device)
     lib = _prng_lib()
+    limit = lib.blind_agg_prng_max_parties()
+    if K > limit:
+        raise ValueError(f"blind_agg_prng_fwd takes at most {limit} passive "
+                         f"parties (one tile's pair normals in shared "
+                         f"memory), got {K}")
+    out = torch.empty_like(ea)
+    keys = torch.empty((max(K * (K - 1), 2),), dtype=torch.int32,
+                       device=ea.device)
     stream = torch.cuda.current_stream(ea.device).cuda_stream
     code = lib.blind_agg_prng_fwd(
         ea.data_ptr(), ep.data_ptr(), seed_hi.data_ptr(), seed_lo.data_ptr(),

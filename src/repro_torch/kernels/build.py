@@ -7,9 +7,10 @@ the source and the flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is. A failed build raises with the compiler's output.
 
 Every source gets ``NVCC_FLAGS``; ``EXTRA_FLAGS`` adds what one source
-alone needs: ``flash_attention.cu`` builds its TMA tensor maps with the
-driver's ``cuTensorMapEncodeTiled``, so it links ``-lcuda`` (nvcc finds
-the driver library, or the toolkit's stub of it, on its default paths).
+alone needs: ``flash_attention.cu`` and ``rg_lru.cu`` build their TMA
+tensor maps with the CUDA driver's ``cuTensorMapEncodeTiled``, so they
+link ``-lcuda`` (nvcc finds the CUDA driver library, or the toolkit's stub
+of it, on its default paths).
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"flash_attention": ("-lcuda",)}
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"flash_attention": ("-lcuda",),
+                                           "rg_lru": ("-lcuda",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -32,23 +32,29 @@
 // (the uniform, Giles' polynomial, the two signed adds). At K = 63,
 // N*d = 8192 that is 16 M pair evaluations, 0.072 ms at the H100's INT32
 // lane rate, against 4.2 MB of inputs and output (1.3 us at 3.35 TB/s);
-// chip_smoke.py computes the bound. The design:
-//   * the K(K-1) pair keys (two threefry calls each) are derived once per
-//     launch by a first small kernel of this source into a (K, K-1, 2)
-//     uint32 buffer the wrapper allocates (128 KB at K = 127, too much for
-//     the default 48 KB of shared memory): not per thread, and not on the
-//     host;
-//   * a block of 256 threads takes `tile` consecutive outputs times `lanes`
-//     parties (lanes = the power of two >= K, at most 16; tile = 256 /
-//     lanes), so a small K does not leave threads idle and a large K
-//     spreads its parties over the block;
-//   * each (output, party) thread makes r_k over the K-1 pairs and writes
-//     E_k + r_k to shared memory; one thread per output then adds the lanes
+// chip_smoke.py computes the bound. The design draws each pair's normal
+// once, as that count does:
+//   * the K(K-1)/2 pair keys are derived once per launch by a first small
+//     kernel of this source, pair (a, b), a < b, from row a's seed words
+//     for partner b, into a buffer the wrapper allocates, in the order
+//     p(a, b) = a (2K - a - 1) / 2 + (b - a - 1);
+//   * a CTA of 256 threads owns a tile of T consecutive outputs (T a power
+//     of two <= 64, the largest whose normals and partial sums fit in
+//     72 KB, so that three CTAs share an SM: 64 at K <= 15, 8 at K = 63, 2
+//     at K = 127). Draw phase: its threads draw the P = K(K-1)/2 normals
+//     n_(a,b)[i] of the tile into shared memory, [pair][element], two
+//     consecutive elements a thread (two independent threefry chains);
+//   * fold phase: each (element, party k) thread folds r_k over its K-1
+//     partners in ascending order from shared memory, exactly as the plain
+//     version does, scales it, rounds it to E_k's dtype and writes E_k +
+//     r_k to shared memory; one thread per element then adds the parties
 //     in k order into its float32 accumulator, keeping the plain version's
-//     party order without atomics;
-//   * each unordered pair's normal is drawn twice, once for each of its two
-//     parties (2x the minimum work): sharing it across threads is the next
-//     step.
+//     party order without atomics.
+// In a MaskEngine's tables pair (k, p) has the same seed words in row k
+// and in row p, so each party's term is the same normal as drawn for its
+// own row, times its own sign: the result is bit for bit that of drawing
+// every (party, partner) term separately. The kernel takes the tables as a
+// MaskEngine builds them.
 // Dtypes: float32, bfloat16 and float16 for E_a and for E_k independently;
 // the output takes E_a's dtype. Every entry point returns
 // cudaGetLastError() after its launches.
@@ -61,7 +67,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxLanes = 16;
+constexpr int kMaxTile = 64;                 // outputs a CTA at most
+constexpr int kTileBytes = 72 * 1024;        // normals + partial sums a CTA
+constexpr int kMaxSmem = 232448;             // the opt-in limit a CTA
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -131,93 +139,131 @@ __device__ __forceinline__ float bits_to_normal(uint32_t bits) {
   return __fmul_rn(erfinv_f32(u), kSqrt2);
 }
 
-// keys[2 * (k * n_pairs + j) + {0, 1}] = fold_in(fold_in((0, hi), lo), round)
-__global__ void derive_keys(const uint32_t* __restrict__ seed_hi,
-                            const uint32_t* __restrict__ seed_lo, int width,
-                            int K, int n_pairs, uint32_t round,
-                            uint32_t* __restrict__ keys) {
+// keys[p(a, b)] = fold_in(fold_in((0, hi), lo), round) with (hi, lo) row
+// a's seed words for partner b (column b - 1), a < b
+__global__ void derive_pair_keys(const uint32_t* __restrict__ seed_hi,
+                                 const uint32_t* __restrict__ seed_lo,
+                                 int width, int K, int n_pairs, uint32_t round,
+                                 uint2* __restrict__ keys) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= K * n_pairs) return;
-  const int k = idx / n_pairs, j = idx % n_pairs;
-  uint32_t a = 0, b = seed_lo[k * width + j];
-  threefry2x32(0u, seed_hi[k * width + j], a, b);
+  if (idx >= n_pairs) return;
+  int a = 0, rem = idx;
+  while (rem >= K - 1 - a) {
+    rem -= K - 1 - a;
+    ++a;
+  }
+  const int col = a * width + a + rem;         // partner b = a + 1 + rem
+  uint32_t x = 0, y = seed_lo[col];
+  threefry2x32(0u, seed_hi[col], x, y);
   uint32_t c = 0, d = round;
-  threefry2x32(a, b, c, d);
-  keys[2 * idx] = c;
-  keys[2 * idx + 1] = d;
+  threefry2x32(x, y, c, d);
+  keys[idx] = make_uint2(c, d);
 }
 
 template <typename TA, typename TP>
 __global__ void __launch_bounds__(kThreads)
 prng_fwd(const TA* __restrict__ ea, const TP* __restrict__ ep,
          const uint2* __restrict__ keys, const int32_t* __restrict__ signs,
-         int width, TA* __restrict__ out, int64_t nd, int K, int n_pairs,
-         int lanes, float scale, float inv_c) {
-  __shared__ float part[kThreads];
-  const int tile = kThreads / lanes;
-  const int e = threadIdx.x % tile;
-  const int lane = threadIdx.x / tile;
-  for (int64_t t0 = blockIdx.x * (int64_t)tile; t0 < nd;
-       t0 += (int64_t)gridDim.x * tile) {
-    const int64_t i = t0 + e;
-    const bool valid = i < nd;
-    const uint32_t c_hi = static_cast<uint32_t>(static_cast<uint64_t>(i) >> 32);
-    const uint32_t c_lo = static_cast<uint32_t>(i);
-    float acc = (valid && lane == 0) ? to_f32(ea[i]) : 0.0f;
-    for (int k0 = 0; k0 < K; k0 += lanes) {
-      const int k = k0 + lane;
-      if (valid && k < K) {
-        float r = 0.0f;
-        for (int j = 0; j < n_pairs; ++j) {
-          const uint2 key = keys[k * n_pairs + j];
-          uint32_t x0 = c_hi, x1 = c_lo;
-          threefry2x32(key.x, key.y, x0, x1);
-          const float sgn = static_cast<float>(signs[k * width + j]);
-          r = __fadd_rn(r, __fmul_rn(bits_to_normal(x0 ^ x1), sgn));
-        }
-        if (scale != 1.0f) r = __fmul_rn(r, scale);
-        const float rq = to_f32(from_f32<TP>(r));       // r_k in E_k's dtype
-        part[threadIdx.x] = __fadd_rn(to_f32(ep[k * nd + i]), rq);
-      }
-      __syncthreads();
-      if (valid && lane == 0) {
-        const int n = min(lanes, K - k0);
-        for (int l = 0; l < n; ++l) acc = __fadd_rn(acc, part[l * tile + e]);
-      }
-      __syncthreads();
+         int width, TA* __restrict__ out, int64_t nd, int K, int tile,
+         float scale, float inv_c) {
+  extern __shared__ float smem[];
+  const int n_pairs = K * (K - 1) / 2;
+  float* nrm = smem;                           // [pair][element]
+  float* part = smem + n_pairs * tile;         // [party][element]
+  const int64_t i0 = blockIdx.x * (int64_t)tile;
+  const int n = nd - i0 < tile ? static_cast<int>(nd - i0) : tile;  // valid
+
+  // draw: item (pair, 2 consecutive elements); elements past nd are drawn
+  // and never read
+  const int per_pair = tile / 2;
+  for (int it = threadIdx.x; it < n_pairs * per_pair; it += kThreads) {
+    const int p = it / per_pair;
+    const int e = 2 * (it - p * per_pair);
+    const uint2 key = keys[p];
+    const uint64_t i = static_cast<uint64_t>(i0 + e);
+    uint32_t x0 = static_cast<uint32_t>(i >> 32), x1 = static_cast<uint32_t>(i);
+    uint32_t y0 = static_cast<uint32_t>((i + 1) >> 32), y1 = static_cast<uint32_t>(i + 1);
+    threefry2x32(key.x, key.y, x0, x1);
+    threefry2x32(key.x, key.y, y0, y1);
+    *reinterpret_cast<float2*>(nrm + p * tile + e) =
+        make_float2(bits_to_normal(x0 ^ x1), bits_to_normal(y0 ^ y1));
+  }
+  __syncthreads();
+
+  // fold: r_k over partners j ascending, pairs (j, k) then (k, j)
+  for (int task = threadIdx.x; task < K * tile; task += kThreads) {
+    const int k = task / tile, e = task - k * tile;
+    if (e >= n) continue;
+    const float ek = to_f32(ep[k * nd + i0 + e]);
+    const int32_t* sg = signs + k * width;
+    float r = 0.0f;
+    int p = k - 1;                             // p(0, k)
+    for (int j = 0; j < k; ++j) {
+      r = __fadd_rn(r, __fmul_rn(nrm[p * tile + e], static_cast<float>(sg[j])));
+      p += K - j - 2;                          // p(j + 1, k)
     }
-    if (valid && lane == 0) out[i] = from_f32<TA>(__fmul_rn(acc, inv_c));
+    p = k * (2 * K - k - 1) / 2;               // p(k, k + 1)
+    for (int j = k; j < K - 1; ++j, ++p)
+      r = __fadd_rn(r, __fmul_rn(nrm[p * tile + e], static_cast<float>(sg[j])));
+    if (scale != 1.0f) r = __fmul_rn(r, scale);
+    const float rq = to_f32(from_f32<TP>(r));       // r_k in E_k's dtype
+    part[k * tile + e] = __fadd_rn(ek, rq);
+  }
+  __syncthreads();
+
+  if (threadIdx.x < n) {
+    const int e = threadIdx.x;
+    float acc = to_f32(ea[i0 + e]);
+    for (int k = 0; k < K; ++k) acc = __fadd_rn(acc, part[k * tile + e]);
+    out[i0 + e] = from_f32<TA>(__fmul_rn(acc, inv_c));
   }
 }
 
+// outputs a CTA: the largest power of two <= kMaxTile (at least 2) whose
+// normals and partial sums fit in kTileBytes; 0 if even 2 exceed kMaxSmem
+int tile_for(int K) {
+  const long long per = 4LL * (K * (K - 1LL) / 2 + K);
+  int tile = kMaxTile;
+  while (tile > 2 && per * tile > kTileBytes) tile /= 2;
+  return per * tile > kMaxSmem ? 0 : tile;
+}
+
 template <typename TA, typename TP>
-void launch(const void* ea, const void* ep, const void* keys,
-            const void* signs, int width, void* out, int64_t nd, int K,
-            int n_pairs, float scale, cudaStream_t s) {
-  int lanes = 1;
-  while (lanes < K && lanes < kMaxLanes) lanes *= 2;
-  const int tile = kThreads / lanes;
-  int64_t blocks = (nd + tile - 1) / tile;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  if (blocks < 1) blocks = 1;
-  prng_fwd<TA, TP><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+int launch(const void* ea, const void* ep, const void* keys,
+           const void* signs, int width, void* out, int64_t nd, int K,
+           float scale, cudaStream_t s) {
+  const int tile = tile_for(K);
+  if (tile == 0) return cudaErrorInvalidValue;
+  const int smem = 4 * (K * (K - 1) / 2 + K) * tile;
+  auto kern = prng_fwd<TA, TP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               int(cudaSharedmemCarveoutMaxShared));
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (nd + tile - 1) / tile;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
       static_cast<const TA*>(ea), static_cast<const TP*>(ep),
       static_cast<const uint2*>(keys), static_cast<const int32_t*>(signs),
-      width, static_cast<TA*>(out), nd, K, n_pairs, lanes, scale,
+      width, static_cast<TA*>(out), nd, K, tile, scale,
       1.0f / static_cast<float>(K + 1));
+  return cudaGetLastError();
 }
 
 // dtype codes shared with the Python wrapper: 0 float32, 1 bfloat16, 2 float16.
 template <typename TA>
 int launch_p(int tp, const void* ea, const void* ep, const void* keys,
              const void* signs, int width, void* out, int64_t nd, int K,
-             int n_pairs, float scale, cudaStream_t s) {
+             float scale, cudaStream_t s) {
   switch (tp) {
-    case 0: launch<TA, float>(ea, ep, keys, signs, width, out, nd, K, n_pairs, scale, s); return 0;
-    case 1: launch<TA, __nv_bfloat16>(ea, ep, keys, signs, width, out, nd, K, n_pairs, scale, s); return 0;
-    case 2: launch<TA, __half>(ea, ep, keys, signs, width, out, nd, K, n_pairs, scale, s); return 0;
+    case 0: return launch<TA, float>(ea, ep, keys, signs, width, out, nd, K, scale, s);
+    case 1: return launch<TA, __nv_bfloat16>(ea, ep, keys, signs, width, out, nd, K, scale, s);
+    case 2: return launch<TA, __half>(ea, ep, keys, signs, width, out, nd, K, scale, s);
   }
-  return 1;
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -225,32 +271,39 @@ int launch_p(int tp, const void* ea, const void* ep, const void* keys,
 extern "C" {
 
 // ea (N*d); ep (K, N*d); seed_hi / seed_lo / signs (K, width) with
-// width >= K - 1; keys: scratch of 2 * K * (K - 1) uint32 (may be null when
-// K < 2); out (N*d) in ea's dtype.
+// width >= K - 1, as a MaskEngine builds them; keys: scratch of at least
+// K * (K - 1) uint32 (may be null when K < 2); out (N*d) in ea's dtype.
+// K at most blind_agg_prng_max_parties().
 int blind_agg_prng_fwd(const void* ea, const void* ep, const void* seed_hi,
                        const void* seed_lo, const void* signs, int width,
                        void* keys, void* out, int64_t nd, int K,
                        uint32_t round, float scale, int ta, int tp,
                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_pairs = K > 1 ? K - 1 : 0;
+  if (K < 0 || nd < 0 || tile_for(K) == 0) return cudaErrorInvalidValue;
+  if (nd == 0) return cudaSuccess;
+  const int n_pairs = K * (K - 1) / 2;
   if (n_pairs > 0) {
-    const int n = K * n_pairs;
-    derive_keys<<<(n + 255) / 256, 256, 0, s>>>(
+    derive_pair_keys<<<(n_pairs + 255) / 256, 256, 0, s>>>(
         static_cast<const uint32_t*>(seed_hi),
         static_cast<const uint32_t*>(seed_lo), width, K, n_pairs, round,
-        static_cast<uint32_t*>(keys));
+        static_cast<uint2*>(keys));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  int bad = 1;
   switch (ta) {
-    case 0: bad = launch_p<float>(tp, ea, ep, keys, signs, width, out, nd, K, n_pairs, scale, s); break;
-    case 1: bad = launch_p<__nv_bfloat16>(tp, ea, ep, keys, signs, width, out, nd, K, n_pairs, scale, s); break;
-    case 2: bad = launch_p<__half>(tp, ea, ep, keys, signs, width, out, nd, K, n_pairs, scale, s); break;
+    case 0: return launch_p<float>(tp, ea, ep, keys, signs, width, out, nd, K, scale, s);
+    case 1: return launch_p<__nv_bfloat16>(tp, ea, ep, keys, signs, width, out, nd, K, scale, s);
+    case 2: return launch_p<__half>(tp, ea, ep, keys, signs, width, out, nd, K, scale, s);
   }
-  if (bad) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the largest K whose tile of 2 outputs fits in a CTA's shared memory
+int blind_agg_prng_max_parties() {
+  int K = 2;
+  while (tile_for(K + 1) != 0) ++K;
+  return K;
 }
 
 const char* blind_agg_prng_error_string(int code) {

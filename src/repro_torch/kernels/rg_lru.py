@@ -5,7 +5,14 @@ and its design note are ``csrc/rg_lru.cu``. This module binds it:
 
   * ``rglru_scan_fwd(a, b (B,L,W), h0 (B,W))`` -> (h (B,L,W), h_last
     (B,W)), both float32: h_t = a_t * h_{t-1} + b_t from h_{-1} = h0, with
-    a and b float32 or bfloat16 (one dtype) and h0 float32. Any B, L, W;
+    a and b float32 or bfloat16 (one dtype) and h0 float32. Any B, L, W.
+    It chooses the kernel by shape (``kernel_path``): the TMA ring when
+    L > 0, B <= 65535, a row of a and b is a multiple of 16 bytes (W % 4
+    == 0 in float32, W % 8 == 0 in bfloat16) and a and b start 16-byte
+    aligned;
+    otherwise the kernel of one thread per column. Both are bit for bit
+    the plain version; the choice is made before the launch, never by
+    retrying after a failure;
   * ``rglru_scan``, the public function: a ``torch.autograd.Function``
     whose ``vmap`` rule folds the vmapped axis into the batch axis
     ((n, B, L, W) -> (n*B, L, W) and h0 (n, B, W) -> (n*B, W), exact:
@@ -16,7 +23,8 @@ and its design note are ``csrc/rg_lru.cu``. This module binds it:
 
 The wrapper takes contiguous CUDA tensors and raises on anything else;
 the plain version for CPU tensors is ``ref.reference_rglru``, chosen by
-``ops``. Each launch adds one to ``LAUNCHES["rglru_scan_fwd"]``.
+``ops``. Each launch adds one to ``LAUNCHES["rglru_scan_fwd"]`` and one to
+``PATH_LAUNCHES`` under the path it took ("tma" or "per_column").
 """
 from __future__ import annotations
 
@@ -31,11 +39,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the kernel in this process; reset with reset_launches()
 LAUNCHES: Dict[str, int] = {"rglru_scan_fwd": 0}
+# the same launches by the kernel path they took
+PATH_LAUNCHES: Dict[str, int] = {"tma": 0, "per_column": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, PATH_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -43,17 +54,45 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.rglru_scan_fwd.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                       vp]
+                                       i32, vp]
         lib.rglru_scan_fwd.restype = i32
+        ip = ctypes.POINTER(i32)
+        lib.rglru_tma_info.argtypes = [i32, ip, ip, ip]
+        lib.rglru_tma_info.restype = i32
         lib.rglru_error_string.argtypes = [i32]
         lib.rglru_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
 
 
+def kernel_path(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel ``rglru_scan_fwd`` launches for a and b (B, L, W) of one
+    dtype: "tma" where TMA takes their rows, else "per_column"."""
+    B, L, W = a.shape
+    if L > 0 and B <= 65535 and (W * a.element_size()) % 16 == 0 and \
+            a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0:
+        return "tma"
+    return "per_column"
+
+
+def tma_info(dtype: torch.dtype) -> Dict[str, int]:
+    """The TMA kernel as built for a and b of ``dtype``: registers a
+    thread, local memory a thread (spills) and shared memory a CTA."""
+    lib = _lib()
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    code = lib.rglru_tma_info(_DTYPE_CODES[dtype], ctypes.byref(regs),
+                              ctypes.byref(local), ctypes.byref(smem))
+    if code != 0:
+        raise RuntimeError(f"rglru_tma_info: "
+                           f"{lib.rglru_error_string(code).decode()}")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "smem_bytes": smem.value}
+
+
 def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     """a/b (B,L,W), h0 (B,W) float32, contiguous on the card -> (h (B,L,W)
-    float32, h_last (B,W) float32) (CUDA kernel)."""
+    float32, h_last (B,W) float32) (CUDA kernel; the path by shape, see
+    ``kernel_path``)."""
     if a.dim() != 3 or b.dim() != 3 or h0.dim() != 2:
         raise ValueError(f"rglru_scan_fwd takes a/b (B,L,W) and h0 (B,W), "
                          f"got {tuple(a.shape)}, {tuple(b.shape)}, "
@@ -81,16 +120,19 @@ def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
     if B * W == 0:
         return h, h_last
+    path = kernel_path(a, b)
     lib = _lib()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = lib.rglru_scan_fwd(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
                               h.data_ptr(), h_last.data_ptr(), B, L, W,
-                              _DTYPE_CODES[a.dtype], stream)
+                              _DTYPE_CODES[a.dtype], int(path == "tma"),
+                              stream)
     if code != 0:
         msg = lib.rglru_error_string(code).decode()
-        raise RuntimeError(f"rglru_scan_fwd kernel launch failed: {msg} "
-                           f"({code})")
+        raise RuntimeError(f"rglru_scan_fwd kernel launch failed ({path} "
+                           f"path): {msg} ({code})")
     LAUNCHES["rglru_scan_fwd"] += 1
+    PATH_LAUNCHES[path] += 1
     return h, h_last
 
 

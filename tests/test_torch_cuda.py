@@ -159,6 +159,41 @@ def test_cuda_prng_kernel_matches_plain(cuda, dtype, K, lead, d, r, scale):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,lead,d", [(127, (7,), 13), (63, (3,), 7),
+                                      (15, (5,), 13)])
+def test_cuda_prng_last_tile_is_ragged(cuda, dtype, K, lead, d):
+    """N*d not a multiple of the kernel's tile of outputs (2 at K = 127, 8
+    at K = 63, 64 at K = 15): the last CTA draws past N*d and writes only
+    its own outputs."""
+    eng = blinding.cached_mask_engine(K, 7)
+    gen = torch.Generator().manual_seed(K + d)
+    ea, ep = (torch.randn(s, generator=gen).to(_TDT[dtype]).to(cuda)
+              for s in (lead + (d,), (K,) + lead + (d,)))
+    out = tba.prng_blind_agg(ea, ep, eng, 5, 4.0)
+    want = ref.reference_blind_agg_prng(ea, ep, eng, 5, mask_scale=4.0)
+    torch.cuda.synchronize()
+    masks = eng.masks(lead + (d,), 5, "float", scale=4.0, device=cuda)
+    tol = _prng_tol(ea, ep, masks.to(ep.dtype), want)
+    assert out.shape == want.shape and out.dtype == want.dtype
+    assert ((out.float() - want.float()).abs() <= tol).all()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_prng_rejects_more_parties_than_a_tile_holds(cuda):
+    """240 passive parties at most: two outputs' pair normals (4 K (K + 1)
+    bytes with the partial sums) must fit in a CTA's shared memory."""
+    K = 241
+    tabs = [torch.zeros((K, K - 1), dtype=torch.int32, device=cuda)] * 3
+    ea = torch.zeros(2, 4, device=cuda)
+    ep = torch.zeros(K, 2, 4, device=cuda)
+    before = tba.LAUNCHES["blind_agg_prng_fwd"]
+    with pytest.raises(ValueError, match="at most 240"):
+        tba.blind_agg_prng_fwd(ea, ep, *tabs, 0)
+    assert tba.LAUNCHES["blind_agg_prng_fwd"] == before
+
+
+@pytest.mark.requires_cuda
 def test_cuda_prng_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     eng = blinding.cached_mask_engine(3, 7)
     tabs = tba.device_tables(eng, cuda)
@@ -242,21 +277,12 @@ def _bf16_bound_used(out, q, k, v, causal=True, window=0):
     2^-8 leaves a factor of two for the float32 score product and exp2. At
     the prefill shapes 2^-8 A is ~0.003, well under the 0.006-0.013 by which
     a dropped 64-key tile moves a late row, so a dropped tile still fails.
-    Rows with nothing unmasked are held to 0 (the kernel writes 0 there;
-    the plain version's softmax over all -1e30 gives the mean of v)."""
+    Rows with nothing unmasked are held to the plain version too: its
+    softmax over all -1e30 gives the mean of v there, as the kernel does."""
     qf, kf, vf = q.float(), k.float(), v.float()
     exact = ref.reference_attention(qf, kf, vf, causal=causal, window=window)
     mag = ref.reference_attention(qf, kf, vf.abs(), causal=causal,
                                   window=window)
-    S, T = q.shape[1], k.shape[1]
-    q_pos = torch.arange(S, device=q.device)[:, None]
-    k_pos = torch.arange(T, device=q.device)[None, :]
-    seen = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        seen &= k_pos <= q_pos
-    if window > 0:
-        seen &= k_pos > q_pos - window
-    exact = torch.where(seen.any(1)[None, :, None, None], exact, 0.0)
     _, e = torch.frexp(exact.abs().clamp_min(torch.finfo(torch.float32).tiny))
     ulp = torch.ldexp(torch.ones_like(exact), e - 8)
     return float(((out.float() - exact).abs()
@@ -413,19 +439,42 @@ def test_cuda_flash_bf16_batch_and_groups(cuda, Hq, Hkv, hd):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_flash_rows_with_nothing_unmasked_are_zero(cuda, dtype):
+def test_cuda_flash_rows_with_nothing_unmasked_are_the_mean_of_v(cuda,
+                                                                 dtype):
     """S = 130 > T = 50 with a window of 32: rows 81-129 see no key. Both
-    kernels write them as 0 (the plain version's softmax over all -1e30
-    gives the mean of v there); every other row agrees with it."""
+    kernels write them as the mean of v over the T keys, as the plain
+    version's softmax over all -1e30 gives; every row agrees with it."""
     dt = _TDT[dtype]
     q, k, v = _flash_inputs(1, 130, 50, 4, 2, 64, dt, cuda, 11)
+    mean = v.float().mean(1).repeat_interleave(2, dim=1)   # (1, Hq, hd)
     for causal in (True, False):
         out = tfa.flash_attention_fwd(q, k, v, causal=causal, window=32)
         want = ref.reference_attention(q, k, v, causal=causal, window=32)
-        assert bool((out[:, 81:] == 0).all())
-        _flash_close(out[:, :81], want[:, :81], dt)
+        _flash_close(out, want, dt)
+        _flash_close(out[:, 81:], mean.to(dt).expand(1, 49, 4, 64), dt)
         if dt == torch.bfloat16:
             assert _bf16_bound_used(out, q, k, v, causal, 32) <= 1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,T,window", [(400, 129, 100), (300, 64, 1),
+                                        (200, 130, 70)])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_cuda_flash_rows_that_see_no_key_across_tiles(cuda, hd, S, T, window,
+                                                      causal, dtype):
+    """The first row that sees no key (T + window - 1) inside a query tile
+    and at a tile's edge, T past a kv tile's edge and inside one (TMA
+    zero-fills the rest, which must not enter the mean), at two head
+    dims."""
+    dt = _TDT[dtype]
+    q, k, v = _flash_inputs(1, S, T, 16, 2, hd, dt, cuda, S + T + hd)
+    out = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    _flash_close(out, ref.reference_attention(q, k, v, causal=causal,
+                                              window=window), dt)
+    if dt == torch.bfloat16:
+        assert _bf16_bound_used(out, q, k, v, causal, window) <= 1
 
 
 @pytest.mark.requires_cuda
@@ -548,6 +597,58 @@ def test_cuda_rglru_matches_plain(cuda, B, L, W, decay, dtype):
     want_h, want_last = ref.reference_rglru(a, b, h0)
     torch.testing.assert_close(h, want_h, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(last, want_last, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("L", [1, 31, 33, 257, 1000])
+@pytest.mark.parametrize("dtype,W,path", [
+    ("float32", 4096, "tma"), ("float32", 100, "tma"),
+    ("float32", 102, "per_column"), ("float32", 1, "per_column"),
+    ("bfloat16", 4096, "tma"), ("bfloat16", 104, "tma"),
+    ("bfloat16", 100, "per_column"), ("bfloat16", 36, "per_column")])
+def test_cuda_rglru_path_by_shape(cuda, dtype, W, path, L):
+    """The TMA ring where a row of a and b is a multiple of 16 bytes (W % 4
+    == 0 in float32, W % 8 == 0 in bfloat16), one thread per column
+    elsewhere; both bit for bit the plain version, at L that are not a
+    multiple of the ring's 32-step stage or of its 8 stages, and B = 3 at
+    recurrentgemma's width. Each launch counts under its own path."""
+    B = 3 if W == 4096 else 2
+    a, b, h0 = _rglru_inputs(B, L, W, _TDT[dtype], cuda, L + W)
+    assert trg.kernel_path(a, b) == path
+    before = dict(trg.PATH_LAUNCHES)
+    h, last = trg.rglru_scan_fwd(a, b, h0)
+    torch.cuda.synchronize()
+    assert {p: n - before[p] for p, n in trg.PATH_LAUNCHES.items()} == {
+        p: int(p == path) for p in before}
+    want_h, want_last = ref.reference_rglru(a, b, h0)
+    assert torch.equal(h, want_h) and torch.equal(last, want_last)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_rglru_misaligned_input_runs_per_column(cuda):
+    """A contiguous view 4 bytes into a buffer is not 16-byte aligned, so
+    TMA cannot read it: the shape dispatch takes the per-column kernel,
+    bit for bit the plain version."""
+    a, b, h0 = _rglru_inputs(1, 40, 64, torch.float32, cuda, 6)
+    buf = torch.empty(a.numel() + 4, device=cuda)
+    shifted = buf[1:a.numel() + 1].view(a.shape)
+    shifted.copy_(a)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    assert trg.kernel_path(shifted, b) == "per_column"
+    h, last = trg.rglru_scan_fwd(shifted, b, h0)
+    want_h, want_last = ref.reference_rglru(a, b, h0)
+    assert torch.equal(h, want_h) and torch.equal(last, want_last)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rglru_empty_sequence(cuda, dtype):
+    """L = 0: no step, h_last is h0 (the per-column kernel; TMA takes no
+    empty box)."""
+    a, b, h0 = _rglru_inputs(2, 0, 64, _TDT[dtype], cuda, 7)
+    assert trg.kernel_path(a, b) == "per_column"
+    h, last = trg.rglru_scan_fwd(a, b, h0)
+    assert h.shape == (2, 0, 64) and torch.equal(last, h0)
 
 
 @pytest.mark.requires_cuda

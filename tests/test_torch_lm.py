@@ -286,6 +286,25 @@ def test_reference_attention_matches_jax_and_interpret_kernel(
            1e-5, 1e-6)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_rows_that_see_no_key_are_the_mean_of_v(causal):
+    """S = 128 > T = 64 with a window of 16: rows from T + 16 - 1 = 79 on
+    see no key. The reference's interpret-mode kernel scores every key of
+    such a row -1e30 (a uniform softmax), and the port's CPU path agrees:
+    both give the mean of v over the T keys there."""
+    q, k, v = _qkv(1, 128, 64, 4, 2, 64, 9)
+    interp = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal, window=16,
+                                 block_q=64, block_k=64, interpret=True)
+    got = ops.flash_attention(*_t(q, k, v), causal=causal, window=16)
+    _close(got, interp, 1e-5, 3e-5)
+    mean = np.repeat(v.mean(axis=1), 2, axis=1)[:, None]   # (1, 1, Hq, hd)
+    want = np.broadcast_to(mean, (1, 128 - 79, 4, 64))
+    _close(got[:, 79:], want, 1e-5, 1e-6)
+    _close(np.asarray(interp)[:, 79:], want, 1e-5, 1e-6)
+    assert not np.allclose(_np(got[:, 78]), mean[:, 0], atol=1e-3)
+
+
 def test_flash_wrapper_takes_cuda_tensors_only():
     q, k, v = _t(*_qkv(1, 8, 8, 2, 1, 32, 0))
     with pytest.raises(ValueError, match="CUDA tensor"):
