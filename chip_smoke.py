@@ -4,6 +4,7 @@
     python3 chip_smoke.py                    # every phase, checked
     python3 chip_smoke.py --phase engines    # one timing phase alone
     python3 chip_smoke.py --phase many
+    python3 chip_smoke.py --phase agg --save OUT.pt     # or --compare OUT.pt
     python3 chip_smoke.py --phase flash
     python3 chip_smoke.py --phase rglru
     python3 chip_smoke.py --phase prng --save OUT.pt    # or --compare OUT.pt
@@ -19,7 +20,11 @@ Phases, each printing its own lines:
   kernel  holds blind_agg_fwd / blind_agg_bwd against their plain PyTorch
           version on the card, values and autograd gradients, over party
           counts K up to 127, odd and even (N, d), a 4-D input, float32 and
-          bfloat16, and a mask dtype that differs from the embeddings'.
+          bfloat16, and a mask dtype that differs from the embeddings';
+          K in {2, 8, 9, 31, 32, 33, 64, 255} at (128, 64) float32 (every
+          party-group count G the forward's rule gives), and the serving
+          rounds' shapes: K = 3, N in {4, 512, 1024, 2048}, d 128,
+          bfloat16 embeddings with float32 masks.
   prng    holds blind_agg_prng_fwd (masks made in the kernel) against its
           plain version on the card (MaskEngine masks through
           reference_blind_agg) over K in {2, 3, 7, 15, 63, 127}, N in
@@ -51,6 +56,11 @@ Phases, each printing its own lines:
   timing  each kernel, its plain version and its bound, timed with CUDA
           events at the slice's shape and at the many-party shapes; the
           prng kernel's bound counts the operations its inputs need.
+          blind_agg_fwd and blind_agg_bwd also at the serving rounds'
+          shapes (K = 3, N 2048 and 4, d 128, bfloat16 embeddings, float32
+          masks; the backward at N = 2048 only), each beside the launch
+          floor (one torch.cuda._sleep(0) in a back-to-back stream, timed
+          the same way) and the forward at every party-group count G.
   profile host-clock split of a Table II round into masks and train step,
           and torch.profiler device time by kernel over 5 rounds.
   flash   holds flash_attention_fwd against its plain version on the card:
@@ -117,18 +127,21 @@ Phases, each printing its own lines:
 
 --phase runs one timing phase alone after the build, for comparing two
 checkouts in turns (the other checkout's tree given this script):
-engines, many, rg (the recurrentgemma-9b serving run), flash, rglru (the
-rglru timing) or prng (the prng cases, their outputs saved with --save or
-compared bit for bit with another checkout's file with --compare, then
-the prng timing).
+engines, many, rg (the recurrentgemma-9b serving run), agg (the
+blind_agg_fwd / blind_agg_bwd timing and the launch floor; --save and
+--compare as for prng, the backward's outputs required to be bit for bit
+the other checkout's), flash, rglru (the rglru timing) or prng (the prng
+cases, their outputs saved with --save or compared bit for bit with
+another checkout's file with --compare, then the prng timing).
 
 The launch counters are set to 0 just before each counted path (slice,
 joint, many-party fused, many-party joint, many-party unfused, qwen2.5-3b
 serving, recurrentgemma-9b serving) and read just after; every kernel
-must have launched on some path. The second-to-last line is the JSON kernel record; the last
-line is {"ok": true, "device": {...}}. Any failed check raises: the script
-then exits non-zero and prints no result. It needs a CUDA device and the
-repository's src/ beside it.
+must have launched on some path, and blind_agg_fwd's launches are printed
+by party-group count G, path by path. The second-to-last line is the JSON
+kernel record; the last line is {"ok": true, "device": {...}}. Any failed
+check raises: the script then exits non-zero and prints no result. It
+needs a CUDA device and the repository's src/ beside it.
 """
 from __future__ import annotations
 
@@ -361,6 +374,16 @@ def _check_rglru_build(path):
                              f"functions, {counts}")
 
 
+def _agg_launches():
+    """blind_agg's launch counts, with blind_agg_fwd's launches by party
+    groups G under "fwd_groups" (None on a tree whose forward has no
+    groups)."""
+    from repro_torch.kernels import blind_agg as tba
+    groups = getattr(tba, "FWD_GROUPS", None)
+    return {**tba.LAUNCHES,
+            "fwd_groups": None if groups is None else dict(groups)}
+
+
 def _case(K, lead, d, dtype, mdtype, gen):
     import torch
     from repro_torch.kernels import blind_agg as tba
@@ -407,6 +430,11 @@ def phase_kernels():
               for dt in (f32, bf16)]                     # 4-D input
     cases += [(3, (128,), 128, bf16, f32), (63, (128,), 64, f32, bf16)]
     cases += [(3, (7,), 13, f32, f32), (5, (9,), 11, bf16, bf16)]  # N*d % 8
+    # every party-group count the forward's rule gives, and the serving
+    # rounds: bfloat16 embeddings, float32 masks, N the prompt or 4 lanes
+    cases += [(K, (128,), 64, f32, f32) for K in (2, 8, 9, 31, 32, 33, 64,
+                                                  255)]
+    cases += [(3, (N,), 128, bf16, f32) for N in (4, 512, 1024, 2048)]
     worst = {f32: 0.0, bf16: 0.0}
     worst_f32 = {"blind_agg_fwd": 0.0, "blind_agg_bwd": 0.0}
     failed = []
@@ -613,7 +641,7 @@ def phase_slice(ds, batches, params0):
             # between CUDA and the CPU, in each of a party's two pair masks
             if not mask_err <= 4e-6:
                 raise AssertionError("PRF masks differ between card and CPU")
-    launches = dict(tba.LAUNCHES)
+    launches = _agg_launches()
     if not all(math.isfinite(t) for t in totals):
         raise AssertionError(f"non-finite loss: {totals}")
     first, last = statistics.mean(totals[:3]), statistics.mean(totals[-3:])
@@ -646,7 +674,7 @@ def phase_joint(batches, params0):
     tba.reset_launches()
     step(params, opt, xs, y, masks)
     torch.cuda.synchronize()
-    launches = dict(tba.LAUNCHES)
+    launches = _agg_launches()
     if launches["blind_agg_bwd"] < 1 or launches["blind_agg_fwd"] < 1:
         raise AssertionError(f"joint round launches {launches}")
     # gradients of the same round from the same weights, card vs CPU
@@ -729,7 +757,7 @@ def _rounds(cls, params0, data, n, counter_key):
         totals.append(float(total))
         if i == 0:
             per0 = per.cpu()
-    return ms, totals, per0, dict(tba.LAUNCHES), (params, opt, step)
+    return ms, totals, per0, _agg_launches(), (params, opt, step)
 
 
 def phase_many():
@@ -1028,36 +1056,58 @@ def _host_ms(fn, calls=200):
     return dt / calls * 1e3
 
 
-def phase_timing():
-    """Kernel, plain version and bound at the slice's and many-party shape."""
+# blind_agg_fwd / blind_agg_bwd timing shapes: (label, K, N, d, dtype of
+# E_a and E_k, dtype of the masks, whether the backward is timed there).
+# Table II and the many-party benchmark's unfused rounds aggregate float32;
+# the serving rounds aggregate bfloat16 embeddings with float32 MaskEngine
+# masks (core/easter_lm.py _aggregate), N the prompt at admission (here its
+# longest, 2048) or the 4 lanes of a decode round. No counted path runs the
+# backward at the serving shapes: a joint step over one 2048-token prompt
+# would.
+AGG_TIMING = (("slice", 3, 128, 128, "float32", "float32", True),
+              ("many_party", 63, 128, 64, "float32", "float32", True),
+              ("serve_prefill", 3, 2048, 128, "bfloat16", "float32", True),
+              ("serve_decode", 3, 4, 128, "bfloat16", "float32", False))
+
+
+def phase_timing(outputs=None):
+    """blind_agg_fwd and blind_agg_bwd, their plain versions and bounds at
+    the AGG_TIMING shapes, beside the launch floor: the device time of one
+    torch.cuda._sleep(0) in a back-to-back stream, timed the same way. On
+    a tree whose wrapper chooses party groups, the forward is also timed
+    at each G it takes there. ``outputs``, a dict, gets each kernel's
+    outputs at each shape."""
     import torch
     from repro_torch.kernels import blind_agg as tba
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(1)
-    out = {}
-    for label, K, N, d in (("slice", 3, 128, 128),
-                           ("many_party", 63, 128, 64)):
-        s = 4                                              # float32
-        ea = torch.randn((N, d), generator=gen, device="cuda")
-        ep = torch.randn((K, N, d), generator=gen, device="cuda")
-        mk = torch.randn((K, N, d), generator=gen, device="cuda")
-        g = torch.randn((N, d), generator=gen, device="cuda")
+    floor = _time_ms(lambda: torch.cuda._sleep(0))
+    log("timing", f"launch floor (torch.cuda._sleep(0) back to back): "
+                  f"{floor:.4f} ms a launch")
+    out = {"floor_ms": floor}
+    rule = getattr(tba, "fwd_party_groups", None)
+    for label, K, N, d, edt, mdt, with_bwd in AGG_TIMING:
+        et, mt = getattr(torch, edt), getattr(torch, mdt)
+        se, sm = torch.empty((), dtype=et).element_size(), \
+            torch.empty((), dtype=mt).element_size()
+        ea = torch.randn((N, d), generator=gen, device="cuda").to(et)
+        ep = torch.randn((K, N, d), generator=gen, device="cuda").to(et)
+        mk = torch.randn((K, N, d), generator=gen, device="cuda").to(mt)
+        g = torch.randn((N, d), generator=gen, device="cuda").to(et)
         nd = N * d
-        fwd_bytes = (1 + 2 * K) * nd * s + nd * s
-        bwd_bytes = nd * s + (1 + K) * nd * s     # mask grad not asked for
-        fwd_ops, bwd_ops = (2 * K + 1) * nd, nd
+        tag = f"{label} K={K} N={N} d={d} E {edt} masks {mdt}"
         row = {}
-        for name, kern, plain, nbytes, nops in (
-                ("blind_agg_fwd", lambda: tba.blind_agg_fwd(ea, ep, mk),
-                 lambda: ref.reference_blind_agg(ea, ep, mk),
-                 fwd_bytes, fwd_ops),
-                ("blind_agg_bwd",
-                 lambda: tba.blind_agg_bwd(g, K, torch.float32, torch.float32,
-                                           need_mk=False),
-                 lambda: ref.reference_blind_agg_bwd(g, K, torch.float32,
-                                                     torch.float32,
-                                                     need_mk=False),
-                 bwd_bytes, bwd_ops)):
+        cases = [("blind_agg_fwd", lambda: tba.blind_agg_fwd(ea, ep, mk),
+                  lambda: ref.reference_blind_agg(ea, ep, mk),
+                  nd * (se + K * (se + sm) + se), (2 * K + 1) * nd)]
+        if with_bwd:                          # mask cotangent not asked for
+            cases.append((
+                "blind_agg_bwd",
+                lambda: tba.blind_agg_bwd(g, K, et, mt, need_mk=False),
+                lambda: ref.reference_blind_agg_bwd(g, K, et, mt,
+                                                    need_mk=False),
+                nd * (se + se + K * se), nd))
+        for name, kern, plain, nbytes, nops in cases:
             # turns: plain, kernel, kernel, plain
             p1 = _time_ms(plain)
             k1 = _time_ms(kern)
@@ -1065,16 +1115,40 @@ def phase_timing():
             p2 = _time_ms(plain)
             hk, hp = _host_ms(kern), _host_ms(plain)
             bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_FLOPS) * 1e3
-            row[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+            ms = min(k1, k2)
+            if outputs is not None:
+                got = kern()
+                got = got if isinstance(got, tuple) else (got,)
+                outputs[f"{name} {label}"] = [t for t in got
+                                              if t is not None]
+            row[name] = {"ms": ms, "plain_ms": min(p1, p2),
                          "bound_ms": bound, "bytes": nbytes, "ops": nops,
-                         "host_ms": hk, "plain_host_ms": hp}
-            log("timing", f"{name} {label} K={K} N={N} d={d} float32: kernel "
-                          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
-                          f"bound {bound:.5f} ms ({nbytes} B at 3.35 TB/s, "
-                          f"data-sheet peak; bound by bytes); no single "
-                          f"PyTorch call computes it (library_ms null); "
-                          f"host time per call: kernel wrapper {hk:.4f} ms, "
-                          f"plain {hp:.4f} ms")
+                         "above_floor_ms": ms - floor, "host_ms": hk,
+                         "plain_host_ms": hp}
+            log("timing", f"{name} {tag}: kernel {k1:.4f}/{k2:.4f} ms "
+                          f"({ms - floor:.4f} ms above the launch floor), "
+                          f"plain {p1:.4f}/{p2:.4f} ms, bound {bound:.6f} ms "
+                          f"({nbytes} B at 3.35 TB/s, data-sheet peak; bound "
+                          f"by bytes), kernel at {ms / bound:.1f}x it; no "
+                          f"single PyTorch call computes it (library_ms "
+                          f"null); host time per call: kernel wrapper "
+                          f"{hk:.4f} ms, plain {hp:.4f} ms")
+        if label == "serve_prefill":
+            log("timing", "blind_agg_bwd at serve_prefill is on no counted "
+                          "path: a joint step over one 2048-token prompt "
+                          "would launch it")
+        if rule is not None:
+            G = rule(nd, K)
+            sweep = {}
+            for G_try in sorted({1, 2, 3, 4, 8, 16, G}):
+                if G_try <= min(K, tba.FWD_MAX_GROUPS):
+                    sweep[G_try] = _time_ms(
+                        lambda: tba.blind_agg_fwd(ea, ep, mk, groups=G_try))
+            row["groups"] = G
+            row["fwd_ms_by_groups"] = sweep
+            log("timing", f"blind_agg_fwd {tag} by party groups G (ms): "
+                          f"{ {k: round(v, 4) for k, v in sweep.items()} }; "
+                          f"fwd_party_groups gives G = {G}")
         out[label] = row
     return out
 
@@ -1573,7 +1647,7 @@ def _serve_phase(tag, arch):
     comps = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**tba.LAUNCHES, **tfa.LAUNCHES, **trg.LAUNCHES}
+    launches = {**_agg_launches(), **tfa.LAUNCHES, **trg.LAUNCHES}
     # every prefill: one flash launch per attention layer and one
     # rglru_scan_fwd per RG-LRU layer of the active party and of one
     # passive proxy (the passive party axis folded into the batch around
@@ -1853,14 +1927,15 @@ def run_phase(name, save=None, compare=None):
     checkouts in turns: ``engines`` (the Table II train step on both
     engines), ``many`` (three times 20 fused many-party rounds), ``rg``
     (the recurrentgemma-9b serving run, prefill and decode times and
-    profiler windows), ``flash`` (flash_attention_fwd at its timing
-    shapes), ``rglru``
-    (rglru_scan_fwd at its timing shapes, checked bit for bit against its
-    plain version) or ``prng`` (blind_agg_prng_fwd's cases against its
-    plain version, then its timing shapes; ``save`` writes the kernel's
-    outputs at those cases to a file, ``compare`` checks them bit for bit
-    against such a file from another checkout). Prints its numbers as one
-    JSON line."""
+    profiler windows), ``agg`` (blind_agg_fwd and blind_agg_bwd at their
+    timing shapes beside the launch floor; ``save`` / ``compare`` as for
+    ``prng``, every backward output required to match), ``flash``
+    (flash_attention_fwd at its timing shapes), ``rglru`` (rglru_scan_fwd
+    at its timing shapes, checked bit for bit against its plain version)
+    or ``prng`` (blind_agg_prng_fwd's cases against its plain version,
+    then its timing shapes; ``save`` writes the kernel's outputs at those
+    cases to a file, ``compare`` checks them bit for bit against such a
+    file from another checkout). Prints its numbers as one JSON line."""
     import torch
     from repro_torch import checkpoint
     phase_build()
@@ -1881,6 +1956,29 @@ def run_phase(name, save=None, compare=None):
             res["fused_ms"].append(statistics.median(ms[5:]))
         log("many", f"fused ms per round (median of rounds 5-"
                     f"{MP_ROUNDS - 1}), three times: {res['fused_ms']}")
+    elif name == "agg":
+        outs = {}
+        res = phase_timing(outs)
+        # and the backward at C = 6, which 1/C does not represent exactly
+        g = torch.randn((128, 128), generator=torch.Generator(
+            device="cuda").manual_seed(5), device="cuda")
+        from repro_torch.kernels import blind_agg as tba
+        outs["blind_agg_bwd K=5"] = list(tba.blind_agg_bwd(
+            g, 5, torch.float32, torch.bfloat16))
+        if save:
+            torch.save(outs, save)
+        if compare:
+            theirs = torch.load(compare)
+            bits = lambda t: t.cpu().contiguous().view(torch.uint8)
+            same = {k: len(v) == len(theirs[k]) and all(
+                a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(bits(a), bits(b))
+                for a, b in zip(v, theirs[k])) for k, v in outs.items()}
+            log("agg", f"outputs bit for bit those in {compare}: {same}")
+            res["bit_identical_to_compared"] = same
+            if not all(v for k, v in same.items() if "bwd" in k):
+                raise AssertionError(f"blind_agg_bwd outputs differ from "
+                                     f"{compare}")
     elif name == "flash":
         res = phase_timing_flash()
     elif name == "rglru":
@@ -1926,9 +2024,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                              "GPU; see the module docstring")
     ap.add_argument("--phase", help="run one timing phase alone")
-    ap.add_argument("--save", help="--phase prng: save the outputs here")
-    ap.add_argument("--compare", help="--phase prng: compare the outputs "
-                                      "bit for bit with a saved file")
+    ap.add_argument("--save", help="--phase prng or agg: save the outputs "
+                                   "here")
+    ap.add_argument("--compare", help="--phase prng or agg: compare the "
+                                      "outputs bit for bit with a saved "
+                                      "file")
     args = ap.parse_args()
     if args.phase:
         return run_phase(args.phase, args.save, args.compare)
@@ -1995,6 +2095,19 @@ def main() -> int:
                     f"{many_joint}, many-party unfused {many_unfused}, "
                     f"qwen2.5-3b serving {lm_launches}, recurrentgemma-9b "
                     f"serving {rg_launches})")
+    # blind_agg_fwd's launches by party groups, path by path: each path's
+    # histogram counts every one of its forward launches
+    names = ("Table II slice", "Table II joint", "many-party fused",
+             "many-party joint", "many-party unfused", "qwen2.5-3b serving",
+             "recurrentgemma-9b serving")
+    groups = {n: p["fwd_groups"] for n, p in zip(names, paths)}
+    log("launches", f"blind_agg_fwd launches by party groups G, path by "
+                    f"path: {groups}")
+    for n, p in zip(names, paths):
+        if sum(p["fwd_groups"].values()) != p["blind_agg_fwd"]:
+            raise AssertionError(f"{n}: blind_agg_fwd launches by G "
+                                 f"{p['fwd_groups']} do not sum to "
+                                 f"{p['blind_agg_fwd']}")
     missing = [name for name, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
@@ -2047,7 +2160,7 @@ def main() -> int:
                       "table2_engines": engines,
                       "many_party_ms_per_round": {"fused": fused_ms,
                                                   "unfused": unfused_ms},
-                      "many_party": timing["many_party"],
+                      "blind_agg": timing,
                       "prng": {str(k): v for k, v in timing_prng.items()},
                       "flash": timing_flash,
                       "rglru": {str(k): v for k, v in timing_rglru.items()},

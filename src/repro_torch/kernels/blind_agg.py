@@ -7,7 +7,8 @@ module binds them:
 
   * ``blind_agg_fwd(ea (N, d), ep (K, N, d), mk (K, N, d))`` -> (N, d) in
     ea's dtype, (ea + sum_k (ep_k + mk_k)) / (K + 1) with a float32
-    accumulator;
+    accumulator, the parties split into ``fwd_party_groups(N * d, K)``
+    groups a CTA;
   * ``blind_agg_bwd(g (N, d), K, ...)`` -> (dea, dep, dmk), every one
     g / (K + 1) in its own dtype, each written only if asked for;
   * ``blind_agg``, the public differentiable function: any rank, flattened
@@ -27,7 +28,8 @@ Every wrapper takes CUDA tensors only (float32, bfloat16 or float16,
 contiguous, matching shapes) and raises on anything else; the plain
 version for CPU tensors is ``ref.reference_blind_agg`` (and
 ``ref.reference_blind_agg_prng``), chosen by ``ops``. Each wrapper call
-that launches its kernel adds one to ``LAUNCHES[<wrapper name>]``.
+that launches its kernel adds one to ``LAUNCHES[<wrapper name>]``, and
+each ``blind_agg_fwd`` launch also to ``FWD_GROUPS[G]``.
 """
 from __future__ import annotations
 
@@ -44,11 +46,49 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # launches of each kernel in this process; reset with reset_launches()
 LAUNCHES: Dict[str, int] = {"blind_agg_fwd": 0, "blind_agg_bwd": 0,
                             "blind_agg_prng_fwd": 0}
+# blind_agg_fwd's launches by party groups G; reset with reset_launches()
+FWD_GROUPS: Dict[int, int] = {}
+
+# the split forward's CTA (csrc/blind_agg.cu fwd_split): V output vectors
+# of 8 elements x G party groups in at most 128 threads, G <= 16; a group
+# walks at least FWD_MIN_PARTIES parties
+FWD_THREADS, FWD_MAX_GROUPS, FWD_MIN_PARTIES, SMS = 128, 16, 4, 132
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    FWD_GROUPS.clear()
+
+
+def fwd_vectors(G: int) -> int:
+    """Output vectors of 8 elements in a split-forward CTA of G groups."""
+    return FWD_THREADS // G // 8 * 8
+
+
+def fwd_party_groups(nd: int, K: int) -> int:
+    """The party groups G of a blind_agg_fwd CTA for N*d = ``nd`` outputs
+    and K passive parties.
+
+    With G = 1 one thread per 8 outputs walks all K parties; at K = 63 and
+    N*d = 8,192 that is 1,024 threads on 8 SMs, each making 63 trips. So G
+    doubles from 1 while the grid, ceil(N*d / 8 / V(G)) CTAs, is below one
+    CTA on each of the card's 132 SMs, as long as each group still walks
+    at least 4 parties (ceil(K / G) >= 4): below that the partials' round
+    trip through shared memory and the barrier cost what the shorter walk
+    saves (``chip_smoke.py --phase agg`` times every G at the shapes the
+    counted paths launch; at K = 3 no G > 1 beat the walk by more than the
+    timing's spread). G stays within the CTA (16 groups of 8 vectors), a
+    power of two that divides its 128 threads. Where the scalar path runs
+    (N*d not a multiple of 8) G is 1."""
+    if nd % 8:
+        return 1
+    nvec = nd // 8
+    G = 1
+    while (2 * G <= FWD_MAX_GROUPS and -(-K // (2 * G)) >= FWD_MIN_PARTIES
+           and -(-nvec // fwd_vectors(G)) < SMS):
+        G *= 2
+    return G
 
 
 def _lib() -> ctypes.CDLL:
@@ -56,7 +96,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.blind_agg_fwd.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32,
-                                      vp]
+                                      i32, vp]
         lib.blind_agg_fwd.restype = i32
         lib.blind_agg_bwd.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32,
                                       vp]
@@ -106,9 +146,12 @@ def _raise_on(error_string, name: str, code: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
 
 
-def blind_agg_fwd(ea: torch.Tensor, ep: torch.Tensor,
-                  mk: torch.Tensor) -> torch.Tensor:
-    """ea (N, d); ep/mk (K, N, d) -> (N, d) in ea's dtype (CUDA kernel)."""
+def blind_agg_fwd(ea: torch.Tensor, ep: torch.Tensor, mk: torch.Tensor, *,
+                  groups: Optional[int] = None) -> torch.Tensor:
+    """ea (N, d); ep/mk (K, N, d) -> (N, d) in ea's dtype (CUDA kernel).
+    ``groups`` overrides the party groups a CTA (``fwd_party_groups``; 1
+    where a pointer is not 16-byte aligned, which the kernel's scalar path
+    takes); the kernel raises on a G it cannot take."""
     if ea.dim() != 2 or ep.dim() != 3:
         raise ValueError(f"blind_agg_fwd takes ea (N, d) and ep/mk (K, N, d), "
                          f"got {tuple(ea.shape)} and {tuple(ep.shape)}")
@@ -118,14 +161,19 @@ def blind_agg_fwd(ea: torch.Tensor, ep: torch.Tensor,
     _check("ep", ep, (K, N, d), ea.device)
     _check("mk", mk, (K, N, d), ea.device)
     out = torch.empty_like(ea)
+    G = groups
+    if G is None:
+        aligned = all(t.data_ptr() % 16 == 0 for t in (ea, ep, mk, out))
+        G = fwd_party_groups(N * d, K) if aligned else 1
     lib = _lib()
     stream = torch.cuda.current_stream(ea.device).cuda_stream
     code = lib.blind_agg_fwd(ea.data_ptr(), ep.data_ptr(), mk.data_ptr(),
-                             out.data_ptr(), N * d, K, _DTYPE_CODES[ea.dtype],
-                             _DTYPE_CODES[ep.dtype], _DTYPE_CODES[mk.dtype],
-                             stream)
+                             out.data_ptr(), N * d, K, G,
+                             _DTYPE_CODES[ea.dtype], _DTYPE_CODES[ep.dtype],
+                             _DTYPE_CODES[mk.dtype], stream)
     _raise_on(lib.blind_agg_error_string, "blind_agg_fwd", code)
     LAUNCHES["blind_agg_fwd"] += 1
+    FWD_GROUPS[G] = FWD_GROUPS.get(G, 0) + 1
     return out
 
 

@@ -116,6 +116,127 @@ def test_cuda_round_goes_through_the_kernels(cuda, grad_mode):
     assert tba.LAUNCHES["blind_agg_bwd"] == (1 if grad_mode == "joint" else 0)
 
 
+# each K at every party-group count G the forward's rule can return (the
+# powers of two up to 16) that K takes (G <= K)
+_FWD_K = (1, 2, 3, 7, 8, 9, 31, 32, 33, 63, 64, 127, 255)
+_FWD_KG = [(K, G) for K in _FWD_K for G in (1, 2, 4, 8, 16) if G <= K]
+
+
+def _agg_inputs(K, N, d, dtype, mdtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    ea, ep = (torch.randn(s, generator=gen).to(dtype)
+              for s in ((N, d), (K, N, d)))
+    mk = torch.randn((K, N, d), generator=gen).to(mdtype)
+    return ea, ep, mk
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,G", _FWD_KG)
+def test_cuda_fwd_at_every_party_group(cuda, K, G):
+    """float32 at N*d = 101 * 64: 808 output vectors, not a multiple of a
+    CTA's V = 128 / G vectors for G < 16. Within 1e-5 of the plain
+    version, each launch recorded under G, and the same bits on a second
+    call."""
+    ea, ep, mk = (t.to(cuda) for t in _agg_inputs(K, 101, 64, torch.float32,
+                                                   torch.float32, K * 7 + G))
+    tba.reset_launches()
+    out = tba.blind_agg_fwd(ea, ep, mk, groups=G)
+    again = tba.blind_agg_fwd(ea, ep, mk, groups=G)
+    torch.cuda.synchronize()
+    assert tba.FWD_GROUPS == {G: 2}
+    assert torch.equal(out, again)
+    want = ref.reference_blind_agg(ea, ep, mk)
+    assert ((out - want).abs() <= 1e-5).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K", _FWD_K)
+def test_cuda_fwd_takes_the_rules_party_groups(cuda, K):
+    """Without ``groups`` the wrapper launches fwd_party_groups(N*d, K)."""
+    ea, ep, mk = (t.to(cuda) for t in _agg_inputs(K, 128, 64, torch.float32,
+                                                   torch.float32, K))
+    tba.reset_launches()
+    out = tba.blind_agg_fwd(ea, ep, mk)
+    torch.cuda.synchronize()
+    assert tba.FWD_GROUPS == {tba.fwd_party_groups(128 * 64, K): 1}
+    assert ((out - ref.reference_blind_agg(ea, ep, mk)).abs() <= 1e-5).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("N", [4, 512, 2048])
+def test_cuda_fwd_at_serving_shapes(cuda, N):
+    """The serving rounds: K = 3, d 128, bfloat16 embeddings and float32
+    masks, N the prompt at admission or the 4 lanes of a decode round;
+    within one bfloat16 ulp (2^-7 relative) of the float32 sum, the G the
+    rule gives, the same bits twice."""
+    ea, ep, mk = _agg_inputs(3, N, 128, torch.bfloat16, torch.float32, N)
+    exact = ref.reference_blind_agg(ea.float(), ep.float(), mk)
+    ea, ep, mk = ea.to(cuda), ep.to(cuda), mk.to(cuda)
+    tba.reset_launches()
+    out = tba.blind_agg_fwd(ea, ep, mk)
+    again = tba.blind_agg_fwd(ea, ep, mk)
+    torch.cuda.synchronize()
+    assert tba.FWD_GROUPS == {tba.fwd_party_groups(N * 128, 3): 2}
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    want = ref.reference_blind_agg(ea, ep, mk)
+    tol = 2.0 ** -7 * np.abs(_f32(exact))
+    assert (np.abs(_f32(out) - _f32(want)) <= tol).all()
+    assert (np.abs(_f32(out) - _f32(exact)) <= tol).all()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_fwd_rejects_party_groups_it_cannot_take(cuda):
+    """G outside [1, min(K, 16)], or G > 1 where the scalar path runs,
+    fails at launch; a misaligned view takes the scalar path with G = 1."""
+    ea, ep, mk = (t.to(cuda) for t in _agg_inputs(40, 16, 8, torch.float32,
+                                                   torch.float32, 3))
+    for G in (0, 17):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tba.blind_agg_fwd(ea, ep, mk, groups=G)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tba.blind_agg_fwd(ea, ep[:5], mk[:5], groups=8)           # G > K
+    odd = [t[..., :7, :7].contiguous() for t in (ea, ep, mk)]  # N*d = 49
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tba.blind_agg_fwd(*odd, groups=2)
+    buf = torch.empty(ea.numel() + 1, device=cuda)
+    shifted = buf[1:].view(ea.shape)
+    shifted.copy_(ea)
+    assert shifted.data_ptr() % 16 == 4
+    tba.reset_launches()
+    out = tba.blind_agg_fwd(shifted, ep, mk)
+    assert tba.FWD_GROUPS == {1: 1}
+    assert ((out - ref.reference_blind_agg(ea, ep, mk)).abs() <= 1e-5).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K", [1, 3, 63, 127])
+@pytest.mark.parametrize("need", [(a, b, c) for a in (True, False)
+                                  for b in (True, False)
+                                  for c in (True, False) if a or b or c])
+@pytest.mark.parametrize("dtypes", [("float32", "float32", "float32"),
+                                    ("bfloat16", "bfloat16", "float32")])
+def test_cuda_bwd_is_the_plain_version_bit_for_bit(cuda, K, need, dtypes):
+    """C = K + 1 is a power of two, so g * (1/C) is g / C exactly: every
+    cotangent asked for equals reference_blind_agg_bwd's bit for bit, in
+    its own dtype; one not asked for is None."""
+    gt, pt, mt = (_TDT[t] for t in dtypes)
+    gen = torch.Generator().manual_seed(K)
+    g = torch.randn((100, 64), generator=gen).to(gt).to(cuda)
+    need_ea, need_ep, need_mk = need
+    before = tba.LAUNCHES["blind_agg_bwd"]
+    got = tba.blind_agg_bwd(g, K, pt, mt, need_ea=need_ea, need_ep=need_ep,
+                            need_mk=need_mk)
+    torch.cuda.synchronize()
+    assert tba.LAUNCHES["blind_agg_bwd"] == before + 1
+    want = ref.reference_blind_agg_bwd(g, K, pt, mt, need_mk=True)
+    for asked, a, b in zip(need, got, want):
+        if not asked:
+            assert a is None
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
 def _prng_tol(ea, ep, masks, want):
     K = ep.shape[0]
     S = ea.float().abs() + (ep.float().abs() + masks.float().abs()).sum(0)

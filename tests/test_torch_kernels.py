@@ -148,6 +148,35 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
     ops.blind_agg_prng(ea, ep, eng, 0)
     assert tba.LAUNCHES == {"blind_agg_fwd": 0, "blind_agg_bwd": 0,
                             "blind_agg_prng_fwd": 0}
+    assert tba.FWD_GROUPS == {}
+
+
+@pytest.mark.parametrize("nd,K,G", [
+    (128 * 128, 3, 1),        # Table II
+    (128 * 64, 63, 16),       # the many-party benchmark's unfused rounds
+    (2048 * 128, 3, 1),       # a serving admission of 2048 tokens
+    (4 * 128, 3, 1),          # a serving decode round at 4 lanes
+    (128 * 64, 8, 2), (128 * 64, 16, 4),
+    (2048 * 128, 63, 1)])     # 256 CTAs of the walk already cover the SMs
+def test_fwd_party_groups_at_the_timed_shapes(nd, K, G):
+    assert tba.fwd_party_groups(nd, K) == G
+
+
+def test_fwd_party_groups_stays_within_the_kernel():
+    """1 <= G <= min(max(K, 1), 16), a power of two (it divides the CTA's
+    128 threads), every group at least 4 parties once G > 1, and G = 1
+    where the kernel runs its scalar path (N*d not a multiple of 8)."""
+    for nd in (8, 64, 100, 512, 8192, 8200, 16384, 262144, 1 << 24):
+        for K in (0, 1, 2, 3, 5, 8, 9, 31, 33, 63, 64, 127, 255, 1000):
+            G = tba.fwd_party_groups(nd, K)
+            assert 1 <= G <= min(max(K, 1), tba.FWD_MAX_GROUPS)
+            assert G & (G - 1) == 0
+            assert tba.FWD_THREADS % G == 0
+            assert tba.fwd_vectors(G) * G == tba.FWD_THREADS
+            if G > 1:
+                assert -(-K // G) >= tba.FWD_MIN_PARTIES
+            if nd % 8:
+                assert G == 1
 
 
 # ---------------------------------------------------------------------------
