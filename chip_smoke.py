@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase flash
     python3 chip_smoke.py --phase rglru
     python3 chip_smoke.py --phase prng --save OUT.pt    # or --compare OUT.pt
+    python3 chip_smoke.py --phase train
 
 Phases, each printing its own lines:
 
@@ -23,8 +24,10 @@ Phases, each printing its own lines:
           bfloat16, and a mask dtype that differs from the embeddings';
           K in {2, 8, 9, 31, 32, 33, 64, 255} at (128, 64) float32 (every
           party-group count G the forward's rule gives), and the serving
-          rounds' shapes: K = 3, N in {4, 512, 1024, 2048}, d 128,
-          bfloat16 embeddings with float32 masks.
+          rounds' and the LM training step's shapes: K = 3, N in {4, 512,
+          1024, 2048, 8192}, d 128, bfloat16 embeddings with float32
+          masks (at N = 8192 the forward within one bfloat16 ulp plus the
+          float32 rounding the order of the sum over parties moves).
   prng    holds blind_agg_prng_fwd (masks made in the kernel) against its
           plain version on the card (MaskEngine masks through
           reference_blind_agg) over K in {2, 3, 7, 15, 63, 127}, N in
@@ -58,9 +61,12 @@ Phases, each printing its own lines:
           prng kernel's bound counts the operations its inputs need.
           blind_agg_fwd and blind_agg_bwd also at the serving rounds'
           shapes (K = 3, N 2048 and 4, d 128, bfloat16 embeddings, float32
-          masks; the backward at N = 2048 only), each beside the launch
+          masks; the backward at N = 2048 only) and the LM training step's
+          (K = 3, N = 4 x 2048, forward and backward), each beside the launch
           floor (one torch.cuda._sleep(0) in a back-to-back stream, timed
-          the same way) and the forward at every party-group count G.
+          the same way) and the forward at every party-group count G;
+          where a call moves 1 MiB or more, also cold: calls in turn over
+          input sets and outputs of twice the 50 MB L2.
   profile host-clock split of a Table II round into masks and train step,
           and torch.profiler device time by kernel over 5 rounds.
   flash   holds flash_attention_fwd against its plain version on the card:
@@ -108,7 +114,11 @@ Phases, each printing its own lines:
           qwen2.5-3b model is freed; launch counts asserted (26 + 6
           rglru_scan_fwd and 12 + 3 flash_attention_fwd a prefill, one
           blind_agg_fwd a round), every rglru_scan_fwd on the TMA path;
-          profiler windows as in lm.
+          profiler windows as in lm. For lm and rg a window that records
+          shapes over a 16-token prefill and one decode round fails the
+          run if any copy op in it reads a tensor the size of the stacked
+          passive embedding tables (the group's token embeddings are one
+          offset gather).
   rg_cut  recurrentgemma-9b cut to one pattern repeat (3 active layers,
           3 per passive proxy; 6.35e9 parameters, 25.4 GB in float32),
           TF32 off, against the CPU port on the same weights as in lm's
@@ -124,10 +134,33 @@ Phases, each printing its own lines:
           bound's share of the kernel's time; (rglru) the kernel and its
           plain version at (1 | 3, 2047, 4096) float32 beside the bytes
           bound, its output checked bit for bit against the plain one.
+  train   EasterLM training on qwen2-1.5b at full width and depth (28
+          layers, d_model 1536, 12/2 heads of 128, d_ff 8960, vocab
+          151,936, bfloat16, remat per layer; three 7-layer passive
+          proxies; 3.31e9 parameters random from a torch.Generator seeded
+          0 on the card) through build_trainer(TrainConfig(chunk=4)) (adam
+          1e-3, clip 1.0): two chunks of 4 steps on 4 x 2048-token batches
+          of lm_batch_iterator(seed=0); ms per step (host clock, each step
+          started after a synchronize; median of the second chunk),
+          tokens/s, peak device memory, per-party losses (finite, the mean
+          total of the last two steps below step 0's), exactly one
+          blind_agg_fwd a step and no flash_attention_fwd or
+          rglru_scan_fwd launch; a third chunk under torch.profiler (idle
+          share, top device ops); one grad_mode="joint" sgd step, which
+          must launch blind_agg_bwd once. Then one sgd step card vs CPU
+          port in float32 (TF32 off), losses, gradients and updated params
+          within rtol 1e-4 / atol 1e-5, for qwen2-1.5b cut to 4 active
+          layers (passive 2) at batch 2 x 128 and for the
+          recurrentgemma-9b smoke variant, each launching one
+          blind_agg_fwd and no prompt kernel. Last, reported and not
+          asserted: whether a chunk of 2 adam steps equals the step loop
+          bit for bit on the card, and one step's gradients computed
+          twice, with the parameter leaves that differ.
 
 --phase runs one timing phase alone after the build, for comparing two
 checkouts in turns (the other checkout's tree given this script):
-engines, many, rg (the recurrentgemma-9b serving run), agg (the
+engines, many, rg (the recurrentgemma-9b serving run), train (the train
+phase), agg (the
 blind_agg_fwd / blind_agg_bwd timing and the launch floor; --save and
 --compare as for prng, the backward's outputs required to be bit for bit
 the other checkout's), flash, rglru (the rglru timing) or prng (the prng
@@ -136,7 +169,8 @@ another checkout's file with --compare, then the prng timing).
 
 The launch counters are set to 0 just before each counted path (slice,
 joint, many-party fused, many-party joint, many-party unfused, qwen2.5-3b
-serving, recurrentgemma-9b serving) and read just after; every kernel
+serving, recurrentgemma-9b serving, qwen2-1.5b training, its joint step)
+and read just after; every kernel
 must have launched on some path, and blind_agg_fwd's launches are printed
 by party-group count G, path by path. The second-to-last line is the JSON
 kernel record; the last line is {"ok": true, "device": {...}}. Any failed
@@ -159,6 +193,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet peak
+L2_BYTES = 50 * 2 ** 20          # H100 SXM L2 (Hopper white paper)
 FP32_FLOPS = 67e12               # H100 SXM data sheet, float32 off the tensor cores
 # the clock and lanes behind that figure (Hopper white paper): 132 SMs,
 # each with 128 FP32 and 64 INT32 lanes, at 1.98 GHz: 67 TFLOP/s = 132 x
@@ -213,6 +248,13 @@ FLASH_PREFILL_HEADS = (16, 2, 128)
 # passive proxies), 16/1/256 heads with a local window of 2048; the depth
 # cut keeps one pattern repeat (3 active layers, 3 per passive proxy)
 RG_ARCH = "recurrentgemma-9b"
+# the LM training slice: qwen2-1.5b at full width and depth in bfloat16,
+# EasterConfig() defaults, build_trainer(TrainConfig(chunk=4)) (adam 1e-3,
+# clip 1.0), two counted chunks of 4 steps on 4 x 2048-token batches from
+# lm_batch_iterator(seed=0); the float32 depth cut against the CPU port
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK, TRAIN_CHUNKS = 4, 2048, 4, 2
+TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 4, 2, 128
 RG_CUT_LAYERS = 3
 RG_FLASH_HEADS, RG_WINDOW = (16, 1, 256), 2048
 # flash_attention_fwd's timing shapes: (B, S, heads, window), the active
@@ -384,7 +426,14 @@ def _agg_launches():
             "fwd_groups": None if groups is None else dict(groups)}
 
 
-def _case(K, lead, d, dtype, mdtype, gen):
+def _case(K, lead, d, dtype, mdtype, gen, reorder=False):
+    """One blind_agg case, forward and backward, against the plain
+    version. ``reorder``: the forward may also differ from the plain
+    version, and from the exact float32 sum, by the float32 rounding that
+    the order of the sum over parties moves, (K + 2) 2^-24 S / C with S =
+    |E_a| + sum_k (|E_k| + |r_k|) (as for blind_agg_prng_fwd): one
+    bfloat16 ulp of a sum that cancels to near zero is smaller than that,
+    and a million outputs hold such sums."""
     import torch
     from repro_torch.kernels import blind_agg as tba
     from repro_torch.kernels import ref
@@ -403,10 +452,16 @@ def _case(K, lead, d, dtype, mdtype, gen):
     exact = ref.reference_blind_agg(ea.float(), ep.float(), mk.float())
     errs, oks = [], []
     e, ok = max_err(out, want, dtype)
+    slack = 0.0
+    if reorder:
+        S = ea.float().abs() + (ep.float().abs() + mk.float().abs()).sum(0)
+        slack = (K + 2) * 2.0 ** -24 * S / (K + 1)
+        ok = bool(((out.float() - want.float()).abs()
+                   <= bf16_ulp(want.float()) + slack).all())
     # bf16 output: compare against the float32 accumulation it rounds
     if dtype == torch.bfloat16:
         ok = ok and bool(((out.float() - exact).abs()
-                          <= bf16_ulp(exact)).all())
+                          <= bf16_ulp(exact) + slack).all())
     errs.append(e)
     oks.append(ok)
     for a, b in zip(ts, ps):
@@ -431,15 +486,17 @@ def phase_kernels():
     cases += [(3, (128,), 128, bf16, f32), (63, (128,), 64, f32, bf16)]
     cases += [(3, (7,), 13, f32, f32), (5, (9,), 11, bf16, bf16)]  # N*d % 8
     # every party-group count the forward's rule gives, and the serving
-    # rounds: bfloat16 embeddings, float32 masks, N the prompt or 4 lanes
+    # rounds and the LM training step: bfloat16 embeddings, float32 masks,
+    # N the prompt, 4 lanes, or the step's 4 x 2048 tokens
     cases += [(K, (128,), 64, f32, f32) for K in (2, 8, 9, 31, 32, 33, 64,
                                                   255)]
     cases += [(3, (N,), 128, bf16, f32) for N in (4, 512, 1024, 2048)]
+    cases += [(3, (8192,), 128, bf16, f32, True)]
     worst = {f32: 0.0, bf16: 0.0}
     worst_f32 = {"blind_agg_fwd": 0.0, "blind_agg_bwd": 0.0}
     failed = []
-    for K, lead, d, dt, mdt in cases:
-        errs, ok = _case(K, lead, d, dt, mdt, gen)
+    for K, lead, d, dt, mdt, *reorder in cases:
+        errs, ok = _case(K, lead, d, dt, mdt, gen, *reorder)
         worst[dt] = max(worst[dt], max(errs))
         if dt == f32:
             worst_f32["blind_agg_fwd"] = max(worst_f32["blind_agg_fwd"],
@@ -456,7 +513,8 @@ def phase_kernels():
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{failed}")
     log("kernel", f"{len(cases)} cases within tolerance (float32 atol=rtol="
-                  f"1e-5, bfloat16 one ulp); worst float32 "
+                  f"1e-5, bfloat16 one ulp, at the training shape plus the "
+                  f"float32 sum-order bound); worst float32 "
                   f"{worst[f32]:.3g}, bfloat16 {worst[bf16]:.3g}")
     return worst_f32
 
@@ -1063,20 +1121,38 @@ def _host_ms(fn, calls=200):
 # masks (core/easter_lm.py _aggregate), N the prompt at admission (here its
 # longest, 2048) or the 4 lanes of a decode round. No counted path runs the
 # backward at the serving shapes: a joint step over one 2048-token prompt
-# would.
+# would. The LM training step aggregates the same dtypes at N = 4 x 2048
+# tokens, forward every step and backward in its joint step.
 AGG_TIMING = (("slice", 3, 128, 128, "float32", "float32", True),
               ("many_party", 63, 128, 64, "float32", "float32", True),
               ("serve_prefill", 3, 2048, 128, "bfloat16", "float32", True),
-              ("serve_decode", 3, 4, 128, "bfloat16", "float32", False))
+              ("serve_decode", 3, 4, 128, "bfloat16", "float32", False),
+              ("train", 3, 8192, 128, "bfloat16", "float32", True))
+
+
+def _rotating(fn, sets, n):
+    """A call of ``fn`` on the next of ``sets`` in turn, holding the last
+    ``n`` outputs alive: each call reads inputs and writes an output block
+    that the calls between have not touched, so with ``n`` calls' bytes
+    above the L2 it runs from HBM, not from the L2."""
+    state = {"i": 0, "keep": [None] * n}
+
+    def call():
+        i = state["i"] = (state["i"] + 1) % n
+        state["keep"][i] = fn(*sets[i % len(sets)])
+    return call
 
 
 def phase_timing(outputs=None):
     """blind_agg_fwd and blind_agg_bwd, their plain versions and bounds at
     the AGG_TIMING shapes, beside the launch floor: the device time of one
-    torch.cuda._sleep(0) in a back-to-back stream, timed the same way. On
-    a tree whose wrapper chooses party groups, the forward is also timed
-    at each G it takes there. ``outputs``, a dict, gets each kernel's
-    outputs at each shape."""
+    torch.cuda._sleep(0) in a back-to-back stream, timed the same way.
+    Back to back on one input set, a shape's bytes stay in the 50 MB L2;
+    where a call moves 1 MiB or more, both are also timed cold: calls in
+    turn over input sets and kept outputs of twice the L2's bytes, the
+    timing the HBM byte bound holds for. On a tree whose wrapper chooses
+    party groups, the forward is also timed at each G it takes there.
+    ``outputs``, a dict, gets each kernel's outputs at each shape."""
     import torch
     from repro_torch.kernels import blind_agg as tba
     from repro_torch.kernels import ref
@@ -1090,24 +1166,40 @@ def phase_timing(outputs=None):
         et, mt = getattr(torch, edt), getattr(torch, mdt)
         se, sm = torch.empty((), dtype=et).element_size(), \
             torch.empty((), dtype=mt).element_size()
-        ea = torch.randn((N, d), generator=gen, device="cuda").to(et)
-        ep = torch.randn((K, N, d), generator=gen, device="cuda").to(et)
-        mk = torch.randn((K, N, d), generator=gen, device="cuda").to(mt)
-        g = torch.randn((N, d), generator=gen, device="cuda").to(et)
+
+        def inputs():
+            return (torch.randn((N, d), generator=gen, device="cuda").to(et),
+                    torch.randn((K, N, d), generator=gen,
+                                device="cuda").to(et),
+                    torch.randn((K, N, d), generator=gen,
+                                device="cuda").to(mt),
+                    torch.randn((N, d), generator=gen, device="cuda").to(et))
+        sets = [inputs()]
+        ea, ep, mk, g = sets[0]
         nd = N * d
         tag = f"{label} K={K} N={N} d={d} E {edt} masks {mdt}"
         row = {}
-        cases = [("blind_agg_fwd", lambda: tba.blind_agg_fwd(ea, ep, mk),
-                  lambda: ref.reference_blind_agg(ea, ep, mk),
+        cases = [("blind_agg_fwd",
+                  lambda ea, ep, mk, g: tba.blind_agg_fwd(ea, ep, mk),
+                  lambda ea, ep, mk, g: ref.reference_blind_agg(ea, ep, mk),
                   nd * (se + K * (se + sm) + se), (2 * K + 1) * nd)]
         if with_bwd:                          # mask cotangent not asked for
             cases.append((
                 "blind_agg_bwd",
-                lambda: tba.blind_agg_bwd(g, K, et, mt, need_mk=False),
-                lambda: ref.reference_blind_agg_bwd(g, K, et, mt,
-                                                    need_mk=False),
+                lambda ea, ep, mk, g: tba.blind_agg_bwd(g, K, et, mt,
+                                                        need_mk=False),
+                lambda ea, ep, mk, g: ref.reference_blind_agg_bwd(
+                    g, K, et, mt, need_mk=False),
                 nd * (se + se + K * se), nd))
-        for name, kern, plain, nbytes, nops in cases:
+        cold_n = max(-(-2 * L2_BYTES // c[3]) for c in cases)
+        if min(c[3] for c in cases) >= 2 ** 20:
+            sets += [inputs() for _ in range(cold_n - 1)]
+        for name, kern_f, plain_f, nbytes, nops in cases:
+            def kern(f=kern_f):
+                return f(ea, ep, mk, g)
+
+            def plain(f=plain_f):
+                return f(ea, ep, mk, g)
             # turns: plain, kernel, kernel, plain
             p1 = _time_ms(plain)
             k1 = _time_ms(kern)
@@ -1133,6 +1225,22 @@ def phase_timing(outputs=None):
                           f"single PyTorch call computes it (library_ms "
                           f"null); host time per call: kernel wrapper "
                           f"{hk:.4f} ms, plain {hp:.4f} ms")
+            if len(sets) > 1:
+                n = -(-2 * L2_BYTES // nbytes)
+                p1 = _time_ms(_rotating(plain_f, sets, n))
+                k1 = _time_ms(_rotating(kern_f, sets, n))
+                k2 = _time_ms(_rotating(kern_f, sets, n))
+                p2 = _time_ms(_rotating(plain_f, sets, n))
+                cold = min(k1, k2)
+                row[name].update(cold_ms=cold, cold_plain_ms=min(p1, p2),
+                                 cold_calls=n)
+                log("timing", f"{name} {tag} cold ({n} calls in turn over "
+                              f"{len(sets)} input sets, {n * nbytes} B, "
+                              f"twice the L2 or more): kernel {k1:.5f}/"
+                              f"{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms; "
+                              f"kernel at {cold / bound:.2f}x the bound, "
+                              f"{(cold - floor) / bound:.2f}x it less the "
+                              f"launch floor")
         if label == "serve_prefill":
             log("timing", "blind_agg_bwd at serve_prefill is on no counted "
                           "path: a joint step over one 2048-token prompt "
@@ -1149,6 +1257,7 @@ def phase_timing(outputs=None):
             log("timing", f"blind_agg_fwd {tag} by party groups G (ms): "
                           f"{ {k: round(v, 4) for k, v in sweep.items()} }; "
                           f"fwd_party_groups gives G = {G}")
+        del sets
         out[label] = row
     return out
 
@@ -1549,9 +1658,10 @@ def _free_card():
     torch.cuda.empty_cache()
 
 
-def _profile_window(tag, label, fn, n_rounds):
+def _profile_window(tag, label, fn, n_rounds, by_op=False):
     """Device busy time and idle share of ``fn`` under torch.profiler, and
-    its top kernels by device time."""
+    its top kernels by device time. ``by_op`` also prints the top PyTorch
+    ops by the device time of the kernels each launched itself."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1576,8 +1686,74 @@ def _profile_window(tag, label, fn, n_rounds):
         top.append((r.key[:60], r.count, ms))
         log(tag, f"  {r.key[:60]:60s} calls {r.count:5d} device "
                  f"{ms:.3f} ms ({ms / busy_ms:.1%})")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle,
-            "kernels": n, "top": top}
+    res = {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle,
+           "kernels": n, "top": top}
+    if by_op:
+        ops_ = [r for r in prof.key_averages()
+                if r.device_type == DeviceType.CPU
+                and r.self_device_time_total > 0]
+        res["top_ops"] = []
+        for r in sorted(ops_, key=lambda r: -r.self_device_time_total)[:10]:
+            ms = r.self_device_time_total / 1e3
+            res["top_ops"].append((r.key, r.count, ms))
+            log(tag, f"  op {r.key[:40]:40s} calls {r.count:6d} device "
+                     f"{ms:.3f} ms ({ms / busy_ms:.1%})")
+    return res
+
+
+def _reset_lm_launches():
+    from repro_torch.kernels import blind_agg as tba
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import rg_lru as trg
+    tba.reset_launches()
+    tfa.reset_launches()
+    trg.reset_launches()
+
+
+def _lm_launches():
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import rg_lru as trg
+    return {**_agg_launches(), **tfa.LAUNCHES, **trg.LAUNCHES}
+
+
+COPY_OPS = ("aten::clone", "aten::copy_", "aten::contiguous",
+            "aten::_reshape_copy")
+
+
+def _table_copies(tag, sys_, params):
+    """The copy ops (``COPY_OPS``) that read a tensor the size of the
+    stacked passive embedding tables, in a 16-token prefill and one decode
+    round, from a torch.profiler window that records shapes (kept apart
+    from the timed windows, whose host time shapes would inflate)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    numel = params["passive_stacked"]["backbone"]["embed"]["table"].numel()
+    seeds = sys_.mask_seeds()
+    tok = torch.arange(17, dtype=torch.int32, device="cuda")[None]
+    out = {}
+    for what in ("prefill", "decode"):
+        caches = sys_.init_caches(1, 32)
+        if what == "decode":
+            _, caches = sys_.prefill(params, tok[:, :16], caches,
+                                     seeds=seeds, round_idx=7)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as prof:
+            if what == "prefill":
+                sys_.prefill(params, tok[:, :16], caches, seeds=seeds,
+                             round_idx=7)
+            else:
+                sys_.serve_step(params, tok[:, 16:], caches, 16, seeds)
+            torch.cuda.synchronize()
+        copies = [(e.name, e.input_shapes) for e in prof.events()
+                  if e.name in COPY_OPS and any(
+                      math.prod(sh) >= numel for sh in e.input_shapes if sh)]
+        out[what] = len(copies)
+        log(tag, f"copy ops reading >= {numel} elements (the stacked "
+                 f"passive embedding tables) in a 16-token {what}"
+                 f"{'' if what == 'prefill' else ' round'}: {len(copies)} "
+                 f"{copies[:2]}")
+    return out
 
 
 def _serve_phase(tag, arch):
@@ -1586,8 +1762,6 @@ def _serve_phase(tag, arch):
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.core import api, serving
-    from repro_torch.kernels import blind_agg as tba
-    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import rg_lru as trg
     from repro_torch.tree import tree_leaves
     cfg = get_config(arch)
@@ -1640,14 +1814,12 @@ def _serve_phase(tag, arch):
 
     eng._prefill, eng._decode = timed_prefill, timed_decode
     reqs = _lm_requests(cfg.vocab_size)
-    tba.reset_launches()
-    tfa.reset_launches()
-    trg.reset_launches()
+    _reset_lm_launches()
     t0 = time.perf_counter()
     comps = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**_agg_launches(), **tfa.LAUNCHES, **trg.LAUNCHES}
+    launches = _lm_launches()
     # every prefill: one flash launch per attention layer and one
     # rglru_scan_fwd per RG-LRU layer of the active party and of one
     # passive proxy (the passive party axis folded into the batch around
@@ -1718,7 +1890,8 @@ def _serve_phase(tag, arch):
         "tokens_per_s": toks / wall, "ms_per_round": ms_round,
         "rounds": eng.rounds_run, "prefill_ms": per_len,
         "profile_prefill": prof_prefill, "profile_decode": prof_decode,
-        "rglru_paths": paths}
+        "rglru_paths": paths,
+        "table_copies": _table_copies(tag, sys_, params)}
 
 
 def _host_gib():
@@ -1810,6 +1983,274 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False):
         raise AssertionError("the depth-cut run differs between card and CPU")
     return {"errors": errs, "num_passive": card.easter.num_passive,
             "weights_gb": nbytes / 1e9}
+
+
+def _check_train_launches(what, launches, steps, joint_steps=0):
+    """A training step launches one blind_agg_fwd, blind_agg_bwd only in
+    joint mode, and neither prompt kernel (they have no backward)."""
+    want = {"blind_agg_fwd": steps, "blind_agg_bwd": joint_steps,
+            "flash_attention_fwd": 0, "rglru_scan_fwd": 0}
+    bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if bad:
+        raise AssertionError(f"{what}: launches (got, expected) {bad}")
+
+
+def _train_full(tag):
+    """qwen2-1.5b at full width and depth in bfloat16, trained through
+    Trainer for TRAIN_CHUNKS chunks of TRAIN_CHUNK steps; a counted main
+    path. Then one chunk under the profiler and one joint step (sgd)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import api
+    from repro_torch.core.easter_lm import EasterLM
+    from repro_torch.data.synthetic import lm_batch_iterator
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(TRAIN_ARCH)
+    sys_ = _lm_system(cfg, "cuda")
+    _free_card()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = sys_.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_all = sum(t.numel() for p in params["parties"] for t in tree_leaves(p))
+    cfgs = sys_.party_cfgs
+    trainer = api.build_trainer(sys_, api.TrainConfig(chunk=TRAIN_CHUNK))
+    state = trainer.init(params)
+    log(tag, f"{cfg.name}: {cfgs[0].n_layers} layers, d_model "
+             f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}x"
+             f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+             f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}; C = "
+             f"{sys_.C} ({len(cfgs) - 1} passive proxies of "
+             f"{cfgs[1].n_layers} layers), d_embed {sys_.easter.d_embed}, "
+             f"{sys_.easter.mask_mode} wire, {sys_.engine} engine; {n_all} "
+             f"parameters ({n_all / 1e9:.3f}e9) drawn on the card in "
+             f"{init_s:.1f} s; adam 1e-3 clip 1.0 (float32 m and v); device "
+             f"memory {torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    it = lm_batch_iterator(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    chunks = [[next(it) for _ in range(TRAIN_CHUNK)]
+              for _ in range(TRAIN_CHUNKS + 1)]
+    starts = []                  # host clock at each step's start, synced
+    loss_fn = sys_.loss_fn
+
+    def timed_loss(*a):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return loss_fn(*a)
+
+    sys_.loss_fn = timed_loss
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_launches()
+    per, ends = [], []
+    for batches in chunks[:TRAIN_CHUNKS]:
+        state, m = trainer.run(state, batches)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        per.append(m["per_party"].cpu())
+    launches = _lm_launches()
+    sys_.loss_fn = loss_fn
+    steps = TRAIN_CHUNK * TRAIN_CHUNKS
+    _check_train_launches("qwen2-1.5b training", launches, steps)
+    peak = torch.cuda.max_memory_allocated()
+    per = torch.cat(per)
+    totals = per.sum(1)
+    step_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:] + [ends[-1]])]
+    ms = statistics.median(step_ms[TRAIN_CHUNK:])
+    toks = TRAIN_BATCH * TRAIN_SEQ
+    log(tag, f"{steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+             f"{TRAIN_CHUNKS} chunks of {TRAIN_CHUNK}: ms per step "
+             f"{[round(v, 1) for v in step_ms]}; median of the second "
+             f"chunk {ms:.1f} ms, {toks / ms * 1e3:.0f} tokens/s; peak "
+             f"device memory {peak / 1e9:.2f} GB "
+             f"(torch.cuda.max_memory_allocated); launches {launches}")
+    log(tag, f"per-party losses by step: "
+             f"{[[round(float(v), 4) for v in r] for r in per]}")
+    if not bool(torch.isfinite(per).all()):
+        raise AssertionError(f"non-finite training losses {per.tolist()}")
+    if not float(totals[-2:].mean()) < float(totals[0]):
+        raise AssertionError(f"the total loss did not fall: "
+                             f"{totals.tolist()}")
+    box = {"state": state}
+    prof = _profile_window(
+        tag, f"one chunk of {TRAIN_CHUNK} training steps",
+        lambda: box.update(state=trainer.run(box["state"],
+                                             chunks[-1])[0]), TRAIN_CHUNK,
+        by_op=True)
+    # one joint step: the aggregate's gradient goes back through the
+    # kernel (sgd: no second optimizer state beside adam's)
+    joint = EasterLM(cfg, sys_.easter, grad_mode="joint", device="cuda")
+    jtrainer = api.build_trainer(joint, api.TrainConfig(optimizer="sgd",
+                                                        lr=1e-4))
+    jstate = jtrainer.init(box["state"].params)
+    jstate = api.TrainState(jstate.params, jstate.opt_state,
+                            box["state"].step)
+    _reset_lm_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jstate, jm = jtrainer.run(jstate, chunks[0][:1])
+    torch.cuda.synchronize()
+    joint_ms = (time.perf_counter() - t0) * 1e3
+    jlaunch = _lm_launches()
+    _check_train_launches("qwen2-1.5b joint step", jlaunch, 1, 1)
+    if not bool(torch.isfinite(jm["per_party"]).all()):
+        raise AssertionError("non-finite joint-step losses")
+    log(tag, f"one grad_mode='joint' sgd step: {joint_ms:.1f} ms, per-party "
+             f"losses {[round(float(v), 4) for v in jm['per_party'][0]]}, "
+             f"launches {jlaunch}")
+    del state, box, jstate, trainer, jtrainer, params
+    return (launches, jlaunch), {
+        "arch": cfg.name, "params": n_all, "init_s": init_s,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "step_ms": step_ms,
+        "ms_per_step": ms, "tokens_per_s": toks / ms * 1e3,
+        "peak_bytes": peak, "per_party": per.tolist(), "profile": prof,
+        "joint_ms": joint_ms}
+
+
+def _train_step_on(sys_, params0, batch):
+    """One sgd step (lr 0.01, clip 1.0) from host weights ``params0``
+    (numpy, reference layout): (per-party losses, grads, updated params,
+    launches), the tensors on the host."""
+    import torch
+    from repro_torch.core import train_loop
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves
+    params = sys_.load_params(params0)
+    _reset_lm_launches()
+    _, per, grads = train_loop.loss_and_grads(sys_, params, batch, 3,
+                                              sys_.mask_seeds())
+    tree = {"parties": params["parties"]}
+    opt = make_optimizer("sgd", 0.01, grad_clip=1.0)
+    opt.update(grads, opt.init(tree), tree)
+    if sys_.device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = _lm_launches()
+    host = lambda t: [x.detach().cpu() for x in tree_leaves(t)]
+    out = (per.cpu(), host(grads), host(tree), launches)
+    del params, grads, tree
+    return out
+
+
+def _train_cut_check(tag, name, cfg, batch):
+    """One sgd step of ``cfg`` in float32 (TF32 off) on the card and on the
+    CPU port from the same weights: per-party losses, gradients and the
+    updated params within rtol 1e-4 / atol 1e-5, and the card's launches
+    checked (one blind_agg_fwd, no prompt kernel)."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    _free_card()
+    card = _lm_system(cfg, "cuda")
+    cpu = _lm_system(cfg, "cpu")
+    params0 = card.export_params(
+        card.init_params(torch.Generator(device="cuda").manual_seed(0)))
+    nbytes = sum(a.nbytes for a in tree_leaves(params0))
+    got = _train_step_on(card, params0, batch)
+    _check_train_launches(f"{name} step", got[3], 1)
+    _free_card()
+    want = _train_step_on(cpu, params0, batch)
+    errs = {}
+    for i, what in ((0, "losses"), (1, "gradients"), (2, "updated params")):
+        a = got[i] if i else [got[i]]
+        b = want[i] if i else [want[i]]
+        errs[what] = (max(float((x - y).abs().max()) for x, y in zip(a, b)),
+                      all(torch.allclose(x, y, rtol=1e-4, atol=1e-5)
+                          for x, y in zip(a, b)))
+    log(tag, f"{name}, float32, TF32 off, {nbytes / 1e9:.2f} GB of weights, "
+             f"batch {tuple(batch['tokens'].shape)}: one sgd step card vs "
+             f"CPU port: "
+             + "; ".join(f"{w} max abs {e:.3g} {'ok' if ok else 'FAIL'}"
+                         for w, (e, ok) in errs.items())
+             + f" (rtol 1e-4, atol 1e-5); card launches {got[3]}; losses "
+             f"card {[round(float(v), 5) for v in got[0]]}")
+    if not all(ok for _, ok in errs.values()):
+        raise AssertionError(f"{name}: the training step differs between "
+                             f"card and CPU")
+    return {"errors": errs, "weights_gb": nbytes / 1e9}
+
+
+def _leaf_paths(tree, path=""):
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree)
+                for p in _leaf_paths(t, f"{path}/{i}")]
+    return [path]
+
+
+def _train_repeatability(tag):
+    """On the card, a chunk of 2 adam steps against the step loop from the
+    same weights (the same code, so any difference is a nondeterministic
+    op), and one step's gradients computed twice; reports the leaves that
+    differ, which name the op (an embedding table: the embedding
+    backward). Reported, not asserted."""
+    import torch
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.core import train_loop
+    from repro_torch.data.synthetic import lm_batch_iterator
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves
+    cfg = smoke_variant(get_config(TRAIN_ARCH))
+    sys_ = _lm_system(cfg, "cuda")
+    params0 = sys_.export_params(
+        sys_.init_params(torch.Generator(device="cuda").manual_seed(0)))
+    it = lm_batch_iterator(cfg.vocab_size, 4, 256, seed=2)
+    batches = [next(it) for _ in range(2)]
+    opt = make_optimizer("adam", 1e-3, grad_clip=1.0)
+    finals = []
+    for mode in ("chunk", "loop"):
+        params = sys_.load_params(params0)
+        state = opt.init({"parties": params["parties"]})
+        if mode == "chunk":
+            params, state, _, _ = train_loop.build_train_chunk(sys_, opt)(
+                params, state, train_loop.stack_batches(batches, "cuda"), 0)
+        else:
+            step = train_loop.make_train_step(sys_, opt)
+            for i, b in enumerate(batches):
+                params, state, _ = step(params, state, b, i)
+        finals.append([t.detach().cpu()
+                       for t in tree_leaves(params["parties"])])
+    names = _leaf_paths(sys_.export_params(sys_.load_params(params0))
+                        ["parties"])
+    chunk_diff = [n for n, a, b in zip(names, *finals)
+                  if not torch.equal(a, b)]
+    grads = []
+    for _ in range(2):
+        params = sys_.load_params(params0)
+        g = train_loop.loss_and_grads(sys_, params, batches[0], 0,
+                                      sys_.mask_seeds())[2]
+        grads.append([t.cpu() for t in tree_leaves(g["parties"])])
+    grad_diff = [n for n, a, b in zip(names, *grads)
+                 if not torch.equal(a, b)]
+    log(tag, f"{cfg.name} float32, 2 adam steps of 4 x 256 tokens on the "
+             f"card: a chunk equals the step loop bit for bit: "
+             f"{not chunk_diff} (leaves that differ: {chunk_diff[:6]}); one "
+             f"step's gradients twice, bit for bit: {not grad_diff} (leaves "
+             f"that differ: {grad_diff[:6]})")
+    return {"chunk_equals_loop": not chunk_diff, "chunk_diff": chunk_diff,
+            "grads_repeat": not grad_diff, "grad_diff": grad_diff}
+
+
+def phase_train():
+    """EasterLM training: qwen2-1.5b at full width and depth (bfloat16),
+    then the depth cut and the recurrentgemma-9b smoke variant in float32
+    against the CPU port. Returns (counted launches, results)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.data.synthetic import lm_batch_iterator
+    (launches, jlaunch), res = _train_full("train")
+    _free_card()
+    cut = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CUT_LAYERS, dtype="float32")
+    res["depth_cut"] = _train_cut_check(
+        "train", f"{TRAIN_ARCH} cut to {TRAIN_CUT_LAYERS} active layers",
+        cut, next(lm_batch_iterator(cut.vocab_size, TRAIN_CUT_BATCH,
+                                    TRAIN_CUT_SEQ, seed=1)))
+    rg = smoke_variant(get_config(RG_ARCH))
+    res["rg_smoke"] = _train_cut_check(
+        "train", f"{RG_ARCH} smoke variant", rg,
+        next(lm_batch_iterator(rg.vocab_size, 2, 40, seed=1)))
+    res["repeatability"] = _train_repeatability("train")
+    return (launches, jlaunch), res
 
 
 def _sdpa_backend(fn):
@@ -1927,7 +2368,7 @@ def run_phase(name, save=None, compare=None):
     checkouts in turns: ``engines`` (the Table II train step on both
     engines), ``many`` (three times 20 fused many-party rounds), ``rg``
     (the recurrentgemma-9b serving run, prefill and decode times and
-    profiler windows), ``agg`` (blind_agg_fwd and blind_agg_bwd at their
+    profiler windows), ``train`` (the train phase), ``agg`` (blind_agg_fwd and blind_agg_bwd at their
     timing shapes beside the launch floor; ``save`` / ``compare`` as for
     ``prng``, every backward output required to match), ``flash``
     (flash_attention_fwd at its timing shapes), ``rglru`` (rglru_scan_fwd
@@ -1985,6 +2426,8 @@ def run_phase(name, save=None, compare=None):
         res = {str(k): v for k, v in phase_timing_rglru().items()}
     elif name == "rg":
         res = _serve_phase("rg", RG_ARCH)[1]
+    elif name == "train":
+        res = phase_train()[1]
     elif name == "prng":
         outs = []
         phase_prng(outs)
@@ -2076,15 +2519,25 @@ def main() -> int:
         raise AssertionError(f"rglru_scan_fwd paths on the serving path: "
                              f"{rg['rglru_paths']}")
     rg_cut = _cut_phase("rg_cut", RG_ARCH, RG_CUT_LAYERS, check_host=True)
+    # the passive group's token embeddings are one offset gather: no copy
+    # of the stacked tables in a prefill or a decode round
+    copies = {f"{tag} {w}": n
+              for tag, r in (("qwen2.5-3b", lm), ("recurrentgemma-9b", rg))
+              for w, n in r["table_copies"].items()}
+    if any(copies.values()):
+        raise AssertionError(f"copies of the stacked embedding tables: "
+                             f"{copies}")
     timing_flash = phase_timing_flash()
     timing_rglru = phase_timing_rglru()
+    (train_launches, joint_launches_lm), train = phase_train()
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
     if bad:
         raise AssertionError(f"the port imported {bad[:5]}")
 
     paths = (slice_launches, joint_launches, many_launches, many_joint,
-             many_unfused, lm_launches, rg_launches)
+             many_unfused, lm_launches, rg_launches, train_launches,
+             joint_launches_lm)
     launches = {name: sum(p.get(name, 0) for p in paths)
                 for name in ("blind_agg_fwd", "blind_agg_bwd",
                              "blind_agg_prng_fwd", "flash_attention_fwd",
@@ -2094,12 +2547,15 @@ def main() -> int:
                     f"many-party fused {many_launches}, many-party joint "
                     f"{many_joint}, many-party unfused {many_unfused}, "
                     f"qwen2.5-3b serving {lm_launches}, recurrentgemma-9b "
-                    f"serving {rg_launches})")
+                    f"serving {rg_launches}, qwen2-1.5b training "
+                    f"{train_launches}, qwen2-1.5b joint step "
+                    f"{joint_launches_lm})")
     # blind_agg_fwd's launches by party groups, path by path: each path's
     # histogram counts every one of its forward launches
     names = ("Table II slice", "Table II joint", "many-party fused",
              "many-party joint", "many-party unfused", "qwen2.5-3b serving",
-             "recurrentgemma-9b serving")
+             "recurrentgemma-9b serving", "qwen2-1.5b training",
+             "qwen2-1.5b joint step")
     groups = {n: p["fwd_groups"] for n, p in zip(names, paths)}
     log("launches", f"blind_agg_fwd launches by party groups G, path by "
                     f"path: {groups}")
@@ -2165,7 +2621,8 @@ def main() -> int:
                       "flash": timing_flash,
                       "rglru": {str(k): v for k, v in timing_rglru.items()},
                       "lm": lm, "lm_depth_cut": lm_cut, "rg": rg,
-                      "rg_depth_cut": rg_cut}))
+                      "rg_depth_cut": rg_cut, "table_copies": copies,
+                      "train": train}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

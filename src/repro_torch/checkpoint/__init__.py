@@ -1,5 +1,12 @@
-"""Weight conversion between the reference's parameter pytrees and the
-port's tensor trees, through numpy.
+"""Flat-path ``.npz`` checkpoints (``save`` / ``restore``, the format of
+``repro.checkpoint``) and weight conversion between the reference's
+parameter pytrees and the port's tensor trees, through numpy.
+
+A checkpoint holds one array per leaf under its path, dict keys and list
+indices joined by ``||`` (``params||parties||0||head||w``); a bfloat16
+leaf is stored as float32 under its path plus ``@bf16``; ``__step__``
+holds the step when one is given. Either package restores the other's
+file.
 
 ``EasterClassifier.init_params`` and ``EasterLM.init_params`` return, in
 both packages, trees with the same nested keys and the same leaf layouts
@@ -16,6 +23,9 @@ numpy's ``bfloat16`` dtype, which exists once ``ml_dtypes`` is loaded in
 the process (as it is wherever JAX is).
 """
 from __future__ import annotations
+
+import os
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -60,3 +70,77 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def params_to_numpy(params):
     """Tree of tensors -> tree of numpy arrays (on the host)."""
     return tree_map(_to_numpy, params)
+
+
+_SEP = "||"
+
+
+def _walk(tree, path=()):
+    """(path, leaf) pairs, dict keys and list indices as in the
+    reference's key paths."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _walk(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from _walk(t, path + (str(i),))
+    else:
+        yield _SEP.join(path), tree
+
+
+def _flatten(tree) -> Dict[str, np.ndarray]:
+    out = {}
+    for key, leaf in _walk(tree):
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                out[key + "@bf16"] = t.float().numpy()
+            else:
+                out[key] = t.numpy()
+        else:
+            out[key] = np.asarray(leaf)
+    return out
+
+
+def save(path: str, tree: Any, step: int | None = None) -> str:
+    """Write ``tree`` (tensors or arrays at the leaves) to ``path``
+    atomically (a temporary file, then a rename)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    flat = _flatten(tree)
+    if step is not None:
+        flat["__step__"] = np.asarray(step)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+    return path
+
+
+def restore(path: str, like: Any):
+    """Restore into the structure of ``like`` (a tree of tensors): new
+    tensors of each leaf's dtype on its device. Returns (tree, step),
+    step None when the file holds none."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    step = int(flat.pop("__step__")) if "__step__" in flat else None
+
+    def load(key, leaf):
+        if key in flat:
+            t = torch.from_numpy(np.array(flat[key]))
+        elif key + "@bf16" in flat:
+            t = torch.from_numpy(np.array(flat[key + "@bf16"]))
+        else:
+            raise KeyError(f"checkpoint missing {key}")
+        if tuple(t.shape) != tuple(leaf.shape):
+            raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)}, "
+                             f"expected {tuple(leaf.shape)}")
+        return t.to(dtype=leaf.dtype, device=leaf.device)
+
+    def build(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: build(v, path + (str(k),)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(build(t, path + (str(i),))
+                              for i, t in enumerate(tree))
+        return load(_SEP.join(path), tree)
+
+    return build(like), step

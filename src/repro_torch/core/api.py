@@ -1,5 +1,16 @@
-"""Typed serving surface for the EASTER LM system (the serving half of
-``repro.core.api``).
+"""Typed training and serving surfaces for the EASTER LM system
+(counterpart of ``repro.core.api``).
+
+``build_trainer(sys, TrainConfig) -> Trainer`` works on a ``TrainState``
+(params, optimizer state, global step): ``Trainer.run(state, batches)``
+takes one training step per batch (``core/train_loop.py``), the step
+doubling as the TRAIN-domain PRF round, with per-party optimizers
+(``optim.make_party_optimizers``) where configured. The optimizer sees
+the reference-shaped ``{"parties": [...]}`` tree, so its state has the
+reference's structure and ``{"params", "opt"}`` checkpoints cross
+between the packages; on the vectorized engine the passive entries are
+row views of the stacked group, which each party's optimizer updates in
+place.
 
 ``build_decoder(sys, DecodeConfig) -> (prefill_fn, decode_fn)`` works on a
 (``ServeRequest``, ``DecodeState``) pair: R concurrent request lanes,
@@ -17,20 +28,19 @@ done.
 
 The reference jit-compiles one prefill per prompt length and donates the
 state; the port runs eagerly, and its steps return new tensors, so the
-caller rebinds ``state`` to the result as it does there. The training
-half (``TrainConfig``, ``Trainer``, ``build_trainer``) is the next slice
-of the port.
+caller rebinds ``state`` to the result as it does there.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.core import blinding
 from repro_torch.core import decode as decode_mod
+from repro_torch.core import train_loop
 from repro_torch.tree import tree_map
 
 
@@ -187,3 +197,109 @@ def build_decoder(sys, cfg: DecodeConfig):
                                        pad_id=cfg.pad_id)
 
     return prefill_fn, decode_fn
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Everything a launcher assembles around the train step.
+
+    ``optimizer``: a name (homogeneous, global-norm clipped by
+    ``grad_clip``) or a prebuilt ``Optimizer``-shaped object.
+    ``party_optimizers``: ``optim.parse_party_spec`` output
+    (``{party: (name, lr, hparams)}``), the paper's §IV-E heterogeneous
+    per-party optimization; unlisted parties fall back to
+    ``optimizer``/``lr``, listed parties clip per party (default clip
+    ``grad_clip`` unless the spec overrides). ``chunk``: optimizer steps
+    per ``train_chunk`` run inside ``Trainer.run``, each run's batches
+    stacked and moved to the device at once (so at most ``chunk`` steps'
+    batches are on the device); ``launch/train.py`` also draws batches
+    ``chunk`` steps at a time. ``donate``: accepted for the reference's
+    signature and ignored: the port's step updates the params and
+    optimizer state in place, so there is nothing to donate.
+    """
+    optimizer: Any = "adam"
+    lr: float = 1e-3
+    grad_clip: float = 1.0
+    chunk: int = 8
+    party_optimizers: Optional[Mapping[int, Tuple]] = None
+    donate: bool = True
+
+
+@dataclass(frozen=True)
+class TrainState:
+    """(params, optimizer state, global step). ``params`` is the system's
+    tree (with ``passive_stacked`` on the vectorized engine); ``opt_state``
+    is shaped like ``{"parties": params["parties"]}``; ``step`` is an
+    int."""
+    params: Any
+    opt_state: Any
+    step: int
+
+
+class Trainer:
+    """Training behind one ``run`` call, no carry tuples.
+
+    ``init(params) -> TrainState``; ``run(state, batches) ->
+    (TrainState, metrics)`` takes ``len(batches)`` steps, in runs of
+    ``cfg.chunk`` (``train_chunk``), with ``state.step`` as the
+    TRAIN-domain PRF round base, updating the params and optimizer state
+    in place (the returned state holds the same tensors). ``metrics``:
+    ``{"loss": (N,), "per_party": (N, C)}``.
+    """
+
+    def __init__(self, sys, cfg: TrainConfig):
+        from repro_torch import optim
+        self.sys = sys
+        self.cfg = cfg
+        if cfg.party_optimizers:
+            spec = {int(k): (v[0], v[1], dict(v[2]) if len(v) > 2 and v[2]
+                             else {})
+                    for k, v in cfg.party_optimizers.items()}
+            for _, _, hp in spec.values():
+                # listed parties clip like unlisted ones unless overridden
+                hp.setdefault("grad_clip", cfg.grad_clip)
+            base = (cfg.optimizer if isinstance(cfg.optimizer, str)
+                    else "adam")
+            self.opt = optim.make_party_optimizers(
+                spec, sys.C,
+                default=(base, cfg.lr, {"grad_clip": cfg.grad_clip}))
+        elif callable(getattr(cfg.optimizer, "update", None)):
+            self.opt = cfg.optimizer
+        else:
+            self.opt = optim.make_optimizer(cfg.optimizer, cfg.lr,
+                                            grad_clip=cfg.grad_clip)
+        self.chunk = max(1, cfg.chunk)
+        self._chunk_fn = train_loop.build_train_chunk(sys, self.opt,
+                                                      donate=cfg.donate)
+
+    def init(self, params) -> TrainState:
+        return TrainState(params=params,
+                          opt_state=self.opt.init(
+                              {"parties": params["parties"]}),
+                          step=0)
+
+    def run(self, state: TrainState, batches):
+        """``batches``: a list of per-step batch dicts (numpy or
+        tensors), moved to the system's device ``cfg.chunk`` steps at a
+        time."""
+        params, opt_state, step = state.params, state.opt_state, state.step
+        losses, pers = [], []
+        for i in range(0, len(batches), self.chunk):
+            stacked = train_loop.stack_batches(batches[i:i + self.chunk],
+                                               self.sys.device)
+            params, opt_state, step, m = self._chunk_fn(
+                params, opt_state, stacked, step)
+            losses.append(m["loss"])
+            pers.append(m["per_party"])
+        return TrainState(params, opt_state, step), {
+            "loss": torch.cat(losses), "per_party": torch.cat(pers)}
+
+
+def build_trainer(sys, cfg: TrainConfig) -> Trainer:
+    """Mirror of ``build_decoder`` on the training side."""
+    return Trainer(sys, cfg)

@@ -1,5 +1,5 @@
-"""EASTER at LLM scale: the serving half (prefill and the blinded decode
-round) in PyTorch.
+"""EASTER at LLM scale in PyTorch: training (``loss_fn``, ``train_chunk``)
+and serving (prefill and the blinded decode round).
 
 Counterpart of ``repro.core.easter_lm``. Parties:
   * party 0 (ACTIVE): the full architecture as its backbone;
@@ -28,13 +28,24 @@ around one kernel launch per layer. The passive group is stacked once, by ``init
 the per-party trees are row views of it, and the per-step path reads it
 as it is and copies no weight (the reference restacks on every step,
 which costs nothing under jit and about 6 GB a round in eager torch at
-qwen2.5-3b). ``engine="loop"`` is
-the per-party oracle. ``engine="sharded"`` raises (ROADMAP.md queue 1
-item 14); training (``loss_fn``, ``train_chunk``) raises until the LM
-training slice.
+qwen2.5-3b). The group's token embeddings are one offset gather from
+the flat view of the stacked tables (``layers.embed_grouped``), outside
+the vmap. ``engine="loop"`` is the per-party oracle. ``engine="sharded"``
+raises (ROADMAP.md queue 1 item 14).
 
-Serving entry points run under ``torch.no_grad()`` and on the system's
-device (None = the card).
+Training: ``loss_fn`` is the reference's, with its stop-gradient
+surrogate, so one backward gives every party the gradient of its own
+loss. The training forward takes the plain differentiable attention and
+RG-LRU paths on every device (their kernels have no backward);
+``blind_agg_fwd`` stays on it, and ``blind_agg_bwd`` runs in
+``grad_mode="joint"``. On the vectorized engine the leaves that take
+gradients are the active party's and the stacked passive group's
+(``train_leaves``); the passive layers run outside the vmap, each repeat
+one ``checkpoint(vmap(...))`` under ``remat="full"``
+(``transformer.apply_hidden(group=True)``).
+
+Serving entry points run under ``torch.no_grad()``; every entry point
+runs on the system's device (None = the card).
 """
 from __future__ import annotations
 
@@ -49,18 +60,17 @@ from torch.func import vmap
 from repro_torch import checkpoint
 from repro_torch.configs.base import EasterConfig, ModelConfig
 from repro_torch.core import aggregation, blinding
+from repro_torch.core.losses import chunked_lm_head_xent
 from repro_torch.core.party_engine import stack_trees, unstack_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.layers import (apply_norm, init_linear, init_mlp,
-                                       init_norm, linear, mlp)
+from repro_torch.models.layers import (apply_norm, embed, embed_grouped,
+                                       init_linear, init_mlp, init_norm,
+                                       linear, mlp)
 from repro_torch.tree import tree_map
 
 # the EasterLM federation's fixed ceremony seed, as in the reference
 CEREMONY_SEED = 1729
-LM_TRAINING_TODO = ("EasterLM training (loss_fn, chunked_lm_head_xent, "
-                    "train_chunk, Trainer, launch/train.py) is the next slice "
-                    "of the port (ROADMAP.md queue 1)")
 
 
 def passive_cfg(cfg: ModelConfig, easter: EasterConfig, k: int) -> ModelConfig:
@@ -175,6 +185,7 @@ class EasterLM:
         group stays behind)."""
         return checkpoint.params_to_numpy({"parties": params["parties"]})
 
+    @torch.no_grad()
     def group_params(self, params) -> Dict[str, Any]:
         """Stack the passive group once (vectorized engine) into
         ``params["passive_stacked"]``, which the grouped steps read as it
@@ -198,13 +209,40 @@ class EasterLM:
                 "instead of copying every passive weight each round)")
         return params["passive_stacked"]
 
+    def train_leaves(self, params):
+        """The tensors a training step differentiates and updates: every
+        party's tree, or on the vectorized engine the active party's and
+        the stacked passive group's (the passive parties' trees are row
+        views of it)."""
+        if self._passive_group_ok():
+            return {"active": params["parties"][0],
+                    "stacked": self._passive_stack(params)}
+        return {"parties": params["parties"]}
+
+    def party_grads(self, grads) -> List[Any]:
+        """``train_leaves``-shaped gradients -> the reference's per-party
+        list (passive entries row views of the stacked gradients)."""
+        if "stacked" in grads:
+            return [grads["active"]] + unstack_tree(grads["stacked"],
+                                                    self.easter.num_passive)
+        return list(grads["parties"])
+
     # -- protocol pieces -----------------------------------------------------
     def local_embed(self, pparams, pcfg: ModelConfig, tokens, *, caches=None,
-                    pos_offset=0, window_override=-1):
-        h, new_caches, aux = transformer.apply_lm(
-            pparams["backbone"], tokens, pcfg, caches=caches,
+                    pos_offset=0, window_override=-1, training=False):
+        x = embed(pparams["backbone"]["embed"], tokens)
+        return self._embed_from(pparams, pcfg, x, caches=caches,
+                                pos_offset=pos_offset,
+                                window_override=window_override,
+                                training=training)
+
+    def _embed_from(self, pparams, pcfg: ModelConfig, x, *, caches=None,
+                    pos_offset=0, window_override=-1, training=False):
+        """``local_embed`` from the token embeddings x (B, S, d_model)."""
+        h, new_caches, aux = transformer.apply_hidden(
+            pparams["backbone"], x, pcfg, caches=caches,
             pos_offset=pos_offset, window_override=window_override,
-            return_hidden=True)
+            return_hidden=True, training=training)
         E = linear(pparams["proj"], h)                 # (B, S, d_embed)
         return E, new_caches, aux
 
@@ -282,12 +320,88 @@ class EasterLM:
                 torch.cat([blinding.quantize(E_a)[None], up_p], 0))
         return aggregation.aggregate(E_a, up_p)
 
-    # -- training (next slice) -------------------------------------------
+    # -- training forward/loss -----------------------------------------------
+    def _per_party_E(self, E, E_all):
+        """(C, B, S, d): party k's view of the global embedding. "easter"
+        (the paper): the value of E with the gradient of E_all[k] / C, so
+        each party's loss reaches only its own backbone; "joint": E."""
+        if self.grad_mode == "easter":
+            return (E.detach()[None] - E_all.detach() / self.C
+                    + E_all / self.C)
+        return E[None].expand(E_all.shape)
+
     def loss_fn(self, params, batch, round_idx, seeds):
-        raise NotImplementedError(LM_TRAINING_TODO)
+        """(total, per-party losses (C,)) of one training round blinded
+        under ``round_idx`` (the TRAIN domain: the global step).
+        ``batch``: {"tokens", "labels"} (B, S) int tensors."""
+        if self._passive_group_ok():
+            return self._loss_fn_vectorized(params, batch, round_idx, seeds)
+        tokens, labels = self._batch(batch)
+        Es, auxes = [], []
+        for k, pcfg in enumerate(self.party_cfgs):
+            E_k, _, aux_k = self.local_embed(params["parties"][k], pcfg,
+                                             tokens, training=True)
+            Es.append(E_k)
+            auxes.append(aux_k)
+        E_all, E = self._aggregate(torch.stack(Es), round_idx, seeds)
+        E_for = self._per_party_E(E.to(E_all.dtype), E_all)
+        per = []
+        for k, pcfg in enumerate(self.party_cfgs):
+            h_k = self.decide_hidden(params["parties"][k], pcfg, E_for[k])
+            # fused head + CE: never materializes (B, S, V) logits
+            per.append(chunked_lm_head_xent(
+                h_k, params["parties"][k]["head"]["w"], labels))
+        per = torch.stack(per)
+        return torch.sum(per) + torch.sum(torch.stack(auxes)), per
+
+    def _batch(self, batch):
+        extra = sorted(k for k in batch if k not in ("tokens", "labels"))
+        if extra:
+            self._check_frontend(extra)
+        return (torch.as_tensor(batch["tokens"], device=self.device),
+                torch.as_tensor(batch["labels"], device=self.device))
+
+    def _loss_fn_vectorized(self, params, batch, round_idx, seeds):
+        """The passive group at once: one offset gather of its token
+        embeddings, its layers as ``checkpoint(vmap(...))`` per repeat
+        (``transformer.apply_hidden(group=True)``), its decision stacks
+        as one vmap and its heads' cross-entropy party by party. The
+        stop-gradient surrogate acts on the stacked (C, B, S, d) view, so
+        one backward still gives every party its own loss's gradient."""
+        tokens, labels = self._batch(batch)
+        pcfg_a, pcfg_p = self.party_cfgs[0], self.party_cfgs[1]
+        E_a, _, aux_a = self.local_embed(params["parties"][0], pcfg_a,
+                                         tokens, training=True)
+        sp = self._passive_stack(params)
+        x_p = embed_grouped(sp["backbone"]["embed"]["table"], tokens)
+        h_p, _, aux_p = transformer.apply_hidden(
+            sp["backbone"], x_p, pcfg_p, return_hidden=True, training=True,
+            group=True)
+        E_p = vmap(linear)(sp["proj"], h_p)              # (K, B, S, d_e)
+        E_all, E = self._aggregate(torch.cat([E_a[None], E_p], dim=0),
+                                   round_idx, seeds)
+        E_for = self._per_party_E(E.to(E_all.dtype), E_all)
+        h_a = self.decide_hidden(params["parties"][0], pcfg_a, E_for[0])
+        per = [chunked_lm_head_xent(h_a, params["parties"][0]["head"]["w"],
+                                    labels)]
+        hs = vmap(lambda p, e: self.decide_hidden(p, pcfg_p, e))(
+            sp, E_for[1:])
+        per += [chunked_lm_head_xent(hs[k], sp["head"]["w"][k], labels)
+                for k in range(self.easter.num_passive)]
+        per = torch.stack(per)
+        return torch.sum(per) + aux_a + torch.sum(aux_p), per
 
     def train_chunk(self, params, opt_state, batches, step0, opt):
-        raise NotImplementedError(LM_TRAINING_TODO)
+        """``len(batches)`` optimizer steps of ``opt`` (any
+        Optimizer-shaped object, ``optim.make_party_optimizers``
+        included), step i blinded under the TRAIN round ``step0 + i``;
+        ``batches`` stacked as by ``train_loop.stack_batches``. Returns
+        (params, opt_state, step0 + N, metrics) with the parameters and
+        optimizer state updated in place (``core/train_loop.py``)."""
+        from repro_torch.core import train_loop
+        return train_loop.train_chunk(
+            train_loop.make_train_step(self, opt),
+            params, opt_state, batches, step0)
 
     # -- serving -------------------------------------------------------------
     def init_caches(self, batch: int, cache_len: int,
@@ -349,18 +463,20 @@ class EasterLM:
     def _passive_embed_grouped(self, params, tokens, caches, pos,
                                window_override):
         """The K passive parties' embeddings (K, B, S, d) and stacked new
-        caches from one vmap over the stacked group."""
+        caches: their token embeddings by one offset gather from the
+        stacked tables, then one vmap over the group."""
         pcfg_p = self.party_cfgs[1]
         sp = self._passive_stack(params)
         sc = stack_trees(caches[1:])
+        x = embed_grouped(sp["backbone"]["embed"]["table"], tokens)
 
-        def one(p, c):
-            E_k, nc, _ = self.local_embed(p, pcfg_p, tokens, caches=c,
+        def one(p, c, x):
+            E_k, nc, _ = self._embed_from(p, pcfg_p, x, caches=c,
                                           pos_offset=pos,
                                           window_override=window_override)
             return E_k, nc
 
-        return vmap(one)(sp, sc)
+        return vmap(one)(sp, sc, x)
 
     def _serve_step_grouped(self, params, tokens, caches, pos, seeds,
                             window_override, round_idx, lane_mask=None):

@@ -11,7 +11,7 @@ split leaves each party with partial information.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -97,3 +97,15 @@ def make_dataset(name: str, *, n_train: int = 4096, n_test: int = 1024,
     x_tr = (x_tr - mu) / sd
     x_te = (x_te - mu) / sd
     return SyntheticClassification(x_tr, y_tr, x_te, y_te, n_cls, hw)
+
+
+def lm_batch_iterator(vocab: int, batch: int, seq: int, *, seed: int = 0
+                      ) -> Iterator[dict]:
+    """Synthetic LM batches: Zipf-distributed tokens with local structure."""
+    rng = np.random.default_rng(seed)
+    probs = 1.0 / np.arange(1, vocab + 1) ** 1.1
+    probs /= probs.sum()
+    while True:
+        toks = rng.choice(vocab, size=(batch, seq + 1), p=probs)
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}

@@ -8,7 +8,9 @@ The gates are computed as the reference computes them, in float32. The
 prompt's recurrence goes through ``kernels.ops.rglru_scan``: the
 ``rglru_scan_fwd`` kernel for CUDA tensors, the sequential plain version
 for CPU tensors (the reference's default path is an associative scan,
-which rounds differently; the tests state the tolerance). A carried state
+which rounds differently; the tests state the tolerance). A training
+forward (``training=True``) takes the sequential plain version on every
+device, since the kernel has no backward. A carried state
 enters the scan as its ``h0``, where the reference folds it into the
 first step's b with a zero state: both compute a_0 * s + b_0, each
 product and sum rounded. Decode is the reference's single-step update as
@@ -21,7 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import _dense_init, init_linear, linear
 from repro_torch.models.ssm import _depthwise_conv
 
@@ -61,11 +63,14 @@ def _gates(p: dict, x: torch.Tensor):
 
 
 def rglru_scan(p: dict, x: torch.Tensor,
-               init_state: Optional[torch.Tensor] = None):
+               init_state: Optional[torch.Tensor] = None,
+               training: bool = False):
     """x (B, L, W) -> (h (B,L,W) float32, final state (B,W) float32)."""
     a, b = _gates(p, x)
     h0 = (init_state.float() if init_state is not None
           else a.new_zeros((a.shape[0], a.shape[2])))
+    if training:
+        return ref.reference_rglru(a, b, h0)
     return ops.rglru_scan(a, b, h0)
 
 
@@ -76,7 +81,8 @@ def rglru_step(p: dict, x: torch.Tensor, state: torch.Tensor):
     return h[:, None], h
 
 
-def recurrent_block(p: dict, x: torch.Tensor, cache: Optional[dict] = None):
+def recurrent_block(p: dict, x: torch.Tensor, cache: Optional[dict] = None,
+                    training: bool = False):
     """Griffin recurrent block: gated conv + RG-LRU. x (B,L,d_model).
     cache {"conv": (B, CONV_W-1, W), "state": (B, W)}. Returns (out,
     cache)."""
@@ -88,7 +94,7 @@ def recurrent_block(p: dict, x: torch.Tensor, cache: Optional[dict] = None):
         h, new_state = rglru_step(p, xb, cache["state"])
     else:
         init_state = cache["state"] if cache is not None else None
-        h, new_state = rglru_scan(p, xb, init_state)
+        h, new_state = rglru_scan(p, xb, init_state, training)
     y = h.to(x.dtype) * gate
     out = linear(p["out"], y)
     new_cache = {"conv": new_conv.to(x.dtype), "state": new_state}

@@ -7,8 +7,10 @@ float32 and cast back; attention logits are float32 einsums; a linear
 layer runs in its weights' dtype.
 
 Prefill attention (``_attend``) on CUDA tensors runs the hand-written
-flash kernel (``kernels.ops.flash_attention``); on CPU tensors it runs
-the reference's own choice, ``dot_attention`` or ``chunked_attention``.
+flash kernel (``kernels.ops.flash_attention``); on CPU tensors, and on
+any device in a training forward (``training=True``: the flash kernel
+has no backward), it runs the reference's own choice, ``dot_attention``
+or ``chunked_attention``.
 Decode attention (one query against the KV cache, per-lane masks) is
 plain torch on both, as it is plain jnp in the reference.
 
@@ -62,6 +64,19 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype) -> dict:
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens.long(), p["table"])
+
+
+def embed_grouped(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """K stacked tables (K, V, d), shared tokens (B, S) -> (K, B, S, d).
+
+    Gathers from the flat (K*V, d) view of the stack with indices
+    ``tokens + k*V``, so no table-sized tensor is written. ``embed`` under
+    ``torch.func.vmap`` over the tables would be the same bits, but vmap's
+    rule for ``F.embedding`` with a batched table and unbatched indices
+    reshapes the stack to (V, K*d), which copies it."""
+    K, V, d = table.shape
+    off = (torch.arange(K, device=tokens.device) * V).view(K, 1, 1)
+    return F.embedding(tokens.long()[None] + off, table.view(K * V, d))
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +311,7 @@ def self_attention(params: dict, x: torch.Tensor, *, n_heads: int,
                    n_kv_heads: int, head_dim: int, causal: bool = True,
                    window: int = 0, cos=None, sin=None,
                    cache: Optional[dict] = None, mode: str = "auto",
-                   q_chunk: int = 1024):
+                   q_chunk: int = 1024, training: bool = False):
     """Self-attention layer (projections + rope + attend + out-proj).
 
     cache: {"k","v": (B, T_cache, Hkv, hd), "idx": 0-d or (B,) int32} —
@@ -305,8 +320,9 @@ def self_attention(params: dict, x: torch.Tensor, *, n_heads: int,
     mask (continuous-batching lanes). Quantized caches carry int8 "k"/"v"
     and bf16 "k_scale"/"v_scale". Prefill (S > 1) writes the (last T of
     the) prompt's K/V from slot 0. ``mode`` ("auto" | "chunked") and
-    ``q_chunk`` choose the CPU path of prompt attention (``_attend``).
-    Returns (out, new_cache)."""
+    ``q_chunk`` choose the CPU path of prompt attention (``_attend``);
+    ``training`` takes that path on every device (the flash kernel has no
+    backward). Returns (out, new_cache)."""
     B, S, _ = x.shape
     q = linear(params["wq"], x).reshape(B, S, n_heads, head_dim)
     k = linear(params["wk"], x).reshape(B, S, n_kv_heads, head_dim)
@@ -384,20 +400,22 @@ def self_attention(params: dict, x: torch.Tensor, *, n_heads: int,
                     new_cache = {"k": _write(cache["k"], k[:, -eff:], 0),
                                  "v": _write(cache["v"], v[:, -eff:], 0),
                                  "idx": filled}
-            attn = _attend(q, k, v, causal, window, mode, q_chunk)
+            attn = _attend(q, k, v, causal, window, mode, q_chunk,
+                           training)
     else:
-        attn = _attend(q, k, v, causal, window, mode, q_chunk)
+        attn = _attend(q, k, v, causal, window, mode, q_chunk, training)
 
     out = linear(params["wo"], attn.reshape(B, S, n_heads * head_dim))
     return out, new_cache
 
 
-def _attend(q, k, v, causal, window, mode, q_chunk):
-    """Prompt attention: the flash kernel for CUDA tensors; on the CPU the
-    reference's choice (chunked for long prompts that the chunk divides,
-    else materialized). ``mode`` and ``q_chunk`` select among the CPU
-    paths only: on the card any mode but "auto" raises."""
-    if q.device.type == "cuda":
+def _attend(q, k, v, causal, window, mode, q_chunk, training=False):
+    """Prompt attention: the flash kernel for CUDA tensors; on the CPU, and
+    on any device when ``training``, the reference's differentiable choice
+    (chunked for long prompts that the chunk divides, else materialized).
+    ``mode`` and ``q_chunk`` select among those plain paths only: on the
+    card outside training any mode but "auto" raises."""
+    if q.device.type == "cuda" and not training:
         if mode != "auto":
             raise ValueError(f"attention mode {mode!r} selects a CPU path; "
                              f"on the card prompt attention is the flash "

@@ -17,12 +17,26 @@ B, 3, W), "state" (reps, B, W)} for an RG-LRU block
 (``models.griffin``). The MoE, SSM, cross-attention, encoder-decoder and
 vision families raise ``NotImplementedError`` (ROADMAP.md queue 1 item
 13).
+
+``apply_lm`` is ``embed`` then ``apply_hidden``, so a grouped caller can
+gather the embeddings itself (``layers.embed_grouped``) and start from
+them. A training forward (``training=True``) takes the differentiable
+plain paths on every device (the flash and RG-LRU kernels have no
+backward) and, with ``remat="full"``, recomputes each layer repeat in the
+backward pass (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` around its scan body). ``group=True`` runs K stacked
+parties of one config: the leaves carry a leading (K,) axis and so does
+x, each repeat is one ``torch.func.vmap`` over the group, and the
+checkpoint wraps the vmap (a checkpoint inside vmap fails in backward).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.func import vmap
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import griffin
@@ -119,14 +133,14 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
 
 def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
                 cos, sin, cache: Optional[dict], window_override: int = -1,
-                causal: bool = True):
+                causal: bool = True, training: bool = False):
     """Returns (x, new_cache, aux)."""
     if kind not in _KINDS:
         raise _unported(f"block kind {kind!r}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "lru":
         h, new_cache = griffin.recurrent_block(
-            p["rec"], apply_norm(p["ln1"], x, cfg.rms_eps), cache)
+            p["rec"], apply_norm(p["ln1"], x, cfg.rms_eps), cache, training)
         x = x + h
         x = x + mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.rms_eps), cfg.act)
         return x, new_cache, aux
@@ -136,7 +150,7 @@ def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
         p["attn"], apply_norm(p["ln1"], x, cfg.rms_eps),
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, causal=causal, window=window,
-        cos=cos, sin=sin, cache=cache)
+        cos=cos, sin=sin, cache=cache, training=training)
     x = x + h
     h = mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.rms_eps), cfg.act)
     return x + h, new_cache, aux
@@ -235,29 +249,68 @@ def _cos_sin(cfg: ModelConfig, positions: torch.Tensor):
     return rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
+REMAT_DOTS_TODO = ("remat='dots' (save the matmul outputs, recompute the "
+                   "rest) is not ported: ROADMAP.md queue 1 item A; use "
+                   "remat='full' or 'none'")
+
+
+def _remat(cfg: ModelConfig, training: bool) -> bool:
+    if not training or cfg.remat == "none":
+        return False
+    if cfg.remat == "full":
+        return True
+    if cfg.remat == "dots":
+        raise NotImplementedError(REMAT_DOTS_TODO)
+    raise ValueError(f"remat {cfg.remat!r}")
+
+
 def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
-                  window_override: int = -1):
+                  window_override: int = -1, training: bool = False,
+                  group: bool = False):
     """Every layer of every (pattern, reps) segment in order. Returns
-    (x, new_caches, aux)."""
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    (x, new_caches, aux); with ``group`` x, aux and the leaves carry the
+    party axis in front (no caches)."""
+    if caches is not None and (group or training):
+        raise ValueError("a grouped or training forward carries no caches")
+    remat = _remat(cfg, training)
+    aux_total = torch.zeros((x.shape[0],) if group else (),
+                            dtype=torch.float32, device=x.device)
     new_caches = []
     for si, (kinds, reps) in enumerate(stack_plan(cfg)):
         seg_params = params["segments"][si]
         seg_cache = caches[si] if caches is not None else None
-        per_rep = []
-        for r in range(reps):
-            new_c = {}
+
+        def rep(p_rep, x, c_rep=None, kinds=kinds):
+            """One repeat of the segment's pattern: (x, new_caches, aux)."""
+            aux, new_c = None, {}
             for i, kind in enumerate(kinds):
-                blk = tree_map(lambda a: a[r], seg_params[f"p{i}"])
-                blk_cache = (tree_map(lambda a: a[r], seg_cache[f"p{i}"])
-                             if seg_cache is not None else None)
+                blk_cache = c_rep[f"p{i}"] if c_rep is not None else None
                 x, nc, a = apply_block(
-                    blk, x, cfg=cfg, kind=kind, cos=cos, sin=sin,
-                    cache=blk_cache, window_override=window_override)
+                    p_rep[f"p{i}"], x, cfg=cfg, kind=kind, cos=cos, sin=sin,
+                    cache=blk_cache, window_override=window_override,
+                    training=training)
                 if nc is not None:
                     new_c[f"p{i}"] = nc
-                aux_total = aux_total + a
-            per_rep.append(new_c)
+                aux = a if aux is None else aux + a
+            return x, new_c, aux
+
+        if group:   # (x, aux) of every party at once
+            rep = vmap(lambda p_rep, x, rep=rep: rep(p_rep, x)[::2])
+        if remat:
+            rep = functools.partial(checkpoint, rep, use_reentrant=False,
+                                    preserve_rng_state=False)
+        per_rep = []
+        for r in range(reps):
+            take = (lambda a: a[:, r]) if group else (lambda a: a[r])
+            p_rep = tree_map(take, seg_params)
+            if seg_cache is not None:
+                x, new_c, a = rep(p_rep, x, tree_map(take, seg_cache))
+                per_rep.append(new_c)
+            elif group:
+                x, a = rep(p_rep, x)
+            else:
+                x, _, a = rep(p_rep, x)
+            aux_total = aux_total + a
         if seg_cache is not None:
             new_caches.append({
                 key: tree_map(lambda *xs: torch.stack(xs),
@@ -268,26 +321,28 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
     return x, (new_caches if caches is not None else None), aux_total
 
 
-def apply_lm(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-             positions: Optional[torch.Tensor] = None, caches=None,
-             pos_offset=0, window_override: int = -1,
-             return_hidden: bool = False, **frontend):
-    """Forward pass. tokens (B, S). Returns (logits | hidden, new_caches,
-    aux). Decode: pass ``caches`` (from init_cache or the previous step)
-    and ``pos_offset`` = the current sequence index (an int, a 0-d tensor
-    or a (B, 1) tensor of per-lane positions)."""
+def apply_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                 positions: Optional[torch.Tensor] = None, caches=None,
+                 pos_offset=0, window_override: int = -1,
+                 return_hidden: bool = False, training: bool = False,
+                 group: bool = False):
+    """The stack after the token embedding: x (B, S, d_model), or (K, B,
+    S, d_model) with ``group``. Returns (logits | hidden, new_caches,
+    aux); ``group`` returns the hidden states only."""
     _check_family(cfg)
-    if frontend:
-        raise _unported(f"frontend inputs {sorted(frontend)}")
-    B, S = tokens.shape
-    x = embed(params["embed"], tokens)
+    B, S = x.shape[-3:-1]
     if positions is None:
-        positions = torch.arange(S, device=tokens.device)[None] + pos_offset
+        positions = torch.arange(S, device=x.device)[None] + pos_offset
         positions = positions.expand(B, S)
     cos, sin = _cos_sin(cfg, positions)
     x, new_caches, aux = _run_segments(
         params, x, cfg=cfg, cos=cos, sin=sin, caches=caches,
-        window_override=window_override)
+        window_override=window_override, training=training, group=group)
+    if group:
+        if not return_hidden:
+            raise ValueError("a grouped forward returns the hidden states")
+        norm = vmap(lambda p, x: apply_norm(p, x, cfg.rms_eps))
+        return norm(params["final_norm"], x), None, aux
     x = apply_norm(params["final_norm"], x, cfg.rms_eps)
     if return_hidden:
         return x, new_caches, aux
@@ -296,3 +351,22 @@ def apply_lm(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     else:
         logits = linear(params["head"], x)
     return logits, new_caches, aux
+
+
+def apply_lm(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+             positions: Optional[torch.Tensor] = None, caches=None,
+             pos_offset=0, window_override: int = -1,
+             return_hidden: bool = False, training: bool = False,
+             **frontend):
+    """Forward pass. tokens (B, S). Returns (logits | hidden, new_caches,
+    aux). Decode: pass ``caches`` (from init_cache or the previous step)
+    and ``pos_offset`` = the current sequence index (an int, a 0-d tensor
+    or a (B, 1) tensor of per-lane positions)."""
+    _check_family(cfg)
+    if frontend:
+        raise _unported(f"frontend inputs {sorted(frontend)}")
+    return apply_hidden(params, embed(params["embed"], tokens), cfg,
+                        positions=positions, caches=caches,
+                        pos_offset=pos_offset,
+                        window_override=window_override,
+                        return_hidden=return_hidden, training=training)

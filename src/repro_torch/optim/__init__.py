@@ -12,9 +12,9 @@ Two layers:
 
 Arithmetic and dtype casts follow the reference step for step. Unlike the
 reference's pure functions, ``update(grads, state, params)`` updates the
-parameter and state tensors IN PLACE (under ``torch.no_grad()``) and
-returns the same trees, so a training step allocates no second copy of
-the model or of the optimizer state.
+parameter and state tensors IN PLACE (under ``torch.no_grad()``), leaf by
+leaf, and returns the same trees, so a training step allocates no second
+copy of the model or of the optimizer state (at most one leaf's worth).
 """
 from __future__ import annotations
 
@@ -47,9 +47,10 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), n
 
 
-def _assign(dst_tree, src_tree) -> None:
-    for d, s in zip(tree_leaves(dst_tree), tree_leaves(src_tree)):
-        d.copy_(s)
+def _assign(fn, dst_tree, *trees) -> None:
+    """dst <- fn(*leaves), leaf by leaf, in place."""
+    for d, *xs in zip(tree_leaves(dst_tree), *map(tree_leaves, trees)):
+        d.copy_(fn(*xs))
 
 
 def make_optimizer(name: str, lr: float, *, momentum: float = 0.9,
@@ -76,9 +77,8 @@ def make_optimizer(name: str, lr: float, *, momentum: float = 0.9,
         @torch.no_grad()
         def update(grads, state, params):
             grads = maybe_clip(grads)
-            _assign(params, tree_map(
-                lambda p, g: (p.float() - lr * apply_wd(g.float(), p)
-                              ).to(p.dtype), params, grads))
+            _assign(lambda p, g: (p.float() - lr * apply_wd(g.float(), p)
+                                  ).to(p.dtype), params, params, grads)
             return params, state
 
     elif name in ("momentum", "sgdm"):
@@ -88,12 +88,10 @@ def make_optimizer(name: str, lr: float, *, momentum: float = 0.9,
         @torch.no_grad()
         def update(grads, state, params):
             grads = maybe_clip(grads)
-            _assign(state["m"], tree_map(
-                lambda m, g: momentum * m + g.to(state_dtype),
-                state["m"], grads))
-            _assign(params, tree_map(
-                lambda p, mm: (p.float() - lr * apply_wd(mm, p)).to(p.dtype),
-                params, state["m"]))
+            _assign(lambda m, g: momentum * m + g.to(state_dtype),
+                    state["m"], state["m"], grads)
+            _assign(lambda p, mm: (p.float() - lr * apply_wd(mm, p)
+                                   ).to(p.dtype), params, params, state["m"])
             return params, state
 
     elif name == "adagrad":
@@ -103,13 +101,11 @@ def make_optimizer(name: str, lr: float, *, momentum: float = 0.9,
         @torch.no_grad()
         def update(grads, state, params):
             grads = maybe_clip(grads)
-            _assign(state["s"], tree_map(
-                lambda s, g: s + torch.square(g.to(state_dtype)),
-                state["s"], grads))
-            _assign(params, tree_map(
-                lambda p, g, ss: (p.float() - lr * apply_wd(g.float(), p)
-                                  / (torch.sqrt(ss) + eps)).to(p.dtype),
-                params, grads, state["s"]))
+            _assign(lambda s, g: s + torch.square(g.to(state_dtype)),
+                    state["s"], state["s"], grads)
+            _assign(lambda p, g, ss: (p.float() - lr * apply_wd(g.float(), p)
+                                      / (torch.sqrt(ss) + eps)).to(p.dtype),
+                    params, params, grads, state["s"])
             return params, state
 
     elif name == "adam":
@@ -124,12 +120,10 @@ def make_optimizer(name: str, lr: float, *, momentum: float = 0.9,
             grads = maybe_clip(grads)
             state["t"] += 1
             t = state["t"].float()
-            _assign(state["m"], tree_map(
-                lambda m, g: b1 * m + (1 - b1) * g.to(state_dtype),
-                state["m"], grads))
-            _assign(state["v"], tree_map(
-                lambda v, g: b2 * v + (1 - b2) * torch.square(
-                    g.to(state_dtype)), state["v"], grads))
+            _assign(lambda m, g: b1 * m + (1 - b1) * g.to(state_dtype),
+                    state["m"], state["m"], grads)
+            _assign(lambda v, g: b2 * v + (1 - b2) * torch.square(
+                g.to(state_dtype)), state["v"], state["v"], grads)
             bc1 = 1 - torch.pow(b1, t)
             bc2 = 1 - torch.pow(b2, t)
 
@@ -139,7 +133,7 @@ def make_optimizer(name: str, lr: float, *, momentum: float = 0.9,
                     step = step + lr * weight_decay * p.to(state_dtype)
                 return (p.float() - step).to(p.dtype)
 
-            _assign(params, tree_map(upd, params, state["m"], state["v"]))
+            _assign(upd, params, params, state["m"], state["v"])
             return params, state
 
     else:

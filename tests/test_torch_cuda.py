@@ -8,7 +8,9 @@ machine without it:
 
 Tolerances: float32 within 1e-5 (the kernel multiplies by 1/C, the plain
 version divides by C); bfloat16 within one bfloat16 ulp (2^-7 relative) of
-the float32 accumulation both round. The in-kernel-mask forward against
+the float32 accumulation both round (at the LM training shape's million
+outputs, plus the sum-order bound below: some sums there cancel to near
+zero, where one ulp is below the float32 rounding). The in-kernel-mask forward against
 its plain version (MaskEngine masks on the card through
 ``reference_blind_agg``): the masks agree bit for bit on the card (both
 evaluate the same float32 steps with the same CUDA log1pf and sqrtf), so
@@ -22,6 +24,8 @@ product) also within |out - exact| <= ulp_bf16(exact) + 2^-8 A(q, k, |v|)
 |v| in place of v (see ``_bf16_bound_used``). The RG-LRU
 recurrence against its plain version: within rtol 1e-6 / atol 1e-6 (both
 round a multiply, then an add, in float32: bit for bit is expected).
+EasterLM training steps against the CPU port: losses, gradients and
+updated params within rtol 1e-4 / atol 1e-5 (float32, TF32 off).
 """
 import numpy as np
 import pytest
@@ -182,6 +186,47 @@ def test_cuda_fwd_at_serving_shapes(cuda, N):
     tol = 2.0 ** -7 * np.abs(_f32(exact))
     assert (np.abs(_f32(out) - _f32(want)) <= tol).all()
     assert (np.abs(_f32(out) - _f32(exact)) <= tol).all()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_blind_agg_at_the_training_shape(cuda):
+    """The LM training step's aggregation through autograd: K = 3, N =
+    4 x 2048 tokens, d 128, bfloat16 embeddings, float32 masks that take
+    no gradient. The forward, the G the rule gives and the same bits
+    twice, within one bfloat16 ulp of the plain version and of the exact
+    float32 sum plus the float32 rounding the order of the sum over
+    parties moves (``_prng_tol``): among a million outputs some sums
+    cancel to near zero, where one ulp is below that rounding (these
+    inputs hold such sums). C = 4 is a power of two, so the backward's
+    g / C equals the plain version's bit for bit; one launch of each
+    kernel."""
+    ea, ep, mk = _agg_inputs(3, 8192, 128, torch.bfloat16, torch.float32,
+                             8192)
+    exact = ref.reference_blind_agg(ea.float(), ep.float(), mk)
+    g = torch.randn((8192, 128), generator=torch.Generator().manual_seed(19)
+                    ).to(torch.bfloat16)
+    ts = [t.to(cuda).requires_grad_(True) for t in (ea, ep)]
+    ps = [t.detach().clone().requires_grad_(True) for t in ts]
+    mk, g = mk.to(cuda), g.to(cuda)
+    tba.reset_launches()
+    out = tba.blind_agg(*ts, mk)
+    want = ref.reference_blind_agg(*ps, mk)
+    out.backward(g)
+    want.backward(g)
+    again = tba.blind_agg_fwd(*(t.detach() for t in ts), mk)
+    torch.cuda.synchronize()
+    assert tba.LAUNCHES["blind_agg_fwd"] == 2
+    assert tba.LAUNCHES["blind_agg_bwd"] == 1
+    assert tba.FWD_GROUPS == {tba.fwd_party_groups(8192 * 128, 3): 2}
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    ea, ep = ts[0].detach(), ts[1].detach()
+    assert ((out - want).float().abs()
+            <= _prng_tol(ea, ep, mk, want)).all()
+    assert ((out.float() - exact.to(cuda)).abs()
+            <= _prng_tol(ea, ep, mk, exact.to(cuda, torch.bfloat16))).all()
+    for a, b in zip(ts, ps):
+        assert a.grad.dtype == b.grad.dtype
+        assert torch.equal(a.grad.view(torch.uint8), b.grad.view(torch.uint8))
 
 
 @pytest.mark.requires_cuda
@@ -846,3 +891,86 @@ def test_cuda_griffin_easter_lm_matches_cpu(cuda, engine):
     assert out[1][2:] == (0, 0)
     torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# EasterLM training
+# ---------------------------------------------------------------------------
+
+
+def _train_step(sys_, params0, batch, opt_name="sgd"):
+    """One training step from ``params0`` (numpy, reference layout) with
+    the launch counters set to 0 just before it: (per-party losses, grads,
+    updated params, launches), all on the host."""
+    from repro_torch.core import train_loop
+    from repro_torch.optim import make_optimizer
+    params = sys_.load_params(params0)
+    tba.reset_launches()
+    tfa.reset_launches()
+    trg.reset_launches()
+    _, per, grads = train_loop.loss_and_grads(sys_, params, batch, 3,
+                                              sys_.mask_seeds())
+    opt = make_optimizer(opt_name, 0.01, grad_clip=1.0)
+    tree = {"parties": params["parties"]}
+    opt.update(grads, opt.init(tree), tree)
+    if sys_.device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {**tba.LAUNCHES, **tfa.LAUNCHES, **trg.LAUNCHES}
+    host = lambda t: [x.detach().cpu() for x in tree_leaves(t)]
+    return per.cpu(), host(grads), host(tree), launches
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("grad_mode", ["easter", "joint"])
+@pytest.mark.parametrize("engine", ["vectorized", "loop"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "recurrentgemma-9b"])
+def test_cuda_easter_lm_train_step_matches_cpu(cuda, arch, engine,
+                                               grad_mode):
+    """One sgd step of the smoke variant in float32 (TF32 off), card
+    against the CPU port: per-party losses, gradients and updated params
+    within rtol 1e-4 / atol 1e-5. The step launches one blind_agg_fwd,
+    blind_agg_bwd only in joint mode, and neither flash_attention_fwd nor
+    rglru_scan_fwd: the training forward takes the plain paths, since
+    those kernels have no backward."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.core.easter_lm import EasterLM
+    from repro_torch.data.synthetic import lm_batch_iterator
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_config(arch))
+    card = EasterLM(cfg, EasterConfig(), grad_mode=grad_mode, engine=engine)
+    cpu = EasterLM(cfg, EasterConfig(), grad_mode=grad_mode, engine=engine,
+                   device="cpu")
+    params0 = cpu.export_params(
+        cpu.init_params(torch.Generator().manual_seed(0)))
+    batch = next(lm_batch_iterator(cfg.vocab_size, 2, 40, seed=1))
+    got = _train_step(card, params0, batch)
+    want = _train_step(cpu, params0, batch)
+    assert got[3]["blind_agg_fwd"] == 1
+    assert got[3]["blind_agg_bwd"] == (grad_mode == "joint")
+    assert got[3]["flash_attention_fwd"] == got[3]["rglru_scan_fwd"] == 0
+    assert not any(want[3].values())
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+    for i in (1, 2):
+        for a, b in zip(got[i], want[i]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_chunked_lm_head_xent_matches_cpu(cuda):
+    """The chunked cross-entropy (checkpointed chunks) on the card against
+    the CPU: value and gradients within rtol 1e-4 / atol 1e-5 (TF32
+    off)."""
+    from repro_torch.core.losses import chunked_lm_head_xent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(2)
+    h = torch.randn((2, 64, 32), generator=gen)
+    w = torch.randn((32, 1000), generator=gen) * 0.1
+    y = torch.randint(0, 1000, (2, 64), generator=gen, dtype=torch.int32)
+    out = []
+    for dev in ("cuda", "cpu"):
+        hh = h.to(dev).requires_grad_(True)
+        ww = w.to(dev).requires_grad_(True)
+        v = chunked_lm_head_xent(hh, ww, y.to(dev), chunk=16)
+        out.append([t.cpu() for t in (v, *torch.autograd.grad(v, [hh, ww]))])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

@@ -376,8 +376,11 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="item 14"):
         TLM(tc, tcfg.EasterConfig(), engine="sharded", device="cpu")
     sys_ = TLM(tc, tcfg.EasterConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        sys_.loss_fn(None, None, 0, None)
+    params = sys_.init_params(torch.Generator().manual_seed(0))
+    tok = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        sys_.loss_fn(params, {"tokens": tok, "labels": tok,
+                              "audio_embed": tok}, 0, None)
 
 
 # ---------------------------------------------------------------------------
