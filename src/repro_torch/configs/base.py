@@ -4,8 +4,8 @@ the protocol and training configs.
 Own copy of the reference's ``repro.configs.base`` (``ModelConfig`` with
 its sub-configs, ``register``/``get_config``/``list_archs``,
 ``smoke_variant``, ``EasterConfig``, ``TrainConfig``). The port runs the
-dense and hybrid (RG-LRU) families; the MoE and SSM sub-configs are
-fields only (ROADMAP.md queue 1 item 13 brings the rest).
+dense, MoE, SSM (Mamba-2) and hybrid (RG-LRU) families; the
+encoder-decoder and vision families are ROADMAP.md queue 1 C.4-C.5.
 """
 from __future__ import annotations
 

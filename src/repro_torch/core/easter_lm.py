@@ -14,10 +14,13 @@ masks and aggregates through ``_aggregate``: the float wire goes through
 ``aggregation.blind_and_aggregate`` (the ``blind_agg_fwd`` kernel on the
 card), the int32/int8 ring wires through ``aggregation.aggregate_ring``.
 
-Parties are dense transformers or hybrid (RG-LRU + local attention,
-recurrentgemma) stacks (``models.transformer``); their caches hold K/V
-for attention layers and the conv history and float32 state for RG-LRU
-layers.
+Parties are dense transformers (gemma3's local:global layers included),
+MoE transformers, Mamba-2 SSD stacks or hybrid (RG-LRU + local
+attention, recurrentgemma) stacks (``models.transformer``); their caches
+hold K/V for attention layers and the conv history and float32 state for
+RG-LRU and SSD layers. An MoE party's load-balance losses reach
+``loss_fn``'s total on both engines; ``moe_dense_passive`` gives an MoE
+active dense passive proxies, as in the reference.
 
 Engines: ``engine="vectorized"`` (the default, as in the reference) runs
 the K structurally identical passive proxies as one ``torch.func.vmap``
@@ -67,7 +70,7 @@ from repro_torch.models import transformer
 from repro_torch.models.layers import (apply_norm, embed, embed_grouped,
                                        init_linear, init_mlp, init_norm,
                                        linear, mlp)
-from repro_torch.tree import tree_map
+from repro_torch.tree import empty_stack, stack_drawn, tree_map
 
 # the EasterLM federation's fixed ceremony seed, as in the reference
 CEREMONY_SEED = 1729
@@ -90,6 +93,23 @@ def passive_cfg(cfg: ModelConfig, easter: EasterConfig, k: int) -> ModelConfig:
                   * (cfg.moe.top_k + cfg.moe.n_shared_experts),
                   moe=MoEConfig())
     return dataclasses.replace(cfg, **kw)
+
+
+def _empty_passive_stack(party, K: int):
+    """Uninitialized (K, ...) leaves for the stacked passive group. A
+    backbone segment leaf, (reps, ...) in one party, lies reps-major: (reps,
+    K, ...) in memory, viewed as (K, reps, ...). One layer repeat of the
+    group, ``a[:, r]``, is then one contiguous (K, ...) block, which the
+    grouped layers' batched matmuls read as it is; party-major, an MoE
+    layer's (K, E, ...) expert weights would be copied to merge K and E
+    into one batch axis, in every round."""
+    rest = {k: v for k, v in party.items() if k != "backbone"}
+    bb = {k: v for k, v in party["backbone"].items() if k != "segments"}
+    out = empty_stack(rest, K)
+    out["backbone"] = {**empty_stack(bb, K), "segments": tree_map(
+        lambda a: a.new_empty((a.shape[0], K) + tuple(a.shape[1:]))
+        .transpose(0, 1), party["backbone"]["segments"])}
+    return out
 
 
 @dataclass
@@ -159,18 +179,30 @@ class EasterLM:
             "head": init_linear(gen, d_e, pcfg.vocab_size, False, dtype),
         }
 
+    @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> Dict[str, Any]:
         """{"parties": [active, passive 1..K]} drawn from ``gen`` on its
         own device (a CUDA generator draws a large model on the card), on
-        ``self.device``, grouped (``group_params``). Weights drawn from a
-        torch generator differ from the reference's jax.random ones; tests
-        hand the reference's weights over with ``load_params``."""
-        parties = []
-        for pcfg in self.party_cfgs:
-            party = self.init_party(gen, pcfg)
-            parties.append(tree_map(
-                lambda t: t.to(self.device), party))
-        return self.group_params({"parties": parties})
+        ``self.device``, grouped as ``group_params`` groups them. On the
+        vectorized engine each passive party is drawn straight into its
+        row of ``passive_stacked`` and dropped, so the draw holds one copy
+        of the weights (and one party's beside it), with the same bits as
+        stacking the drawn parties. Weights drawn from a torch generator
+        differ from the reference's jax.random ones; tests hand the
+        reference's weights over with ``load_params``."""
+        def draw(pcfg):
+            return tree_map(lambda t: t.to(self.device),
+                            self.init_party(gen, pcfg))
+
+        active = draw(self.party_cfgs[0])
+        if not self._passive_group_ok():
+            return {"parties": [active] + [draw(c)
+                                           for c in self.party_cfgs[1:]]}
+        K = self.easter.num_passive
+        stacked = stack_drawn(lambda k: draw(self.party_cfgs[1 + k]), K,
+                              _empty_passive_stack)
+        return {"parties": [active] + unstack_tree(stacked, K),
+                "passive_stacked": stacked}
 
     def load_params(self, trees) -> Dict[str, Any]:
         """The reference's ``init_params`` tree as numpy arrays (bfloat16
@@ -188,12 +220,14 @@ class EasterLM:
     @torch.no_grad()
     def group_params(self, params) -> Dict[str, Any]:
         """Stack the passive group once (vectorized engine) into
-        ``params["passive_stacked"]``, which the grouped steps read as it
-        is; the returned passive parties are row views of it. Other
-        engines: unchanged."""
+        ``params["passive_stacked"]`` (``_empty_passive_stack``'s layout),
+        which the grouped steps read as it is; the returned passive
+        parties are row views of it. Other engines: unchanged."""
         if not self._passive_group_ok():
             return params
-        stacked = stack_trees(params["parties"][1:])
+        parties = params["parties"]
+        stacked = stack_drawn(lambda k: parties[1 + k], len(parties) - 1,
+                              _empty_passive_stack)
         return {**params, "passive_stacked": stacked,
                 "parties": [params["parties"][0]]
                 + unstack_tree(stacked, self.easter.num_passive)}

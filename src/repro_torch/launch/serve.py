@@ -43,7 +43,7 @@ def _sync(device) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--arch", default="gemma3-4b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4,
                     help="decode lanes (R concurrent requests per round)")

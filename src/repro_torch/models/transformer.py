@@ -1,4 +1,5 @@
-"""Decoder-only transformer stacks of the dense and hybrid families.
+"""Decoder-only transformer stacks of the dense, MoE, SSM and hybrid
+families.
 
 Counterpart of ``repro.models.transformer``. The layer stack keeps the
 reference's (pattern, repeats) *segments* and its stacked parameter
@@ -8,15 +9,19 @@ Where the reference scans a segment with ``lax.scan``, the port loops over
 the reps in Python, indexing each stacked leaf (a view, no copy).
 
   dense (no SWA):     [(("attn",), n_layers)]
-  gemma3-like (l:g):  [(("local",)*l + ("global",)*g, reps), (rem, 1)]
+  gemma3 (5:1):       [(("local",)*5 + ("global",), reps), (("local",)*rem, 1)]
+  moe:                [(("moe",), n_layers)]
+  ssm:                [(("ssm",), n_layers)]
   hybrid (1:2):       [(("lru","lru","attn"), reps), (rem_pattern, 1)]
 
 Caches mirror the segment structure: per segment, per pattern position,
-a stacked (reps, B, ...) tree: K/V caches for attention, {"conv" (reps,
-B, 3, W), "state" (reps, B, W)} for an RG-LRU block
-(``models.griffin``). The MoE, SSM, cross-attention, encoder-decoder and
-vision families raise ``NotImplementedError`` (ROADMAP.md queue 1 item
-13).
+a stacked (reps, B, ...) tree: K/V caches for attention (the local
+layers' a ring of ``window`` slots), {"conv" (reps, B, 3, W), "state"
+(reps, B, W)} for an RG-LRU block (``models.griffin``), {"conv" (reps, B,
+W-1, conv_dim), "state" (reps, B, H, P, N)} for a Mamba-2 block
+(``models.ssm``). An MoE block is attention then ``moe.moe_ffn``, whose
+load-balance loss is the block's aux. The encoder-decoder and vision
+families raise ``NotImplementedError`` (ROADMAP.md queue 1 C.4-C.5).
 
 ``apply_lm`` is ``embed`` then ``apply_hidden``, so a grouped caller can
 gather the embeddings itself (``layers.embed_grouped``) and start from
@@ -39,20 +44,20 @@ from torch.func import vmap
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import griffin
+from repro_torch.models import griffin, moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_norm, embed, init_attention, init_embedding, init_linear, init_mlp,
     init_norm, linear, mlp, rope_cos_sin, self_attention,
 )
-from repro_torch.tree import tree_map
+from repro_torch.tree import stack_drawn, tree_map
 
 Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 _DENSE_KINDS = ("attn", "local", "global")
-_KINDS = _DENSE_KINDS + ("lru",)
-_FAMILIES = ("dense", "hybrid")
+_KINDS = _DENSE_KINDS + ("lru", "moe", "ssm")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -61,9 +66,9 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def _unported(what: str):
     return NotImplementedError(
-        f"{what}: only the dense and hybrid (RG-LRU) families are ported; "
-        f"the MoE, SSM, cross-attention, encoder-decoder and vision parties "
-        f"are ROADMAP.md queue 1 item 13")
+        f"{what}: the dense, MoE, SSM and hybrid families are ported; the "
+        f"encoder-decoder (whisper) and vision (qwen2-vl) parties are "
+        f"ROADMAP.md queue 1 C.4-C.5")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -117,18 +122,24 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
     dtype = torch_dtype(cfg.dtype)
     d = cfg.d_model
     dev = gen.device
+    if kind == "ssm":
+        return {"ln1": init_norm(cfg.norm, d, dtype, dev),
+                "ssm": ssm_mod.init_ssm(gen, d, cfg.ssm, dtype)}
     if kind == "lru":
         w = cfg.hybrid.lru_width or d
         return {"ln1": init_norm(cfg.norm, d, dtype, dev),
                 "rec": griffin.init_rglru(gen, d, w, dtype),
                 "ln2": init_norm(cfg.norm, d, dtype, dev),
                 "mlp": init_mlp(gen, d, cfg.d_ff, cfg.act, dtype)}
-    return {"ln1": init_norm(cfg.norm, d, dtype, dev),
-            "attn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                   cfg.resolved_head_dim, cfg.qkv_bias,
-                                   dtype),
-            "ln2": init_norm(cfg.norm, d, dtype, dev),
-            "mlp": init_mlp(gen, d, cfg.d_ff, cfg.act, dtype)}
+    p = {"ln1": init_norm(cfg.norm, d, dtype, dev),
+         "attn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.resolved_head_dim, cfg.qkv_bias, dtype),
+         "ln2": init_norm(cfg.norm, d, dtype, dev)}
+    if kind == "moe":
+        p["moe"] = moe_mod.init_moe(gen, d, cfg.moe, cfg.act, dtype)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.act, dtype)
+    return p
 
 
 def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
@@ -138,6 +149,11 @@ def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
     if kind not in _KINDS:
         raise _unported(f"block kind {kind!r}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "ssm":
+        h, new_cache = ssm_mod.ssm_block(
+            p["ssm"], apply_norm(p["ln1"], x, cfg.rms_eps), cfg.ssm, cache,
+            cfg.rms_eps)
+        return x + h, new_cache, aux
     if kind == "lru":
         h, new_cache = griffin.recurrent_block(
             p["rec"], apply_norm(p["ln1"], x, cfg.rms_eps), cache, training)
@@ -152,7 +168,12 @@ def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
         head_dim=cfg.resolved_head_dim, causal=causal, window=window,
         cos=cos, sin=sin, cache=cache, training=training)
     x = x + h
-    h = mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.rms_eps), cfg.act)
+    if kind == "moe":
+        h, aux = moe_mod.moe_ffn(p["moe"], apply_norm(p["ln2"], x,
+                                                      cfg.rms_eps),
+                                 cfg.moe, cfg.act)
+    else:
+        h = mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.rms_eps), cfg.act)
     return x + h, new_cache, aux
 
 
@@ -167,6 +188,9 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
     if kind not in _KINDS:
         raise _unported(f"block kind {kind!r}")
     dtype = torch_dtype(cfg.dtype)
+    if kind == "ssm":
+        return ssm_mod.init_ssm_cache(batch, cfg.d_model, cfg.ssm, dtype,
+                                      device)
     if kind == "lru":
         return griffin.init_rglru_cache(
             batch, cfg.hybrid.lru_width or cfg.d_model, dtype, device)
@@ -219,7 +243,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Backbone parameters on the generator's device, in the reference's
-    layout (segment leaves stacked over the reps axis)."""
+    layout (segment leaves stacked over the reps axis, each block drawn
+    into its row: one copy of the weights and one block's beside it)."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
     params: Params = {
@@ -231,12 +256,10 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
                                      dtype)
     segs = []
     for kinds, reps in stack_plan(cfg):
-        seg = {}
-        for i, kind in enumerate(kinds):
-            blocks = [init_block(gen, cfg, kind) for _ in range(reps)]
-            seg[f"p{i}"] = tree_map(lambda *xs: torch.stack(xs), *blocks)
-            del blocks
-        segs.append(seg)
+        # each block drawn straight into its row of the (reps, ...) leaves
+        segs.append({f"p{i}": stack_drawn(
+            lambda _, kind=kind: init_block(gen, cfg, kind), reps)
+            for i, kind in enumerate(kinds)})
     params["segments"] = segs
     return params
 

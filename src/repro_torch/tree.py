@@ -26,6 +26,29 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def empty_stack(tree, n: int):
+    """Uninitialized (n, ...) leaves shaped like ``tree``'s."""
+    return tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), tree)
+
+
+def stack_drawn(draw: Callable[[int], Any], n: int,
+                empty: Callable[[Any, int], Any] = empty_stack):
+    """The trees ``draw(0), ..., draw(n - 1)``, drawn in that order,
+    stacked along a new leading axis: each is copied into its row of
+    preallocated leaves (``empty(first tree, n)``, (n, ...) each) and
+    dropped before the next is drawn, so at most one drawn tree lives
+    beside the stack (``torch.stack`` over a list of them holds every
+    tree and the stack at once)."""
+    out = None
+    for i in range(n):
+        tree = draw(i)
+        if out is None:
+            out = empty(tree, n)
+        tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+        del tree
+    return out
+
+
 def tree_unflatten(like, leaves):
     """A tree shaped like ``like`` from ``leaves`` in ``tree_leaves``
     order."""

@@ -25,7 +25,13 @@ product) also within |out - exact| <= ulp_bf16(exact) + 2^-8 A(q, k, |v|)
 recurrence against its plain version: within rtol 1e-6 / atol 1e-6 (both
 round a multiply, then an add, in float32: bit for bit is expected).
 EasterLM training steps against the CPU port: losses, gradients and
-updated params within rtol 1e-4 / atol 1e-5 (float32, TF32 off).
+updated params within rtol 1e-4 / atol 1e-5 (float32, TF32 off). The MoE
+and SSM parties (plain torch ops, no kernel of their own): the MoE layer
+at qwen2-moe-a2.7b's width run twice gives the same bits; the SSD mixer at
+mamba2-2.7b's width over a 2047-token prompt against the CPU within rtol
+1e-4 / atol 1e-5 x max|out| (float32, TF32 off: matmuls of 2,560 and
+5,120 terms summed in another order); the smoke variants' EasterLM
+prefill and decode round within rtol 1e-4 / atol 1e-5, as Griffin's.
 """
 import numpy as np
 import pytest
@@ -891,6 +897,114 @@ def test_cuda_griffin_easter_lm_matches_cpu(cuda, engine):
     assert out[1][2:] == (0, 0)
     torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("engine", ["vectorized", "loop"])
+@pytest.mark.parametrize("arch,n_layers", [
+    ("qwen2-moe-a2.7b", None), ("mamba2-2.7b", None), ("gemma3-4b", 7)])
+def test_cuda_moe_ssm_gemma3_easter_lm_match_cpu(cuda, arch, n_layers,
+                                                 engine):
+    """The smoke variants of the MoE and SSM families and a 7-layer
+    gemma3-4b cut (a (local x5, global) period): prefill of a 40-token
+    prompt (past gemma3's window of 32; the SSD's padded chunk) and one
+    decode round, card against the CPU port (float32, TF32 off), within
+    rtol 1e-4 / atol 1e-5. Every attention layer's prefill launches
+    flash_attention_fwd (once for the passive group on the vectorized
+    engine); the SSM stack launches none."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.core.easter_lm import EasterLM
+    from repro_torch.models import transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_config(arch))
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    card = EasterLM(cfg, EasterConfig(), engine=engine)
+    cpu = EasterLM(cfg, EasterConfig(), engine=engine, device="cpu")
+    params0 = cpu.export_params(
+        cpu.init_params(torch.Generator().manual_seed(0)))
+    tok = torch.randint(0, cfg.vocab_size, (2, 41),
+                        generator=torch.Generator().manual_seed(1))
+    out = []
+    for sys_ in (card, cpu):
+        params = sys_.load_params(params0)
+        seeds = sys_.mask_seeds()
+        tfa.reset_launches()
+        t = tok.to(sys_.device)
+        E, caches = sys_.prefill(params, t[:, :-1],
+                                 sys_.init_caches(2, 48, per_lane=True),
+                                 seeds=seeds, round_idx=3)
+        logits, _ = sys_.serve_step(
+            params, t[:, -1:], caches, torch.tensor([40, 40]), seeds,
+            lane_mask=torch.tensor([True, False], device=sys_.device),
+            nonces=torch.tensor([1, 2]))
+        out.append((E.cpu(), logits.cpu(),
+                    tfa.LAUNCHES["flash_attention_fwd"]))
+    attn = lambda c: sum(k != "ssm" for ks, r in transformer.stack_plan(c)
+                         for k in ks * r)
+    K = card.easter.num_passive
+    per = 1 if engine == "vectorized" else K
+    assert out[0][2] == attn(card.party_cfgs[0]) + per * attn(
+        card.party_cfgs[1])
+    assert out[1][2] == 0
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_moe_layer_gives_the_same_bits_twice(cuda):
+    """qwen2-moe-a2.7b's MoE layer at full width (60 experts top-4, 4
+    shared, d 2048, bfloat16) over a 2047-token prefill, a 4-lane decode
+    round and a vmap over 3 parties: two calls, the same bits (the
+    dispatch writes each slot once and the combine adds in k order)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.party_engine import stack_trees
+    from repro_torch.models import moe
+    cfg = get_config("qwen2-moe-a2.7b")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    p = moe.init_moe(gen, cfg.d_model, cfg.moe, cfg.act, torch.bfloat16)
+    group = [moe.init_moe(gen, cfg.d_model, cfg.moe, cfg.act,
+                          torch.bfloat16) for _ in range(3)]
+    stacked = stack_trees(group)
+    run = lambda p, x: moe.moe_ffn(p, x, cfg.moe, cfg.act)
+    for shape in ((1, 2047), (4, 1)):
+        x = torch.randn(shape + (cfg.d_model,), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        a, b = run(p, x), run(p, x)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert bool(torch.isfinite(a[0]).all())
+    x = torch.randn((3, 1, 511, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        a = torch.func.vmap(run)(stacked, x)
+        b = torch.func.vmap(run)(stacked, x)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ssd_prefill_of_2047_tokens_matches_cpu(cuda):
+    """mamba2-2.7b's mixer (d_model 2560, 80 heads of 64, d_state 128,
+    chunk 256) over a 2047-token prompt in float32 (TF32 off), padded to
+    8 chunks of 256: outputs, conv cache and state against the CPU."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ssm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("mamba2-2.7b")
+    gen = torch.Generator().manual_seed(6)
+    p = ssm.init_ssm(gen, cfg.d_model, cfg.ssm, torch.float32)
+    x = torch.randn((1, 2047, cfg.d_model), generator=gen)
+    out = []
+    for dev in ("cuda", "cpu"):
+        pp = {k: ({n: t.to(dev) for n, t in v.items()}
+                  if isinstance(v, dict) else v.to(dev))
+              for k, v in p.items()}
+        with torch.no_grad():
+            y, c = ssm.ssm_block(pp, x.to(dev), cfg.ssm)
+        out.append([t.cpu() for t in (y, c["conv"], c["state"])])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
 
 
 # ---------------------------------------------------------------------------

@@ -311,7 +311,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.checkpoint, repro_torch.data, repro_torch.kernels.ops, "
             "repro_torch.core.easter_lm, repro_torch.core.serving, "
             "repro_torch.launch.serve, repro_torch.models.build, "
-            "repro_torch.models.griffin, repro_torch.kernels.rg_lru; "
+            "repro_torch.models.griffin, repro_torch.kernels.rg_lru, "
+            "repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.launch.train; "
+            "from repro_torch.configs.base import list_archs; list_archs(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))

@@ -322,12 +322,14 @@ def test_serving_engine_open_loop_and_no_exit():
 
 
 def test_launch_serve_runs_on_the_cpu(capsys):
-    tlaunch.main(["--smoke", "--requests", "3", "--prompt-len", "6",
-                  "--gen", "3", "--device", "cpu"])
+    qwen = ["--arch", "qwen2.5-3b"]
+    tlaunch.main(qwen + ["--smoke", "--requests", "3", "--prompt-len", "6",
+                         "--gen", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "served 3 requests" in out and "tok/s" in out
-    tlaunch.main(["--smoke", "--batch", "2", "--prompt-len", "4", "--gen",
-                  "2", "--device", "cpu", "--step-loop", "--engine", "loop"])
+    tlaunch.main(qwen + ["--smoke", "--batch", "2", "--prompt-len", "4",
+                         "--gen", "2", "--device", "cpu", "--step-loop",
+                         "--engine", "loop"])
     assert "[step loop]" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="item 14"):
         tlaunch.main(["--smoke", "--engine", "sharded", "--device", "cpu"])
