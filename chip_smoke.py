@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase prng --save OUT.pt    # or --compare OUT.pt
     python3 chip_smoke.py --phase train
     python3 chip_smoke.py --phase moe        # or mamba, or cuts
+    python3 chip_smoke.py --phase whisper    # or vlm, or frontend_cuts
 
 Phases, each printing its own lines:
 
@@ -84,8 +85,12 @@ Phases, each printing its own lines:
           16/16/128 causal (qwen2-moe-a2.7b), in float32 and bfloat16 (bfloat16
           also within the kernel's bound |out - exact| <= ulp_bf16(exact)
           + 2^-8 A(q, k, |v|) + 1e-5 of float32 attention on the same
-          inputs, the share of it used printed), and one vmap over 3
-          parties (one launch).
+          inputs, the share of it used printed), the frontend families'
+          shapes under the same checks (whisper-small's 12/12/64
+          non-causal at (1 | 4 | 12, 1500) and its cross-attention at (4 |
+          12, 3 | 1) against T = 1500; qwen2-vl-7b's 28/4/128 causal, a
+          GQA group of 7, at (1 | 4 | 12, 2047 | 1279)), and one vmap over
+          3 parties (one launch).
   lm      EasterLM on qwen2.5-3b at full width and depth (36 layers, three
           9-layer passive proxies, 6.2e9 parameters, bfloat16, random from
           a torch.Generator seeded 0 on the card): a 4-lane ServingEngine
@@ -133,9 +138,13 @@ Phases, each printing its own lines:
           whose output alone is bit-identical to it) at (1 | 3, 1023 | 2047,
           16/2, 128) bfloat16 causal and at (1 | 3, 2047) at 16/1/256
           window 2048, 8/4/256 window 1024 (SDPA given the window's band
-          as a boolean mask) and 16/16/128, with the bound of the
-          attended pairs' flops at the bf16 tensor-core peak, the achieved TFLOP/s and the
-          bound's share of the kernel's time; (rglru) the kernel and its
+          as a boolean mask) and 16/16/128, whisper-small's (4 | 12, 1500
+          | 3 | 1, 12/12, 64) non-causal over T = 1500 and qwen2-vl-7b's
+          (4 | 12, 2047) and (1 | 3, 1279) at 28/4/128 causal, with the
+          bound: the larger of the attended pairs' flops at the bf16
+          tensor-core peak and the bytes of q, k, v and out at the HBM
+          rate (the cross-attention shapes are bound by bytes), the
+          achieved TFLOP/s and the bound's share of the kernel's time; (rglru) the kernel and its
           plain version at (1 | 3, 2047, 4096) float32 beside the bytes
           bound, its output checked bit for bit against the plain one.
   train   EasterLM training on qwen2-1.5b at full width and depth (28
@@ -154,9 +163,11 @@ Phases, each printing its own lines:
           must launch blind_agg_bwd once. Then one sgd step card vs CPU
           port in float32 (TF32 off), losses, gradients and updated params
           within rtol 1e-4 / atol 1e-5, for qwen2-1.5b cut to 4 active
-          layers (passive 2) at batch 2 x 128 and for the
-          recurrentgemma-9b smoke variant, each launching one
-          blind_agg_fwd and no prompt kernel. Last, reported and not
+          layers (passive 2) at batch 2 x 128, for the
+          recurrentgemma-9b smoke variant, and for the whisper-small and
+          qwen2-vl-7b smoke variants with audio_embed / vision_embed in
+          the batch, each launching one blind_agg_fwd and no prompt
+          kernel. Last, reported and not
           asserted: whether a chunk of 2 adam steps equals the step loop
           bit for bit on the card, and one step's gradients computed
           twice, with the parameter leaves that differ.
@@ -190,12 +201,38 @@ Phases, each printing its own lines:
   mamba_cut  mamba2-2.7b cut to 4 active layers (2 per proxy), float32,
           against the CPU port, with a 300-token prompt (a 299-token
           prefill: one full chunk of 256 and one padded).
+  whisper EasterLM on whisper-small at full width and depth (12 encoder
+          and 12 decoder layers, d_model 768, MHA 12/12 x 64, gelu, layer
+          norm, QKV bias; three proxies of 12 encoder and 3 decoder
+          layers; 0.70e9 parameters, bfloat16): 4 transcriptions of 30 s
+          of audio ((4, 1500, 768) frame embeddings from the card's
+          generator, a 4-token start prompt): encoder_kv once, a prefill,
+          serve_tokens for 224 greedy tokens; encoder_kv, prefill and
+          per-round ms, tokens/s, peak memory, profiler windows; asserted
+          24 flash_attention_fwd launches in encoder_kv, 30 a prefill (12
+          + 3 self, 12 + 3 cross), 15 a decode round, one blind_agg_fwd a
+          round; the copy window also fails on a copy the size of one
+          layer's passive cross K (the group's K/V is read in place).
+  whisper_cut, vlm_cut  whisper-small cut to 2 encoder and 2 decoder
+          layers over the full 1500 frames, and qwen2-vl-7b cut to 2
+          layers with a 1,100-token prompt carrying its 1024 patches,
+          float32 against the CPU port as rg_cut.
+  vlm     EasterLM on qwen2-vl-7b at full width and depth (28 layers,
+          d_model 3584, GQA 28/4 x 128, d_ff 18944, QKV bias, vocab
+          152,064; three 7-layer proxies; 13.6e9 parameters, bfloat16): 4
+          lanes of 2048-token prompts whose first 1024 positions are an
+          image's patch embeddings, then one 1280-token request, 32 greedy
+          tokens each; asserted 28 + 7 flash_attention_fwd launches a
+          prefill, none a round, one blind_agg_fwd a round, and that other
+          patches move the prefill's first 1024 embeddings (the insert).
 
 --phase runs one timing phase alone after the build, for comparing two
 checkouts in turns (the other checkout's tree given this script):
 engines, many, rg (the recurrentgemma-9b serving run), moe and mamba (the
-qwen2-moe-a2.7b and mamba2-2.7b serving runs), cuts (gemma_cut, moe_cut
-and mamba_cut), train (the train phase), agg (the
+qwen2-moe-a2.7b and mamba2-2.7b serving runs), whisper and vlm (the
+whisper-small and qwen2-vl-7b serving runs), frontend_cuts (whisper_cut
+and vlm_cut), cuts (gemma_cut, moe_cut, mamba_cut, whisper_cut and
+vlm_cut), train (the train phase), agg (the
 blind_agg_fwd / blind_agg_bwd timing and the launch floor; --save and
 --compare as for prng, the backward's outputs required to be bit for bit
 the other checkout's), flash, rglru (the rglru timing) or prng (the prng
@@ -205,7 +242,8 @@ another checkout's file with --compare, then the prng timing).
 The launch counters are set to 0 just before each counted path (slice,
 joint, many-party fused, many-party joint, many-party unfused, qwen2.5-3b
 serving, recurrentgemma-9b serving, qwen2-1.5b training, its joint step,
-qwen2-moe-a2.7b serving, mamba2-2.7b serving) and read just after; every kernel
+qwen2-moe-a2.7b serving, mamba2-2.7b serving, whisper-small serving,
+qwen2-vl-7b serving) and read just after; every kernel
 must have launched on some path, and blind_agg_fwd's launches are printed
 by party-group count G, path by path. The second-to-last line is the JSON
 kernel record; the last line is {"ok": true, "device": {...}}. Any failed
@@ -311,12 +349,46 @@ FLASH_MODELS = (("", FLASH_PREFILL_HEADS, 0), ("rg ", RG_FLASH_HEADS,
                                                RG_WINDOW),
                 ("gemma ", GEMMA_FLASH_HEADS, GEMMA_WINDOW),
                 ("moe ", MOE_FLASH_HEADS, 0))
-# flash_attention_fwd's timing shapes: (label, B, S, heads, window), the
-# active party's (B = 1) and the folded passive group's (B = 3) prefills
-FLASH_TIMING = tuple(("", B, S, FLASH_PREFILL_HEADS, 0) for B in (1, 3)
-                     for S in (1023, 2047)) + tuple(
-    (label, B, 2047, heads, window) for label, heads, window
-    in FLASH_MODELS[1:] for B in (1, 3))
+# the frontend families, served at full width and depth in bfloat16:
+# whisper-small (encoder-decoder: 12 encoder and 12 decoder layers, MHA
+# 12/12 x 64; three proxies of 12 encoder and 3 decoder layers), 4
+# transcriptions of 30 s of audio (1500 frame embeddings each) with a
+# 4-token start prompt and 224 greedy tokens (half its 448-token text
+# context); qwen2-vl-7b (28 layers, GQA 28/4 x 128; three 7-layer
+# proxies), 4 lanes of 2048-token prompts whose first 1024 positions are
+# an image's patch embeddings, then one request of 1280 tokens, 32 greedy
+# tokens each. Their float32 depth cuts against the CPU port: whisper at
+# 2 encoder and 2 decoder layers over the full 1500 frames, qwen2-vl at 2
+# layers with a 1,100-token prompt (its 1024 patches inserted)
+WHISPER_ARCH, VLM_ARCH = "whisper-small", "qwen2-vl-7b"
+WHISPER_LANES, WHISPER_PROMPT, WHISPER_NEW = 4, 4, 224
+VLM_LANES, VLM_PROMPTS, VLM_NEW = 4, (2048, 1280), 32
+WHISPER_CUT_LAYERS, VLM_CUT_LAYERS = 2, 2
+VLM_CUT_BATCH, VLM_CUT_PROMPT = 1, 1100
+WHISPER_FLASH_HEADS, VLM_FLASH_HEADS = (12, 12, 64), (28, 4, 128)
+FRAMES = 1500
+# their attention shapes, (B, S, T, heads, causal): the whisper encoders'
+# non-causal self-attention over 1500 frames (the active party's 4 lanes,
+# the passive group's 12 folded; B = 1 for one request), the decoder's
+# cross-attention against 1500 keys at the 3-token prefill and the 1-token
+# decode round, and qwen2-vl's causal 28/4 prefills of 2047 and 1279
+FLASH_FRONTEND = tuple(
+    (B, FRAMES, FRAMES, WHISPER_FLASH_HEADS, False) for B in (1, 4, 12)) \
+    + tuple((B, S, FRAMES, WHISPER_FLASH_HEADS, False) for B in (4, 12)
+            for S in (WHISPER_PROMPT - 1, 1)) \
+    + tuple((B, S, S, VLM_FLASH_HEADS, True) for B in (1, 4, 12)
+            for S in (VLM_PROMPTS[0] - 1, VLM_PROMPTS[1] - 1))
+# flash_attention_fwd's timing shapes: (label, B, S, heads, window, T,
+# causal), the active party's (B = 1) and the folded passive group's (B =
+# 3) prefills, then the shapes the frontend families' counted paths launch
+FLASH_TIMING = tuple(("", B, S, FLASH_PREFILL_HEADS, 0, S, True)
+                     for B in (1, 3) for S in (1023, 2047)) + tuple(
+    (label, B, 2047, heads, window, 2047, True) for label, heads, window
+    in FLASH_MODELS[1:] for B in (1, 3)) + tuple(
+    ("whisper ", B, S, WHISPER_FLASH_HEADS, 0, FRAMES, False)
+    for B in (4, 12) for S in (FRAMES, WHISPER_PROMPT - 1, 1)) + tuple(
+    ("vlm ", B, S, VLM_FLASH_HEADS, 0, S, True)
+    for B, S in ((4, 2047), (12, 2047), (1, 1279), (3, 1279)))
 # rglru_scan_fwd against its plain version: the reference sweep
 # (tests/test_kernels.py), ragged L and W, and the serving path's prefill
 # shapes (B = 1, and 3 for the folded passive group) at width 4096
@@ -1419,12 +1491,14 @@ def _flash_case(B, S, T, Hq, Hkv, hd, causal, window, dtype, gen):
 
 
 def _flash_prefill_case(B, S, dtype, gen, heads=FLASH_PREFILL_HEADS,
-                        window=0):
-    """One of the serving paths' prefill shapes, causal, at qwen2.5-3b's
-    heads (16/2/128) or recurrentgemma-9b's (16/1/256 with its window of
-    2048): (max abs error against the plain version in the same dtype, the
-    share of the bfloat16 kernel's bound (``flash_bound_used``) used
-    against float32 attention on the same inputs, within tolerance).
+                        window=0, T=None, causal=True):
+    """One of the serving paths' attention shapes, by default a causal
+    prefill (T = S) at qwen2.5-3b's heads (16/2/128) or another model's
+    (recurrentgemma-9b's 16/1/256 with its window of 2048, ...), or
+    non-causal with T keys (whisper's encoder and cross-attention): (max
+    abs error against the plain version in the same dtype, the share of
+    the bfloat16 kernel's bound (``flash_bound_used``) used against
+    float32 attention on the same inputs, within tolerance).
 
     bfloat16 is held to that bound as well as the sweep's tolerance: at
     S = 1023 a row's output is only ~0.05, so the sweep's atol 3e-2 would
@@ -1435,14 +1509,15 @@ def _flash_prefill_case(B, S, dtype, gen, heads=FLASH_PREFILL_HEADS,
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ref
     Hq, Hkv, hd = heads
+    T = S if T is None else T
     q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
-    out = tfa.flash_attention_fwd(q, k, v, causal=True,
+    k = torch.randn((B, T, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, T, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    out = tfa.flash_attention_fwd(q, k, v, causal=causal,
                                   window=window).float()
-    want = ref.reference_attention(q, k, v, causal=True,
+    want = ref.reference_attention(q, k, v, causal=causal,
                                    window=window).float()
-    used = flash_bound_used(out, q, k, v, True, window)
+    used = flash_bound_used(out, q, k, v, causal, window)
     torch.cuda.synchronize()
     err = (out - want).abs()
     if dtype == torch.float32:
@@ -1500,6 +1575,23 @@ def phase_flash():
                 if not ok:
                     failed.append(((B, S, S, *heads, True, window, dt),
                                    (err, used)))
+    # the frontend families' shapes: whisper's non-causal encoder over
+    # 1500 frames and its cross-attention (S = 3 and 1 against T = 1500),
+    # qwen2-vl's causal prefills at 28/4 heads (a GQA group of 7)
+    for B, S, T, heads, causal in FLASH_FRONTEND:
+        for dt in (f32, bf16):
+            err, used, ok = _flash_prefill_case(B, S, dt, gen, heads, 0, T,
+                                                causal)
+            worst[dt] = max(worst[dt], err)
+            log("flash", f"frontend shape ({B}, {S}, "
+                         f"{'/'.join(map(str, heads))}) against T = {T}, "
+                         f"{'causal' if causal else 'non-causal'} "
+                         f"{str(dt)[6:]}: max abs err {err:.3g}; {used:.3g} "
+                         f"of the bfloat16 bound at worst: "
+                         f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                failed.append(((B, S, T, *heads, causal, 0, dt),
+                               (err, used)))
     if failed:
         raise AssertionError(f"flash_attention_fwd disagrees with its plain "
                              f"version in {len(failed)} cases: {failed[:5]}")
@@ -1518,8 +1610,9 @@ def phase_flash():
         raise AssertionError(f"vmap over the kernel: err {vm_err}, "
                              f"{tfa.LAUNCHES['flash_attention_fwd'] - before}"
                              f" launches")
-    log("flash", f"{len(cases) + 2 * len(FLASH_MODELS) * len(FLASH_PREFILL)}"
-                 f" cases within "
+    n_cases = (len(cases) + 2 * len(FLASH_MODELS) * len(FLASH_PREFILL)
+               + 2 * len(FLASH_FRONTEND))
+    log("flash", f"{n_cases} cases within "
                  f"tolerance (atol 3e-5 float32 / 3e-2 bfloat16, rtol "
                  f"1e-2): S in {FLASH_S} and ragged {FLASH_RAGGED_S} (T = "
                  f"S) x (Hq, Hkv, hd) in {FLASH_HEADS} x (causal, window) "
@@ -1530,7 +1623,9 @@ def phase_flash():
                  f"the prefill shapes (B, S) in {FLASH_PREFILL} at "
                  f"16/2/128 causal, 16/1/256 causal window {RG_WINDOW}, "
                  f"8/4/256 causal window {GEMMA_WINDOW} and 16/16/128 "
-                 f"causal x float32/bfloat16; worst "
+                 f"causal x float32/bfloat16, the frontend families' "
+                 f"(B, S, T, heads, causal) in {FLASH_FRONTEND} x "
+                 f"float32/bfloat16; worst "
                  f"float32 {worst[f32]:.3g}, bfloat16 {worst[bf16]:.3g}; "
                  f"vmap over 3 parties: one launch, max abs err "
                  f"{vm_err:.3g}")
@@ -1780,39 +1875,56 @@ COPY_OPS = ("aten::clone", "aten::copy_", "aten::contiguous",
             "aten::_reshape_copy")
 
 
-def _table_copies(tag, sys_, params):
+def _table_copies(tag, sys_, params, fe_list=None):
     """The copy ops (``COPY_OPS``) that read a tensor the size of the
     stacked passive embedding tables, in a 16-token prefill and one decode
     round, from a torch.profiler window that records shapes (kept apart
-    from the timed windows, whose host time shapes would inflate)."""
+    from the timed windows, whose host time shapes would inflate). With an
+    encoder-decoder's ``fe_list`` (``encoder_kv``, B lanes) the prefill
+    and the round are B lanes wide and also count copies reading as many
+    elements as one layer's cross K of the passive group (K x B x 1500 x
+    Hkv x hd): the group's cross K/V is read in place, never restacked."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    numel = params["passive_stacked"]["backbone"]["embed"]["table"].numel()
+    limits = {"tables": params["passive_stacked"]["backbone"]["embed"][
+        "table"].numel()}
+    B = 1
+    if fe_list is not None:
+        k0 = fe_list[1]["enc_kv"][0]                  # (L, B, F, Hkv, hd)
+        B = k0.shape[1]
+        limits["cross K/V"] = (len(fe_list) - 1) * k0[0].numel()
     seeds = sys_.mask_seeds()
-    tok = torch.arange(17, dtype=torch.int32, device="cuda")[None]
+    tok = torch.arange(17, dtype=torch.int32, device="cuda")[None].expand(
+        B, 17).contiguous()
     out = {}
     for what in ("prefill", "decode"):
-        caches = sys_.init_caches(1, 32)
+        caches = sys_.init_caches(B, 32)
         if what == "decode":
             _, caches = sys_.prefill(params, tok[:, :16], caches,
-                                     seeds=seeds, round_idx=7)
+                                     seeds=seeds, round_idx=7,
+                                     fe_list=fe_list)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU],
                      record_shapes=True) as prof:
             if what == "prefill":
                 sys_.prefill(params, tok[:, :16], caches, seeds=seeds,
-                             round_idx=7)
+                             round_idx=7, fe_list=fe_list)
             else:
-                sys_.serve_step(params, tok[:, 16:], caches, 16, seeds)
+                sys_.serve_step(params, tok[:, 16:], caches, 16, seeds,
+                                fe_list=fe_list)
             torch.cuda.synchronize()
-        copies = [(e.name, e.input_shapes) for e in prof.events()
-                  if e.name in COPY_OPS and any(
-                      math.prod(sh) >= numel for sh in e.input_shapes if sh)]
-        out[what] = len(copies)
-        log(tag, f"copy ops reading >= {numel} elements (the stacked "
-                 f"passive embedding tables) in a 16-token {what}"
-                 f"{'' if what == 'prefill' else ' round'}: {len(copies)} "
-                 f"{copies[:2]}")
+        for name, numel in limits.items():
+            copies = [(e.name, e.input_shapes) for e in prof.events()
+                      if e.name in COPY_OPS and any(
+                          math.prod(sh) >= numel
+                          for sh in e.input_shapes if sh)]
+            out[what if name == "tables" else f"{what} {name}"] = \
+                len(copies)
+            log(tag, f"copy ops reading >= {numel} elements (the stacked "
+                     f"passive {'embedding tables' if name == 'tables' else 'cross K of one layer'}) "
+                     f"in a 16-token {what}"
+                     f"{'' if what == 'prefill' else ' round'}: "
+                     f"{len(copies)} {copies[:2]}")
     return out
 
 
@@ -1823,41 +1935,11 @@ def _serve_phase(tag, arch):
     from repro_torch.configs.base import get_config
     from repro_torch.core import api, serving
     from repro_torch.kernels import rg_lru as trg
-    from repro_torch.models.transformer import stack_plan
-    from repro_torch.tree import tree_leaves
     cfg = get_config(arch)
-    sys_ = _lm_system(cfg, "cuda")
-    _free_card()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = sys_.init_params(torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    weights_gb = torch.cuda.memory_allocated() / 1e9
-    draw_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    sys_._passive_stack(params)       # raises if a step would restack
-    n_act = sum(t.numel() for t in tree_leaves(params["parties"][0]))
-    n_all = sum(t.numel() for p in params["parties"]
-                for t in tree_leaves(p))
+    sys_, params, _, drawn = _draw_on_card(tag, cfg)
     cfgs = sys_.party_cfgs
-    La, Lp, K = cfgs[0].n_layers, cfgs[1].n_layers, len(cfgs) - 1
     (attn_a, lru_a), (attn_p, lru_p) = _layer_kinds(cfgs[0]), \
         _layer_kinds(cfgs[1])
-    log(tag, f"{cfg.name} ({cfg.family}): {La} layers ({attn_a} attention, "
-             f"{lru_a} RG-LRU), stack plan "
-             f"{[(ks[0], len(ks), r) for ks, r in stack_plan(cfgs[0])]}, "
-             f"d_model "
-             f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}x"
-             f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, moe {cfg.moe}, "
-             f"ssm {cfg.ssm if cfg.family == 'ssm' else None}, vocab "
-             f"{cfg.vocab_size}, {cfg.dtype}; C = {sys_.C} ({K} passive "
-             f"proxies of {Lp} layers), d_embed {sys_.easter.d_embed}, "
-             f"{sys_.easter.mask_mode} wire, {sys_.engine} engine; "
-             f"{n_act / 1e9:.3f}e9 active and {n_all / 1e9:.3f}e9 "
-             f"parameters in all, drawn on the card from torch.Generator "
-             f"seed 0 in {init_s:.1f} s; device memory {weights_gb:.2f} GB "
-             f"after the draw, peak {draw_peak_gb:.2f} GB during it")
     eng = serving.ServingEngine(sys_, params, lanes=LM_LANES,
                                 max_len=max(LM_PROMPTS) + LM_NEW,
                                 chunk=LM_CHUNK)
@@ -1967,8 +2049,7 @@ def _serve_phase(tag, arch):
         lambda: box.update(out=df(params, box["state"])), LM_CHUNK,
         by_op=True)
     return launches, {
-        "init_s": init_s, "params": n_all, "wall_s": wall,
-        "weights_gb": weights_gb, "draw_peak_gb": draw_peak_gb,
+        **drawn, "wall_s": wall,
         "serve_peak_gb": serve_peak_gb, "admit_peak_gb": admit_peak_gb,
         "admit_before_gb": before_gb,
         "tokens_per_s": toks / wall, "ms_per_round": ms_round,
@@ -1997,6 +2078,288 @@ def phase_moe_or_mamba(tag):
     _free_card()
     res["layer_ms"] = (_moe_layer_split if tag == "moe"
                        else _ssd_layer_split)(arch)
+    return launches, res
+
+
+def _draw_on_card(tag, cfg):
+    """EasterLM on ``cfg`` in bfloat16, drawn on the card from a
+    torch.Generator seeded 0; logs the shape and the memory of the draw.
+    Returns (system, params, generator, facts)."""
+    import torch
+    from repro_torch.models.transformer import stack_plan
+    from repro_torch.tree import tree_leaves
+    sys_ = _lm_system(cfg, "cuda")
+    _free_card()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = sys_.init_params(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    draw_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sys_._passive_stack(params)       # raises if a step would restack
+    n_act = sum(t.numel() for t in tree_leaves(params["parties"][0]))
+    n_all = sum(t.numel() for p in params["parties"]
+                for t in tree_leaves(p))
+    c0, c1 = sys_.party_cfgs[:2]
+    attn, lru = _layer_kinds(c0)
+    extra = {"moe": f", moe {cfg.moe}", "ssm": f", ssm {cfg.ssm}",
+             "encdec": f" + {c0.n_encoder_layers} encoder layers over "
+                       f"{c0.n_audio_frames} frames"}.get(cfg.family, "")
+    log(tag, f"{cfg.name} ({cfg.family}): {c0.n_layers} layers ({attn} "
+             f"attention, {lru} RG-LRU; stack plan "
+             f"{[(ks[0], len(ks), r) for ks, r in stack_plan(c0)]}){extra}"
+             f", d_model {cfg.d_model}, heads {cfg.n_heads}/"
+             f"{cfg.n_kv_heads}x{cfg.resolved_head_dim}, d_ff {cfg.d_ff} "
+             f"({cfg.act}, {cfg.norm} norm, QKV bias {cfg.qkv_bias}), vocab "
+             f"{cfg.vocab_size}, {cfg.dtype}; C = {sys_.C} ({sys_.C - 1} "
+             f"passive proxies of {c1.n_layers} layers"
+             f"{f' and {c1.n_encoder_layers} encoder layers' if cfg.family == 'encdec' else ''}"
+             f"), d_embed {sys_.easter.d_embed}, {sys_.easter.mask_mode} "
+             f"wire, {sys_.engine} engine; {n_act / 1e9:.3f}e9 active and "
+             f"{n_all / 1e9:.3f}e9 parameters in all, drawn on the card in "
+             f"{init_s:.1f} s; device memory {weights_gb:.2f} GB after the "
+             f"draw, peak {draw_peak_gb:.2f} GB during it")
+    return sys_, params, gen, {"init_s": init_s, "params": n_all,
+                               "active_params": n_act,
+                               "weights_gb": weights_gb,
+                               "draw_peak_gb": draw_peak_gb}
+
+
+def _check_tokens(out, logits, B, n, vocab):
+    import torch
+    if tuple(out.shape) != (B, n) or not bool(
+            ((out >= 0) & (out < vocab)).all()):
+        raise AssertionError(f"tokens {tuple(out.shape)}, expected "
+                             f"{(B, n)} in [0, {vocab})")
+    if tuple(logits.shape) != (B, n, vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+
+
+def _check_launches(what, launches, want):
+    bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if bad:
+        raise AssertionError(f"{what}: launches (got, expected) {bad}")
+
+
+def phase_whisper():
+    """whisper-small at full width and depth in bfloat16, a counted main
+    path: 4 transcriptions of 30 s of audio (frame embeddings (4, 1500,
+    768) from the card's generator, a 4-token start prompt from numpy
+    seed 0): ``encoder_kv`` once, a prefill of the first 3 tokens, then
+    ``serve_tokens`` for 224 greedy tokens, every round given the cross
+    K/V. Asserted: one flash_attention_fwd per encoder layer of the
+    active party and of the passive group (folded into one launch) in
+    encoder_kv, one per self- and one per cross-attention layer of both
+    in the prefill and in every decode round (the decode rounds'
+    cross-attention included), one blind_agg_fwd per protocol round, no
+    rglru_scan_fwd. Then profiler windows and the copy check (no restack
+    of the passive cross K/V)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import decode
+    from repro_torch.models.build import frontend_inputs
+    cfg = get_config(WHISPER_ARCH)
+    sys_, params, gen, res = _draw_on_card("whisper", cfg)
+    c0, c1 = sys_.party_cfgs[:2]
+    B, P, N = WHISPER_LANES, WHISPER_PROMPT, WHISPER_NEW
+    audio = frontend_inputs(cfg, B, gen)["audio_embed"]
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)).to("cuda")
+    seeds = sys_.mask_seeds()
+    caches = sys_.init_caches(B, P + N)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_launches()
+    t0 = time.perf_counter()
+    fe_list = sys_.encoder_kv(params, audio)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    enc_launches = _lm_launches()
+    _, caches = sys_.prefill(params, prompt[:, :-1], caches,
+                             fe_list=fe_list, seeds=seeds, round_idx=0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out, caches, _, _, logits = decode.serve_tokens(
+        sys_, params, prompt[:, -1:], caches, P - 1, N, seeds,
+        fe_list=fe_list, return_logits=True)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = _lm_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    enc = c0.n_encoder_layers + c1.n_encoder_layers
+    per_round = c0.n_layers + c1.n_layers
+    _check_launches("whisper-small encoder_kv", enc_launches,
+                    {"flash_attention_fwd": enc, "blind_agg_fwd": 0})
+    _check_launches("whisper-small serving", launches, {
+        "flash_attention_fwd": enc + 2 * per_round + N * per_round,
+        "blind_agg_fwd": 1 + N, "rglru_scan_fwd": 0})
+    _check_tokens(out, logits, B, N, cfg.vocab_size)
+    enc_ms, prefill_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    ms_round = (t3 - t2) * 1e3 / N
+    # the same encoder_kv and prefill again, warm (the first calls above
+    # include the libraries' first-use setup)
+    t = time.perf_counter()
+    fe_warm = sys_.encoder_kv(params, audio)
+    torch.cuda.synchronize()
+    warm_enc_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    sys_.prefill(params, prompt[:, :-1], sys_.init_caches(B, P + N),
+                 fe_list=fe_warm, seeds=seeds, round_idx=1)
+    torch.cuda.synchronize()
+    warm_prefill_ms = (time.perf_counter() - t) * 1e3
+    del fe_warm
+    log("whisper", f"{B} transcriptions of {FRAMES} frames, a {P}-token "
+                   f"start prompt, {N} greedy tokens each: encoder_kv "
+                   f"{enc_ms:.2f} ms, prefill {prefill_ms:.2f} ms (first "
+                   f"calls; warm {warm_enc_ms:.2f} and {warm_prefill_ms:.2f}"
+                   f" ms), {ms_round:.2f} ms a decode round "
+                   f"({B * 1e3 / ms_round:.1f} tokens/s at {B} lanes), "
+                   f"{B * N / (t3 - t0):.1f} tokens/s end to end; peak "
+                   f"device memory {peak_gb:.2f} GB; launches {launches} "
+                   f"(expected flash_attention_fwd {enc} + 2 x {per_round} "
+                   f"+ {N} x {per_round}, blind_agg_fwd 1 + {N})")
+    box = {}
+    prof_enc = _profile_window(
+        "whisper", f"encoder_kv + a {P - 1}-token prefill at {B} lanes",
+        lambda: box.update(r=sys_.prefill(
+            params, prompt[:, :-1], sys_.init_caches(B, P + N),
+            fe_list=sys_.encoder_kv(params, audio), seeds=seeds,
+            round_idx=1)), 1, by_op=True)
+    prof_decode = _profile_window(
+        "whisper", f"{LM_CHUNK} decode rounds at {B} lanes",
+        lambda: box.update(d=decode.serve_tokens(
+            sys_, params, prompt[:, -1:], box["r"][1], P - 1, LM_CHUNK,
+            seeds, fe_list=fe_list)), LM_CHUNK, by_op=True)
+    res.update({"encoder_kv_ms": enc_ms, "prefill_ms": prefill_ms,
+                "warm_encoder_kv_ms": warm_enc_ms,
+                "warm_prefill_ms": warm_prefill_ms,
+                "ms_per_round": ms_round, "rounds": N,
+                "tokens_per_s": B * N / (t3 - t0),
+                "decode_tokens_per_s": B * 1e3 / ms_round,
+                "serve_peak_gb": peak_gb, "profile_prefill": prof_enc,
+                "profile_decode": prof_decode,
+                "table_copies": _table_copies("whisper", sys_, params,
+                                              fe_list)})
+    return launches, res
+
+
+def phase_vlm():
+    """qwen2-vl-7b at full width and depth in bfloat16, a counted main
+    path: 4 lanes of 2048-token prompts (numpy seed 0) whose first 1024
+    positions carry an image's patch embeddings (from the card's
+    generator), then one request of 1280 tokens, 32 greedy tokens each,
+    through prefill(fe_list) and serve_tokens. Asserted: 28 + 7
+    flash_attention_fwd launches a prefill (the passive group folded),
+    none in a decode round, one blind_agg_fwd per protocol round, no
+    rglru_scan_fwd; and that the patches went in: the 1280-token
+    prefill's embeddings over the first 1024 positions move when other
+    patches are given."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import decode
+    from repro_torch.models.build import frontend_inputs
+    cfg = get_config(VLM_ARCH)
+    sys_, params, gen, res = _draw_on_card("vlm", cfg)
+    c0, c1 = sys_.party_cfgs[:2]
+    rng = np.random.default_rng(0)
+    reqs = [(VLM_LANES, VLM_PROMPTS[0]), (1, VLM_PROMPTS[1])]
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P))
+                                .astype(np.int32)).to("cuda") for B, P in reqs]
+    images = [frontend_inputs(cfg, B, gen)["vision_embed"] for B, _ in reqs]
+    seeds = sys_.mask_seeds()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_launches()
+    prefill_ms, ms_round, Es, toks = {}, {}, [], 0
+    t0 = time.perf_counter()
+    for i, ((B, P), tok, img) in enumerate(zip(reqs, prompts, images)):
+        fe = [{"vision_embed": img}] * sys_.C
+        caches = sys_.init_caches(B, P + VLM_NEW)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        E, caches = sys_.prefill(params, tok[:, :-1], caches, fe_list=fe,
+                                 seeds=seeds, round_idx=i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, caches, _, _, logits = decode.serve_tokens(
+            sys_, params, tok[:, -1:], caches, P - 1, VLM_NEW, seeds,
+            fe_list=fe, return_logits=True)
+        torch.cuda.synchronize()
+        prefill_ms[f"{B}x{P}"] = (t1 - t) * 1e3
+        ms_round[f"{B}x{P}"] = (time.perf_counter() - t1) * 1e3 / VLM_NEW
+        _check_tokens(out, logits, B, VLM_NEW, cfg.vocab_size)
+        toks += B * VLM_NEW
+        Es.append(E)
+        del caches, logits
+    wall = time.perf_counter() - t0
+    launches = _lm_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_prefill = c0.n_layers + c1.n_layers
+    _check_launches("qwen2-vl-7b serving", launches, {
+        "flash_attention_fwd": len(reqs) * per_prefill,
+        "blind_agg_fwd": len(reqs) * (1 + VLM_NEW), "rglru_scan_fwd": 0})
+    # the patches went in: other patches move the first 1024 positions
+    # (the prefill timed warm, as is one more of the 4-lane prompts)
+    (B, P), tok = reqs[1], prompts[1]
+    other = frontend_inputs(cfg, B, gen)["vision_embed"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    E2, _ = sys_.prefill(params, tok[:, :-1], sys_.init_caches(B, P),
+                         fe_list=[{"vision_embed": other}] * sys_.C,
+                         seeds=seeds, round_idx=1)
+    torch.cuda.synchronize()
+    warm_ms = {f"{B}x{P}": (time.perf_counter() - t) * 1e3}
+    (B4, P4), tok4 = reqs[0], prompts[0]
+    t = time.perf_counter()
+    sys_.prefill(params, tok4[:, :-1], sys_.init_caches(B4, P4),
+                 fe_list=[{"vision_embed": images[0]}] * sys_.C, seeds=seeds,
+                 round_idx=3)
+    torch.cuda.synchronize()
+    warm_ms[f"{B4}x{P4}"] = (time.perf_counter() - t) * 1e3
+    n = cfg.n_vision_tokens
+    moved = float((E2[:, :n].float() - Es[1][:, :n].float()).abs().max())
+    if not moved > 0:
+        raise AssertionError("qwen2-vl-7b: the prefill embeddings did not "
+                             "move with the patches: no insert")
+    log("vlm", f"{reqs[0][0]} lanes of {reqs[0][1]}-token prompts and one "
+               f"of {reqs[1][1]} tokens, the first {n} positions an image's "
+               f"patch embeddings, {VLM_NEW} greedy tokens each: prefill "
+               f"ms (first calls) {prefill_ms}, warm {warm_ms}, ms a "
+               f"decode round "
+               f"{ms_round}, {toks / wall:.1f} tokens/s end to end, peak "
+               f"device memory {peak_gb:.2f} GB; launches {launches} "
+               f"(expected flash_attention_fwd {len(reqs)} x "
+               f"{per_prefill}, blind_agg_fwd {len(reqs)} x (1 + "
+               f"{VLM_NEW})); other patches move the 1279-token prefill's "
+               f"embeddings over the first {n} positions by up to "
+               f"{moved:.3g}: inserted")
+    (B, P), tok, img = reqs[0], prompts[0], images[0]
+    fe = [{"vision_embed": img}] * sys_.C
+    box = {}
+    prof_prefill = _profile_window(
+        "vlm", f"one {P - 1}-token prefill at {B} lanes",
+        lambda: box.update(r=sys_.prefill(
+            params, tok[:, :-1], sys_.init_caches(B, P + VLM_NEW),
+            fe_list=fe, seeds=seeds, round_idx=2)), 1, by_op=True)
+    prof_decode = _profile_window(
+        "vlm", f"{LM_CHUNK} decode rounds at {B} lanes",
+        lambda: box.update(d=decode.serve_tokens(
+            sys_, params, tok[:, -1:], box["r"][1], P - 1, LM_CHUNK, seeds,
+            fe_list=fe)), LM_CHUNK, by_op=True)
+    del box
+    res.update({"prefill_ms": prefill_ms, "warm_prefill_ms": warm_ms,
+                "ms_per_round": ms_round,
+                "tokens_per_s": toks / wall, "serve_peak_gb": peak_gb,
+                "patch_move": moved, "profile_prefill": prof_prefill,
+                "profile_decode": prof_decode,
+                "table_copies": _table_copies("vlm", sys_, params)})
     return launches, res
 
 
@@ -2095,7 +2458,7 @@ def _host_gib():
 
 def _cut_phase(tag, arch, n_layers, *, check_host=False,
                batch=LM_CUT_BATCH, prompt_len=LM_CUT_PROMPT,
-               scaled_atol=False):
+               scaled_atol=False, **cfg_kw):
     """The same width with depth cut to ``n_layers`` active layers (the
     passive proxies follow passive_cfg), float32 with TF32 off: card
     against the CPU port on the same weights and prompt. The host copy is
@@ -2107,17 +2470,23 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False,
     |value| of the CPU's tensor (the CPU parity tests' tolerance for
     logits): qwen2-moe's random experts, drawn at the reference's fan-in
     scale 1/sqrt(E), add outputs of ~100 to a residual stream of ~1, and
-    the float32 rounding of the two devices' sums grows with them."""
+    the float32 rounding of the two devices' sums grows with them. A
+    frontend family gets its stubbed input, the same float32 values on
+    both devices (a CPU generator seeded 2): an encoder-decoder's frame
+    embeddings through ``encoder_kv``, a vision model's patch embeddings
+    for every party; ``cfg_kw`` overrides further config fields (the
+    encoder's depth)."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.core import decode
     from repro_torch.core.party_engine import unstack_tree
+    from repro_torch.models.build import frontend_inputs
     from repro_torch.tree import tree_leaves, tree_map
     _free_card()
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
-                              dtype="float32")
+                              dtype="float32", **cfg_kw)
     card = _lm_system(cfg, "cuda")
     num_passive = None
     params = card.init_params(torch.Generator(device="cuda").manual_seed(0))
@@ -2149,17 +2518,25 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False,
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, cfg.vocab_size,
                           size=(batch, prompt_len)).astype(np.int32)
+    fe = frontend_inputs(cfg, batch, torch.Generator().manual_seed(2))
     res = {}
     for name, sys_, p in (("card", card, params), ("cpu", cpu, cparams)):
         toks = torch.from_numpy(prompt).to(sys_.device)
         seeds = sys_.mask_seeds()
+        fe_list = None
+        if "audio_embed" in fe:
+            fe_list = sys_.encoder_kv(p, fe["audio_embed"].to(sys_.device))
+        elif "vision_embed" in fe:
+            fe_list = [{"vision_embed": fe["vision_embed"].to(
+                sys_.device)}] * sys_.C
         caches = sys_.init_caches(batch, prompt_len + LM_CUT_ROUNDS)
         E, caches = sys_.prefill(p, toks[:, :-1], caches, seeds=seeds,
-                                 round_idx=5)
+                                 round_idx=5, fe_list=fe_list)
         out, _, _, _, logits = decode.serve_tokens(
             sys_, p, toks[:, -1:], caches, prompt_len - 1, LM_CUT_ROUNDS,
-            seeds, return_logits=True)
+            seeds, return_logits=True, fe_list=fe_list)
         res[name] = (E.cpu(), logits.cpu(), out.cpu())
+        del fe_list, caches
     errs = {}
     for i, what in ((0, "prefill embeddings"), (1, "logits")):
         a, b = res["card"][i], res["cpu"][i]
@@ -2170,7 +2547,10 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False,
                       bool(torch.allclose(a, b, rtol=1e-4, atol=atol)),
                       scale, atol)
     same = bool(torch.equal(res["card"][2], res["cpu"][2]))
-    log(tag, f"depth cut to {n_layers} active layers, same width, float32, "
+    log(tag, f"depth cut to {n_layers} active layers"
+             f"{f' and {cfg.n_encoder_layers} encoder layers over {cfg.n_audio_frames} frames' if cfg.family == 'encdec' else ''}"
+             f"{f' ({cfg.n_vision_tokens} patch positions)' if cfg.family == 'vlm' else ''}"
+             f", same width, float32, "
              f"TF32 off: batch {batch}, prompt {prompt_len}, "
              f"{LM_CUT_ROUNDS} greedy rounds, card vs CPU port: "
              + "; ".join(f"{w} max abs {e:.3g} max rel {r:.3g} (max |cpu| "
@@ -2182,6 +2562,22 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False,
         raise AssertionError("the depth-cut run differs between card and CPU")
     return {"errors": errs, "num_passive": card.easter.num_passive,
             "weights_gb": nbytes / 1e9}
+
+
+def _frontend_cuts():
+    """whisper-small cut to 2 encoder and 2 decoder layers over the full
+    1500 frames, and qwen2-vl-7b cut to 2 layers with a 1,100-token prompt
+    (its 1024 patches inserted), each float32 against the CPU port.
+    qwen2-vl's logits are held to atol 1e-5 x max|logit| (the CPU parity
+    tests' tolerance for logits, as for qwen2-moe): its 18,944-wide MLP
+    and 3,584-wide attention sums over 1,100 positions round apart on the
+    two devices by up to ~3e-6 of the logits' scale (1.44e-5 at max
+    |logit| 5.37 on the H100), past the absolute 1e-5."""
+    return (_cut_phase("whisper_cut", WHISPER_ARCH, WHISPER_CUT_LAYERS,
+                       n_encoder_layers=WHISPER_CUT_LAYERS),
+            _cut_phase("vlm_cut", VLM_ARCH, VLM_CUT_LAYERS, check_host=True,
+                       batch=VLM_CUT_BATCH, prompt_len=VLM_CUT_PROMPT,
+                       scaled_atol=True))
 
 
 def _check_train_launches(what, launches, steps, joint_steps=0):
@@ -2432,8 +2828,11 @@ def _train_repeatability(tag):
 def phase_train():
     """EasterLM training: qwen2-1.5b at full width and depth (bfloat16),
     then the depth cut and the recurrentgemma-9b smoke variant in float32
-    against the CPU port. Returns (counted launches, results)."""
+    against the CPU port, and the frontend families' smoke variants with
+    their frontend inputs in the batch. Returns (counted launches,
+    results)."""
     import dataclasses
+    import numpy as np
     from repro_torch.configs.base import get_config, smoke_variant
     from repro_torch.data.synthetic import lm_batch_iterator
     (launches, jlaunch), res = _train_full("train")
@@ -2448,6 +2847,20 @@ def phase_train():
     res["rg_smoke"] = _train_cut_check(
         "train", f"{RG_ARCH} smoke variant", rg,
         next(lm_batch_iterator(rg.vocab_size, 2, 40, seed=1)))
+    # the frontend families: the batch's audio_embed / vision_embed reach
+    # every party's encoder or patch insert (float32 unit normals, numpy
+    # seed 1; 40 tokens cover qwen2-vl's 8 patch positions)
+    for arch in (WHISPER_ARCH, VLM_ARCH):
+        fc = smoke_variant(get_config(arch))
+        batch = next(lm_batch_iterator(fc.vocab_size, 2, 40, seed=1))
+        n = fc.n_audio_frames if fc.family == "encdec" else \
+            fc.n_vision_tokens
+        key = "audio_embed" if fc.family == "encdec" else "vision_embed"
+        batch[key] = np.random.default_rng(1).normal(
+            size=(2, n, fc.d_model)).astype(np.float32)
+        res[f"{fc.family}_smoke"] = _train_cut_check(
+            "train", f"{arch} smoke variant ({key} {batch[key].shape})", fc,
+            batch)
     res["repeatability"] = _train_repeatability("train")
     return (launches, jlaunch), res
 
@@ -2479,24 +2892,31 @@ def _causal_pairs(S, window):
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def _flash_timing_case(B, S, heads, window, gen):
+def _flash_timing_case(B, S, heads, window, gen, T=None, causal=True):
+    """One timing shape, bfloat16: a causal (windowed) prefill with T = S,
+    or non-causal attention of S queries over T keys (whisper's encoder
+    and cross-attention)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ref
     Hq, Hkv, hd = heads
+    T = S if T is None else T
     q = torch.randn((B, S, Hq, hd), generator=gen,
                     device="cuda").to(torch.bfloat16)
-    k = torch.randn((B, S, Hkv, hd), generator=gen,
+    k = torch.randn((B, T, Hkv, hd), generator=gen,
                     device="cuda").to(torch.bfloat16)
-    v = torch.randn((B, S, Hkv, hd), generator=gen,
+    v = torch.randn((B, T, Hkv, hd), generator=gen,
                     device="cuda").to(torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    kern = lambda: tfa.flash_attention_fwd(q, k, v, causal=True,
+    kern = lambda: tfa.flash_attention_fwd(q, k, v, causal=causal,
                                            window=window)
-    plain = lambda: ref.reference_attention(q, k, v, causal=True,
+    plain = lambda: ref.reference_attention(q, k, v, causal=causal,
                                             window=window)
-    if window == 0 or window >= S:
+    if not causal:
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     enable_gqa=True)
+    elif window == 0 or window >= S:
         # a window of at least S keeps every causal pair: SDPA's causal
         # mask is then the same function
         lib = lambda: F.scaled_dot_product_attention(
@@ -2514,13 +2934,15 @@ def _flash_timing_case(B, S, heads, window, gen):
     p2 = _time_ms(plain, reps=10, inner=5)
     l1 = _time_ms(lib, reps=10, inner=5)
     backend = _sdpa_backend(lib)
-    flops = 4 * hd * Hq * B * _causal_pairs(S, window)
-    nbytes = 2 * B * (2 * S * Hq * hd + 2 * S * Hkv * hd)
+    pairs = _causal_pairs(S, window) if causal else S * T
+    flops = 4 * hd * Hq * B * pairs
+    nbytes = 2 * B * (2 * S * Hq * hd + 2 * T * Hkv * hd)
     op_ms = flops / BF16_FLOPS * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound = max(op_ms, byte_ms)
     ms = min(k1, k2)
-    log("timing", f"flash_attention_fwd ({B}, {S}, {Hq}/{Hkv}, {hd}) causal"
+    what = ("causal" if causal else f"non-causal over T = {T}")
+    log("timing", f"flash_attention_fwd ({B}, {S}, {Hq}/{Hkv}, {hd}) {what}"
                   f"{f' window {window}' if window else ''} bfloat16: kernel "
                   f"{k1:.4f}/{k2:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
                   f"bound/time {bound / ms:.3f}), plain {p1:.4f}/{p2:.4f} "
@@ -2537,16 +2959,20 @@ def _flash_timing_case(B, S, heads, window, gen):
 
 
 def phase_timing_flash():
-    """flash_attention_fwd at the serving paths' prefill shapes, bfloat16,
-    beside its plain version and SDPA (the library yardstick): qwen2.5-3b
-    at (1 | 3, 1023 | 2047); recurrentgemma-9b's window-2048 heads,
-    gemma3-4b's window-1024 8/4/256 heads and qwen2-moe-a2.7b's 16/16/128
-    heads at (1 | 3, 2047). Keys "B x S" (qwen2.5-3b), "rg B x S",
-    "gemma B x S" and "moe B x S"."""
+    """flash_attention_fwd at the serving paths' attention shapes,
+    bfloat16, beside its plain version and SDPA (the library yardstick):
+    qwen2.5-3b at (1 | 3, 1023 | 2047); recurrentgemma-9b's window-2048
+    heads, gemma3-4b's window-1024 8/4/256 heads and qwen2-moe-a2.7b's
+    16/16/128 heads at (1 | 3, 2047); whisper-small's 12/12/64 at (4 |
+    12, 1500 | 3 | 1) non-causal over T = 1500 (encoder, prefill and
+    decode cross-attention); qwen2-vl-7b's 28/4/128 causal at (4 | 12,
+    2047) and (1 | 3, 1279). Keys "B x S" (qwen2.5-3b), "rg B x S",
+    "gemma B x S", "moe B x S", "whisper B x S" and "vlm B x S"."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(7)
-    return {f"{label}{B}x{S}": _flash_timing_case(B, S, heads, window, gen)
-            for label, B, S, heads, window in FLASH_TIMING}
+    return {f"{label}{B}x{S}": _flash_timing_case(B, S, heads, window, gen,
+                                                  T, causal)
+            for label, B, S, heads, window, T, causal in FLASH_TIMING}
 
 
 # ---------------------------------------------------------------------------
@@ -2642,6 +3068,12 @@ def run_phase(name, save=None, compare=None):
         res = _serve_phase("rg", RG_ARCH)[1]
     elif name in ("moe", "mamba"):
         res = phase_moe_or_mamba(name)[1]
+    elif name == "whisper":
+        res = phase_whisper()[1]
+    elif name == "vlm":
+        res = phase_vlm()[1]
+    elif name == "frontend_cuts":
+        res = dict(zip(("whisper_cut", "vlm_cut"), _frontend_cuts()))
     elif name == "cuts":
         res = {"gemma_cut": _cut_phase(
                    "gemma_cut", GEMMA_ARCH, GEMMA_CUT_LAYERS,
@@ -2652,6 +3084,7 @@ def run_phase(name, save=None, compare=None):
                "mamba_cut": _cut_phase("mamba_cut", MAMBA_ARCH,
                                        MAMBA_CUT_LAYERS,
                                        prompt_len=MAMBA_CUT_PROMPT)}
+        res.update(zip(("whisper_cut", "vlm_cut"), _frontend_cuts()))
     elif name == "train":
         res = phase_train()[1]
     elif name == "prng":
@@ -2759,23 +3192,29 @@ def main() -> int:
     mamba_launches, mamba = phase_moe_or_mamba("mamba")
     mamba_cut = _cut_phase("mamba_cut", MAMBA_ARCH, MAMBA_CUT_LAYERS,
                            prompt_len=MAMBA_CUT_PROMPT)
+    whisper_launches, whisper = phase_whisper()
+    whisper_cut, vlm_cut = _frontend_cuts()
+    vlm_launches, vlm = phase_vlm()
 
-    # the passive group's token embeddings are one offset gather: no copy
-    # of the stacked tables in a prefill or a decode round
+    # the passive group's token embeddings are one offset gather and its
+    # cross K/V is read in place: no copy of the stacked tables, nor of a
+    # layer's group cross K/V, in a prefill or a decode round
     copies = {f"{tag} {w}": n
               for tag, r in (("qwen2.5-3b", lm), ("recurrentgemma-9b", rg),
-                             (MOE_ARCH, moe), (MAMBA_ARCH, mamba))
+                             (MOE_ARCH, moe), (MAMBA_ARCH, mamba),
+                             (WHISPER_ARCH, whisper), (VLM_ARCH, vlm))
               for w, n in r["table_copies"].items()}
     if any(copies.values()):
-        raise AssertionError(f"copies of the stacked embedding tables: "
-                             f"{copies}")
+        raise AssertionError(f"copies of the stacked embedding tables or "
+                             f"cross K/V: {copies}")
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
     if bad:
         raise AssertionError(f"the port imported {bad[:5]}")
 
     paths = (slice_launches, joint_launches, many_launches, many_joint,
              many_unfused, lm_launches, rg_launches, train_launches,
-             joint_launches_lm, moe_launches, mamba_launches)
+             joint_launches_lm, moe_launches, mamba_launches,
+             whisper_launches, vlm_launches)
     launches = {name: sum(p.get(name, 0) for p in paths)
                 for name in ("blind_agg_fwd", "blind_agg_bwd",
                              "blind_agg_prng_fwd", "flash_attention_fwd",
@@ -2788,14 +3227,17 @@ def main() -> int:
                     f"serving {rg_launches}, qwen2-1.5b training "
                     f"{train_launches}, qwen2-1.5b joint step "
                     f"{joint_launches_lm}, qwen2-moe-a2.7b serving "
-                    f"{moe_launches}, mamba2-2.7b serving {mamba_launches})")
+                    f"{moe_launches}, mamba2-2.7b serving {mamba_launches}, "
+                    f"whisper-small serving {whisper_launches}, "
+                    f"qwen2-vl-7b serving {vlm_launches})")
     # blind_agg_fwd's launches by party groups, path by path: each path's
     # histogram counts every one of its forward launches
     names = ("Table II slice", "Table II joint", "many-party fused",
              "many-party joint", "many-party unfused", "qwen2.5-3b serving",
              "recurrentgemma-9b serving", "qwen2-1.5b training",
              "qwen2-1.5b joint step", "qwen2-moe-a2.7b serving",
-             "mamba2-2.7b serving")
+             "mamba2-2.7b serving", "whisper-small serving",
+             "qwen2-vl-7b serving")
     groups = {n: p["fwd_groups"] for n, p in zip(names, paths)}
     log("launches", f"blind_agg_fwd launches by party groups G, path by "
                     f"path: {groups}")
@@ -2864,7 +3306,9 @@ def main() -> int:
                       "rg_depth_cut": rg_cut, "table_copies": copies,
                       "train": train, "gemma_cut": gemma_cut, "moe": moe,
                       "moe_cut": moe_cut, "mamba": mamba,
-                      "mamba_cut": mamba_cut}))
+                      "mamba_cut": mamba_cut, "whisper": whisper,
+                      "whisper_cut": whisper_cut, "vlm": vlm,
+                      "vlm_cut": vlm_cut}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

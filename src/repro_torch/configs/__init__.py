@@ -1,9 +1,8 @@
 """Architecture config registry of the port.
 
-``ARCH_MODULES`` lists the module-per-architecture files ported so far
-(9 of the reference's 11: whisper-small and qwen2-vl-7b wait for their
-frontends, ROADMAP.md queue 1 C.4-C.5); importing them registers each
-config under its public ``--arch`` id.
+``ARCH_MODULES`` lists the module-per-architecture files, all 11 of the
+reference's; importing them registers each config under its public
+``--arch`` id.
 """
 
 ARCH_MODULES = [
@@ -15,5 +14,7 @@ ARCH_MODULES = [
     "qwen2_moe_a2_7b",
     "qwen3_moe_235b_a22b",
     "mamba2_2_7b",
+    "whisper_small",
+    "qwen2_vl_7b",
     "easter_paper",
 ]

@@ -3,9 +3,9 @@ the protocol and training configs.
 
 Own copy of the reference's ``repro.configs.base`` (``ModelConfig`` with
 its sub-configs, ``register``/``get_config``/``list_archs``,
-``smoke_variant``, ``EasterConfig``, ``TrainConfig``). The port runs the
-dense, MoE, SSM (Mamba-2) and hybrid (RG-LRU) families; the
-encoder-decoder and vision families are ROADMAP.md queue 1 C.4-C.5.
+``smoke_variant``, ``EasterConfig``, ``TrainConfig``). The port runs
+every family: dense, MoE, SSM (Mamba-2), hybrid (RG-LRU), the
+encoder-decoder (whisper) and vision (qwen2-vl) ones.
 """
 from __future__ import annotations
 

@@ -129,11 +129,14 @@ def sample_token(logits: torch.Tensor, key, temperature, *, done=None,
 
 def serve_tokens(sys, params, tokens, caches, pos, n_steps: int, seeds, *,
                  key=None, temperature: float = 0.0,
-                 window_override: int = -1, return_logits: bool = False):
+                 window_override: int = -1, fe_list=None,
+                 return_logits: bool = False):
     """Generate ``n_steps`` tokens, one ``serve_step`` per token.
 
     ``caches`` hold the prefilled prompt (``EasterLM.prefill``); ``tokens``
-    (B, 1) is the last prompt token at position ``pos``. ``key`` (2,)
+    (B, 1) is the last prompt token at position ``pos``. ``fe_list``, the
+    per-party frontend inputs (an encoder-decoder's ``EasterLM.encoder_kv``),
+    goes to every ``serve_step``. ``key`` (2,)
     int64 (``key_tensor``) is needed when ``temperature > 0``. Returns
     ``(out_tokens (B, n_steps) int32, caches, pos, key)``, advanced past
     the generation, plus the per-step logits (B, n_steps, V) with
@@ -146,7 +149,8 @@ def serve_tokens(sys, params, tokens, caches, pos, n_steps: int, seeds, *,
     tok, toks, logs = tokens, [], []
     for _ in range(n_steps):
         logits, caches = sys.serve_step(params, tok, caches, pos, seeds,
-                                        window_override=window_override)
+                                        window_override=window_override,
+                                        fe_list=fe_list)
         key, sub = split_key(key)
         tok = sample_token(logits[:, -1], sub, temperature)
         toks.append(tok)

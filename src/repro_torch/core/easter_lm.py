@@ -15,12 +15,21 @@ masks and aggregates through ``_aggregate``: the float wire goes through
 card), the int32/int8 ring wires through ``aggregation.aggregate_ring``.
 
 Parties are dense transformers (gemma3's local:global layers included),
-MoE transformers, Mamba-2 SSD stacks or hybrid (RG-LRU + local
-attention, recurrentgemma) stacks (``models.transformer``); their caches
-hold K/V for attention layers and the conv history and float32 state for
-RG-LRU and SSD layers. An MoE party's load-balance losses reach
-``loss_fn``'s total on both engines; ``moe_dense_passive`` gives an MoE
-active dense passive proxies, as in the reference.
+MoE transformers, Mamba-2 SSD stacks, hybrid (RG-LRU + local attention,
+recurrentgemma) stacks, vision (qwen2-vl) or encoder-decoder (whisper)
+transformers (``models.transformer``); their caches hold K/V for
+attention layers and the conv history and float32 state for RG-LRU and
+SSD layers. An MoE party's load-balance losses reach ``loss_fn``'s total
+on both engines; ``moe_dense_passive`` gives an MoE active dense passive
+proxies, as in the reference.
+
+Frontend inputs (the reference's per-party ``fe_list``: one dict of
+``apply_lm`` keywords per party) reach ``prefill``, ``serve_step`` and,
+as a batch's ``*_embed`` keys, ``loss_fn``. An encoder-decoder's serving
+computes its cross K/V once per request (``encoder_kv``) and passes
+``{"enc_kv": ...}`` in every round; the passive group's entries are
+views into one tensor laid out layer-major, which the grouped round
+reads without stacking it again (``party_engine.stack_views``).
 
 Engines: ``engine="vectorized"`` (the default, as in the reference) runs
 the K structurally identical passive proxies as one ``torch.func.vmap``
@@ -64,7 +73,8 @@ from repro_torch import checkpoint
 from repro_torch.configs.base import EasterConfig, ModelConfig
 from repro_torch.core import aggregation, blinding
 from repro_torch.core.losses import chunked_lm_head_xent
-from repro_torch.core.party_engine import stack_trees, unstack_tree
+from repro_torch.core.party_engine import (stack_trees, stack_views,
+                                           unstack_tree)
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.layers import (apply_norm, embed, embed_grouped,
@@ -97,18 +107,26 @@ def passive_cfg(cfg: ModelConfig, easter: EasterConfig, k: int) -> ModelConfig:
 
 def _empty_passive_stack(party, K: int):
     """Uninitialized (K, ...) leaves for the stacked passive group. A
-    backbone segment leaf, (reps, ...) in one party, lies reps-major: (reps,
-    K, ...) in memory, viewed as (K, reps, ...). One layer repeat of the
-    group, ``a[:, r]``, is then one contiguous (K, ...) block, which the
-    grouped layers' batched matmuls read as it is; party-major, an MoE
-    layer's (K, E, ...) expert weights would be copied to merge K and E
-    into one batch axis, in every round."""
+    backbone leaf with a layer axis, (reps, ...) in one party (the
+    segments, an encoder-decoder's encoder blocks and cross-attention),
+    lies layer-major: (reps, K, ...) in memory, viewed as (K, reps, ...).
+    One layer of the group, ``a[:, r]``, is then one contiguous (K, ...)
+    block, which the grouped layers' batched matmuls read as it is;
+    party-major, an MoE layer's (K, E, ...) expert weights would be copied
+    to merge K and E into one batch axis, in every round."""
+    def layer_major(tree):
+        return tree_map(lambda a: a.new_empty(
+            (a.shape[0], K) + tuple(a.shape[1:])).transpose(0, 1), tree)
+
     rest = {k: v for k, v in party.items() if k != "backbone"}
-    bb = {k: v for k, v in party["backbone"].items() if k != "segments"}
+    bb = party["backbone"]
     out = empty_stack(rest, K)
-    out["backbone"] = {**empty_stack(bb, K), "segments": tree_map(
-        lambda a: a.new_empty((a.shape[0], K) + tuple(a.shape[1:]))
-        .transpose(0, 1), party["backbone"]["segments"])}
+    out["backbone"] = {k: (layer_major(v) if k in ("segments", "xattn")
+                           else empty_stack(v, K)) for k, v in bb.items()}
+    if "encoder" in bb:
+        out["backbone"]["encoder"] = {
+            "blocks": layer_major(bb["encoder"]["blocks"]),
+            "norm": empty_stack(bb["encoder"]["norm"], K)}
     return out
 
 
@@ -263,20 +281,22 @@ class EasterLM:
 
     # -- protocol pieces -----------------------------------------------------
     def local_embed(self, pparams, pcfg: ModelConfig, tokens, *, caches=None,
-                    pos_offset=0, window_override=-1, training=False):
+                    pos_offset=0, window_override=-1, training=False, **fe):
         x = embed(pparams["backbone"]["embed"], tokens)
         return self._embed_from(pparams, pcfg, x, caches=caches,
                                 pos_offset=pos_offset,
                                 window_override=window_override,
-                                training=training)
+                                training=training, **fe)
 
     def _embed_from(self, pparams, pcfg: ModelConfig, x, *, caches=None,
-                    pos_offset=0, window_override=-1, training=False):
-        """``local_embed`` from the token embeddings x (B, S, d_model)."""
+                    pos_offset=0, window_override=-1, training=False, **fe):
+        """``local_embed`` from the token embeddings x (B, S, d_model);
+        ``fe``: the party's frontend inputs (``transformer.apply_hidden``'s
+        keywords)."""
         h, new_caches, aux = transformer.apply_hidden(
             pparams["backbone"], x, pcfg, caches=caches,
             pos_offset=pos_offset, window_override=window_override,
-            return_hidden=True, training=training)
+            return_hidden=True, training=training, **fe)
         E = linear(pparams["proj"], h)                 # (B, S, d_embed)
         return E, new_caches, aux
 
@@ -367,14 +387,17 @@ class EasterLM:
     def loss_fn(self, params, batch, round_idx, seeds):
         """(total, per-party losses (C,)) of one training round blinded
         under ``round_idx`` (the TRAIN domain: the global step).
-        ``batch``: {"tokens", "labels"} (B, S) int tensors."""
+        ``batch``: {"tokens", "labels"} (B, S) int tensors, and the
+        frontend inputs every party takes (``audio_embed``,
+        ``vision_embed``: the keys ending in ``_embed``; other keys are
+        ignored, as in the reference)."""
         if self._passive_group_ok():
             return self._loss_fn_vectorized(params, batch, round_idx, seeds)
-        tokens, labels = self._batch(batch)
+        tokens, labels, fe = self._batch(batch)
         Es, auxes = [], []
         for k, pcfg in enumerate(self.party_cfgs):
             E_k, _, aux_k = self.local_embed(params["parties"][k], pcfg,
-                                             tokens, training=True)
+                                             tokens, training=True, **fe)
             Es.append(E_k)
             auxes.append(aux_k)
         E_all, E = self._aggregate(torch.stack(Es), round_idx, seeds)
@@ -389,11 +412,10 @@ class EasterLM:
         return torch.sum(per) + torch.sum(torch.stack(auxes)), per
 
     def _batch(self, batch):
-        extra = sorted(k for k in batch if k not in ("tokens", "labels"))
-        if extra:
-            self._check_frontend(extra)
-        return (torch.as_tensor(batch["tokens"], device=self.device),
-                torch.as_tensor(batch["labels"], device=self.device))
+        """(tokens, labels, frontend inputs) of a batch on the device."""
+        on = lambda v: torch.as_tensor(v, device=self.device)
+        fe = {k: on(v) for k, v in batch.items() if k.endswith("_embed")}
+        return on(batch["tokens"]), on(batch["labels"]), fe
 
     def _loss_fn_vectorized(self, params, batch, round_idx, seeds):
         """The passive group at once: one offset gather of its token
@@ -402,15 +424,15 @@ class EasterLM:
         as one vmap and its heads' cross-entropy party by party. The
         stop-gradient surrogate acts on the stacked (C, B, S, d) view, so
         one backward still gives every party its own loss's gradient."""
-        tokens, labels = self._batch(batch)
+        tokens, labels, fe = self._batch(batch)
         pcfg_a, pcfg_p = self.party_cfgs[0], self.party_cfgs[1]
         E_a, _, aux_a = self.local_embed(params["parties"][0], pcfg_a,
-                                         tokens, training=True)
+                                         tokens, training=True, **fe)
         sp = self._passive_stack(params)
         x_p = embed_grouped(sp["backbone"]["embed"]["table"], tokens)
         h_p, _, aux_p = transformer.apply_hidden(
             sp["backbone"], x_p, pcfg_p, return_hidden=True, training=True,
-            group=True)
+            group=True, **fe)
         E_p = vmap(linear)(sp["proj"], h_p)              # (K, B, S, d_e)
         E_all, E = self._aggregate(torch.cat([E_a[None], E_p], dim=0),
                                    round_idx, seeds)
@@ -449,10 +471,6 @@ class EasterLM:
                                        device=self.device)
                 for pcfg in self.party_cfgs]
 
-    def _check_frontend(self, fe_list) -> None:
-        if fe_list:
-            raise transformer._unported("per-party frontend inputs")
-
     @torch.no_grad()
     def serve_step(self, params, tokens, caches, pos, seeds,
                    window_override: int = -1, fe_list=None, *,
@@ -466,8 +484,9 @@ class EasterLM:
         that concurrent lanes never share a pad. ``pos`` may be a (B,)
         tensor (each lane at its own position; caches must then be
         per-lane); ``lane_mask`` (B,) zeroes finished lanes' uplink rows
-        (see ``_aggregate``)."""
-        self._check_frontend(fe_list)
+        (see ``_aggregate``). ``fe_list``: per-party frontend inputs (an
+        encoder-decoder's ``{"enc_kv": ...}`` from ``encoder_kv``)."""
+        fe_list = fe_list or [{}] * self.C
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         if nonces is None:
             round_idx = blinding.SERVE_DOMAIN + pos
@@ -480,12 +499,13 @@ class EasterLM:
         if self._passive_group_ok():
             return self._serve_step_grouped(params, tokens, caches, po, seeds,
                                             window_override, round_idx,
-                                            lane_mask)
+                                            lane_mask, fe_list)
         Es, new_caches = [], []
         for k, pcfg in enumerate(self.party_cfgs):
             E_k, nc, _ = self.local_embed(
                 params["parties"][k], pcfg, tokens, caches=caches[k],
-                pos_offset=po, window_override=window_override)
+                pos_offset=po, window_override=window_override,
+                **fe_list[k])
             Es.append(E_k)
             new_caches.append(nc)
         E_all, E = self._aggregate(torch.stack(Es), round_idx, seeds,
@@ -495,31 +515,36 @@ class EasterLM:
         return logits, new_caches
 
     def _passive_embed_grouped(self, params, tokens, caches, pos,
-                               window_override):
+                               window_override, fe_list):
         """The K passive parties' embeddings (K, B, S, d) and stacked new
         caches: their token embeddings by one offset gather from the
-        stacked tables, then one vmap over the group."""
+        stacked tables, then one vmap over the group. Their frontend
+        inputs are stacked by ``stack_views``: ``encoder_kv``'s cross K/V
+        (views into one tensor) and an input every party shares are read
+        in place, not copied."""
         pcfg_p = self.party_cfgs[1]
         sp = self._passive_stack(params)
         sc = stack_trees(caches[1:])
+        sfe = stack_views(fe_list[1:])
         x = embed_grouped(sp["backbone"]["embed"]["table"], tokens)
 
-        def one(p, c, x):
+        def one(p, c, x, fe):
             E_k, nc, _ = self._embed_from(p, pcfg_p, x, caches=c,
                                           pos_offset=pos,
-                                          window_override=window_override)
+                                          window_override=window_override,
+                                          **fe)
             return E_k, nc
 
-        return vmap(one)(sp, sc, x)
+        return vmap(one)(sp, sc, x, sfe)
 
     def _serve_step_grouped(self, params, tokens, caches, pos, seeds,
-                            window_override, round_idx, lane_mask=None):
+                            window_override, round_idx, lane_mask, fe_list):
         pcfg_a = self.party_cfgs[0]
         E_a, nc_a, _ = self.local_embed(
             params["parties"][0], pcfg_a, tokens, caches=caches[0],
-            pos_offset=pos, window_override=window_override)
+            pos_offset=pos, window_override=window_override, **fe_list[0])
         E_p, nc_p = self._passive_embed_grouped(params, tokens, caches, pos,
-                                                window_override)
+                                                window_override, fe_list)
         E_all, E = self._aggregate(torch.cat([E_a[None], E_p], dim=0),
                                    round_idx, seeds, lane_mask)
         logits = self.decide(params["parties"][0], pcfg_a, E.to(E_all.dtype))
@@ -534,16 +559,18 @@ class EasterLM:
         The prompt-phase uplink is blinded like every other round under
         PREFILL_DOMAIN + ``round_idx``, a per-request nonce: two prefills
         under one round would reuse the pairwise pads. ``seeds=None`` is
-        the unblinded oracle."""
-        self._check_frontend(fe_list)
+        the unblinded oracle. ``fe_list``: per-party frontend inputs (the
+        patch embeddings of a vision model, the cross K/V of an
+        encoder-decoder from ``encoder_kv``)."""
         r = blinding.PREFILL_DOMAIN + round_idx
+        fe_list = fe_list or [{}] * self.C
         if self._passive_group_ok():
             pcfg_a = self.party_cfgs[0]
             E_a, nc_a, _ = self.local_embed(
                 params["parties"][0], pcfg_a, tokens, caches=caches[0],
-                window_override=window_override)
+                window_override=window_override, **fe_list[0])
             E_p, nc_p = self._passive_embed_grouped(params, tokens, caches, 0,
-                                                    window_override)
+                                                    window_override, fe_list)
             _, E = self._aggregate(torch.cat([E_a[None], E_p], dim=0), r,
                                    seeds)
             return E, [nc_a] + unstack_tree(nc_p, self.easter.num_passive)
@@ -551,8 +578,34 @@ class EasterLM:
         for k, pcfg in enumerate(self.party_cfgs):
             E_k, nc, _ = self.local_embed(
                 params["parties"][k], pcfg, tokens, caches=caches[k],
-                window_override=window_override)
+                window_override=window_override, **fe_list[k])
             Es.append(E_k)
             new_caches.append(nc)
         _, E = self._aggregate(torch.stack(Es), r, seeds)
         return E, new_caches
+
+    @torch.no_grad()
+    def encoder_kv(self, params, audio_embed):
+        """An encoder-decoder's per-party cross-attention K/V for one
+        request set's frame embeddings (B, F, d): the reference's
+        ``fe_list``, ``[{"enc_kv": (k, v)}, ...]``, each (n_layers, B, F,
+        Hkv, hd), computed once and passed to ``prefill`` and every
+        ``serve_step``. On the vectorized engine the passive group's
+        encoders run at once and its entries are views into one (K,
+        n_layers, ...) tensor laid out layer-major
+        (``transformer._encoder_kv(group=True)``)."""
+        audio_embed = torch.as_tensor(audio_embed, device=self.device)
+
+        def one_kv(bp, pcfg, group=False):
+            enc = transformer.encode(bp, audio_embed, pcfg, group=group)
+            return transformer._encoder_kv(bp, enc, pcfg, group=group)
+
+        if not self._passive_group_ok():
+            return [{"enc_kv": one_kv(params["parties"][k]["backbone"], pcfg)}
+                    for k, pcfg in enumerate(self.party_cfgs)]
+        active = {"enc_kv": one_kv(params["parties"][0]["backbone"],
+                                   self.party_cfgs[0])}
+        k_p, v_p = one_kv(self._passive_stack(params)["backbone"],
+                          self.party_cfgs[1], group=True)
+        return [active] + [{"enc_kv": (k_p[i], v_p[i])}
+                           for i in range(self.easter.num_passive)]

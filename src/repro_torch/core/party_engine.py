@@ -45,6 +45,35 @@ def stack_trees(trees: Sequence[Any]):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def _stack_view(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``torch.stack(xs)`` as a view where the tensors are rows of one
+    tensor: equally spaced in one storage with one shape and strides (the
+    rows of an unstacked tensor, or one tensor repeated, whose rows then
+    have a stride of 0). A copy otherwise, and wherever autograd would
+    have to follow the rows."""
+    x0 = xs[0]
+    step = xs[1].storage_offset() - x0.storage_offset() if len(xs) > 1 else 0
+    rows = all(
+        x.dtype == x0.dtype and x.device == x0.device
+        and x.shape == x0.shape and x.stride() == x0.stride()
+        and x.untyped_storage().data_ptr()
+        == x0.untyped_storage().data_ptr()
+        and x.storage_offset() == x0.storage_offset() + i * step
+        for i, x in enumerate(xs))
+    if not rows or (torch.is_grad_enabled()
+                    and any(x.requires_grad for x in xs)):
+        return torch.stack(xs)
+    return x0.as_strided((len(xs),) + tuple(x0.shape),
+                         (step,) + tuple(x0.stride()), x0.storage_offset())
+
+
+def stack_views(trees: Sequence[Any]):
+    """``stack_trees`` that reads rows of one tensor in place
+    (``_stack_view``): an input every party shares, or per-party views
+    into one stacked tensor, cost no copy."""
+    return tree_map(lambda *xs: _stack_view(xs), *trees)
+
+
 def unstack_tree(tree, n: int) -> List[Any]:
     """Inverse of stack_trees: split the leading axis back into a list."""
     return [tree_map(lambda x, i=i: x[i], tree) for i in range(n)]

@@ -11,8 +11,10 @@ Request-stream serving (continuous batching + EOS early-exit):
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
         --requests 8 --poisson [--device cpu]
 
-``--arch`` takes any ported architecture: the dense qwen2.5-3b and
-qwen2-1.5b, and the hybrid (RG-LRU + local attention) recurrentgemma-9b.
+``--arch`` takes any registered architecture. Requests carry tokens
+only, as the reference's: qwen2-vl-7b serves as a text model, and
+whisper-small raises for want of audio (drive ``EasterLM.encoder_kv``,
+``prefill(fe_list=)`` and ``decode.serve_tokens(fe_list=)`` instead).
 
 Both modes run on the typed serving surface (core/api.py): requests are
 ``ServeRequest``s admitted into decode slots by the ``ServingEngine``

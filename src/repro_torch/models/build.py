@@ -1,9 +1,11 @@
-"""Config -> model functions (counterpart of ``repro.models.build``), for
-the dense and hybrid (RG-LRU) families."""
+"""Config -> model functions (counterpart of ``repro.models.build``), and
+the stubbed modality frontends' inputs."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Dict
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
@@ -31,3 +33,23 @@ def build(cfg: ModelConfig) -> ModelFns:
                                       device=device)
 
     return ModelFns(cfg=cfg, init=init, apply=apply, init_cache=init_cache)
+
+
+def frontend_inputs(cfg: ModelConfig, batch: int, gen: torch.Generator,
+                    device=None, dtype=None) -> Dict[str, torch.Tensor]:
+    """Stubbed modality-frontend embeddings, unit normals from ``gen`` on
+    its own device, moved to ``device`` (default: the generator's) in
+    ``dtype`` (default: the config's): whisper's conv/mel output
+    ``audio_embed`` (B, n_audio_frames, d_model), qwen2-vl's ViT patch
+    embeddings ``vision_embed`` (B, n_vision_tokens, d_model); none for
+    other families."""
+    dtype = dtype or transformer.torch_dtype(cfg.dtype)
+    device = gen.device if device is None else device
+    n = {"encdec": ("audio_embed", cfg.n_audio_frames),
+         "vlm": ("vision_embed", cfg.n_vision_tokens)}.get(cfg.family)
+    if n is None or not n[1]:
+        return {}
+    x = torch.randn((batch, n[1], cfg.d_model), generator=gen,
+                    device=gen.device)
+    return {n[0]: x.to(device=device, dtype=dtype)}
+

@@ -12,7 +12,10 @@ any device in a training forward (``training=True``: the flash kernel
 has no backward), it runs the reference's own choice, ``dot_attention``
 or ``chunked_attention``.
 Decode attention (one query against the KV cache, per-lane masks) is
-plain torch on both, as it is plain jnp in the reference.
+plain torch on both, as it is plain jnp in the reference. Cross-attention
+(``cross_attend``, the encoder-decoder's decoder over the encoder's K/V)
+takes the flash kernel on the card at every query length, decode rounds
+included.
 
 Cache writes are out of place (``torch.where`` against a one-hot slot
 mask), so a step returns new caches as the reference's functional update
@@ -121,6 +124,23 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     inv = rope_freqs(head_dim, theta, positions.device)
     ang = positions[..., None].float() * inv
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections):
+    """Qwen2-VL multimodal RoPE: positions (3, B, S) of temporal, height
+    and width ids; ``sections`` splits head_dim/2 across the three.
+    Returns cos/sin (B, S, head_dim/2), each section from its own ids."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim/2 = {head_dim // 2}")
+    cos, sin = rope_cos_sin(positions, head_dim, theta)  # (3, B, S, hd/2)
+    bounds = [0]
+    for sec in sections:
+        bounds.append(bounds[-1] + sec)
+    pick = lambda t: torch.cat([t[i, ..., bounds[i]:bounds[i + 1]]
+                                for i in range(3)], -1)
+    return pick(cos), pick(sin)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
@@ -428,6 +448,17 @@ def _attend(q, k, v, causal, window, mode, q_chunk, training=False):
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_chunk=q_chunk)
     return dot_attention(q, k, v, causal=causal, window=window)
+
+
+def cross_attend(q, k, v, training: bool = False) -> torch.Tensor:
+    """Unmasked attention of q (B,S,Hq,hd) over k/v (B,T,Hkv,hd), any S
+    and T (the encoder-decoder's cross-attention): the flash kernel
+    (non-causal) for CUDA tensors outside training, the reference's
+    ``dot_attention`` on the CPU and under ``training``."""
+    if q.device.type == "cuda" and not training:
+        from repro_torch.kernels import ops
+        return ops.flash_attention(q, k, v, causal=False)
+    return dot_attention(q, k, v, causal=False)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Decoder-only transformer stacks of the dense, MoE, SSM and hybrid
-families.
+"""Transformer stacks of every family: decoder-only (dense, MoE, SSM,
+hybrid, vision) and encoder-decoder.
 
 Counterpart of ``repro.models.transformer``. The layer stack keeps the
 reference's (pattern, repeats) *segments* and its stacked parameter
@@ -20,12 +20,24 @@ layers' a ring of ``window`` slots), {"conv" (reps, B, 3, W), "state"
 (reps, B, W)} for an RG-LRU block (``models.griffin``), {"conv" (reps, B,
 W-1, conv_dim), "state" (reps, B, H, P, N)} for a Mamba-2 block
 (``models.ssm``). An MoE block is attention then ``moe.moe_ffn``, whose
-load-balance loss is the block's aux. The encoder-decoder and vision
-families raise ``NotImplementedError`` (ROADMAP.md queue 1 C.4-C.5).
+load-balance loss is the block's aux.
+
+Frontends (the modality towers are stubs, as in the reference): the
+encoder-decoder (whisper) runs ``encode`` over precomputed frame
+embeddings (``audio_embed``, B x F x d) with fixed sinusoidal positions
+and non-causal self-attention, projects the encoder output once into
+every decoder layer's cross K/V (``_encoder_kv``, passed back as
+``enc_kv`` in decode), and inserts a cross-attention after each decoder
+block's MLP, as the reference does; the decoder adds sinusoidal
+positions to its token embeddings (``rope_theta = 0``). The vision family
+(qwen2-vl) writes the patch embeddings (``vision_embed``) over the first
+positions of a prompt at least as long as them, and takes M-RoPE cos/sin
+from ``mrope_pos`` (3, B, S) when given, plain RoPE otherwise.
 
 ``apply_lm`` is ``embed`` then ``apply_hidden``, so a grouped caller can
 gather the embeddings itself (``layers.embed_grouped``) and start from
-them. A training forward (``training=True``) takes the differentiable
+them; the patch insert and the decoder's sinusoidal positions are in
+``apply_hidden``, which both routes pass. A training forward (``training=True``) takes the differentiable
 plain paths on every device (the flash and RG-LRU kernels have no
 backward) and, with ``remat="full"``, recomputes each layer repeat in the
 backward pass (``torch.utils.checkpoint``, the reference's
@@ -46,8 +58,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import griffin, moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.layers import (
-    apply_norm, embed, init_attention, init_embedding, init_linear, init_mlp,
-    init_norm, linear, mlp, rope_cos_sin, self_attention,
+    apply_norm, cross_attend, embed, init_attention, init_embedding,
+    init_linear, init_mlp, init_norm, linear, mlp, mrope_cos_sin,
+    rope_cos_sin, self_attention,
 )
 from repro_torch.tree import stack_drawn, tree_map
 
@@ -55,25 +68,25 @@ Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-_DENSE_KINDS = ("attn", "local", "global")
-_KINDS = _DENSE_KINDS + ("lru", "moe", "ssm")
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# "xattn" is the reference's public decoder block with its own
+# cross-attention leaves; stack_plan never yields it (encdec keeps its
+# cross-attention in params["xattn"])
+_KINDS = ("attn", "local", "global", "xattn", "lru", "moe", "ssm")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what}: the dense, MoE, SSM and hybrid families are ported; the "
-        f"encoder-decoder (whisper) and vision (qwen2-vl) parties are "
-        f"ROADMAP.md queue 1 C.4-C.5")
-
-
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
-        raise _unported(f"family {cfg.family!r}")
+        raise ValueError(f"family {cfg.family!r} (one of {_FAMILIES})")
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in _KINDS:
+        raise ValueError(f"block kind {kind!r} (one of {_KINDS})")
 
 
 # ---------------------------------------------------------------------------
@@ -117,8 +130,7 @@ def _layer_window(cfg: ModelConfig, kind: str) -> int:
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
-    if kind not in _KINDS:
-        raise _unported(f"block kind {kind!r}")
+    _check_kind(kind)
     dtype = torch_dtype(cfg.dtype)
     d = cfg.d_model
     dev = gen.device
@@ -139,15 +151,20 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
         p["moe"] = moe_mod.init_moe(gen, d, cfg.moe, cfg.act, dtype)
     else:
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.act, dtype)
+    if kind == "xattn":
+        p["lnx"] = init_norm(cfg.norm, d, dtype, dev)
+        p["xattn"] = init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.resolved_head_dim, cfg.qkv_bias,
+                                    dtype)
     return p
 
 
 def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
                 cos, sin, cache: Optional[dict], window_override: int = -1,
                 causal: bool = True, training: bool = False):
-    """Returns (x, new_cache, aux)."""
-    if kind not in _KINDS:
-        raise _unported(f"block kind {kind!r}")
+    """Returns (x, new_cache, aux). An "xattn" block applies as "attn"
+    (its cross-attention leaves are unused), as in the reference."""
+    _check_kind(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm":
         h, new_cache = ssm_mod.ssm_block(
@@ -185,8 +202,7 @@ def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                  window_override: int = -1, per_lane: bool = False,
                  device=None):
-    if kind not in _KINDS:
-        raise _unported(f"block kind {kind!r}")
+    _check_kind(kind)
     dtype = torch_dtype(cfg.dtype)
     if kind == "ssm":
         return ssm_mod.init_ssm_cache(batch, cfg.d_model, cfg.ssm, dtype,
@@ -244,7 +260,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Backbone parameters on the generator's device, in the reference's
     layout (segment leaves stacked over the reps axis, each block drawn
-    into its row: one copy of the weights and one block's beside it)."""
+    into its row: one copy of the weights and one block's beside it). An
+    encoder-decoder adds "encoder" ({"blocks": (n_encoder_layers, ...),
+    "norm"}) and "xattn" ({"lnx", "attn"}, (n_layers, ...))."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
     params: Params = {
@@ -261,15 +279,44 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
             lambda _, kind=kind: init_block(gen, cfg, kind), reps)
             for i, kind in enumerate(kinds)})
     params["segments"] = segs
+    if cfg.family == "encdec":
+        dtype_ = torch_dtype(cfg.dtype)
+        params["encoder"] = {
+            "blocks": stack_drawn(lambda _: init_block(gen, cfg, "attn"),
+                                  cfg.n_encoder_layers),
+            "norm": init_norm(cfg.norm, cfg.d_model, dtype_, gen.device)}
+        params["xattn"] = stack_drawn(lambda _: {
+            "lnx": init_norm(cfg.norm, cfg.d_model, dtype_, gen.device),
+            "attn": init_attention(gen, cfg.d_model, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.resolved_head_dim,
+                                   cfg.qkv_bias, dtype_)}, cfg.n_layers)
     return params
 
 
-def _cos_sin(cfg: ModelConfig, positions: torch.Tensor):
+def _sinusoid_rows(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Fixed sinusoidal positions [sin | cos] in float32, (..., d) for
+    ``positions`` (...): the rows of the reference's table (32,776 x d,
+    built whole on every apply_lm call there), computed alone, since
+    every entry depends on its own position only."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=positions.device)
+    ang = positions.float()[..., None] / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def _sinusoid(S: int, d: int, dtype, device=None) -> torch.Tensor:
+    """The first S rows (S, d), cast to ``dtype``."""
+    return _sinusoid_rows(torch.arange(S, device=device), d).to(dtype)
+
+
+def _cos_sin(cfg: ModelConfig, positions: torch.Tensor,
+             mrope_pos: Optional[torch.Tensor] = None):
+    hd = cfg.resolved_head_dim
     if cfg.rope_theta <= 0:
         return None, None
-    if cfg.family == "vlm":
-        raise _unported("M-RoPE (qwen2-vl)")
-    return rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    if cfg.family == "vlm" and mrope_pos is not None:
+        return mrope_cos_sin(mrope_pos, hd, cfg.rope_theta,
+                             cfg.mrope_sections)
+    return rope_cos_sin(positions, hd, cfg.rope_theta)
 
 
 REMAT_DOTS_TODO = ("remat='dots' (save the matmul outputs, recompute the "
@@ -289,21 +336,26 @@ def _remat(cfg: ModelConfig, training: bool) -> bool:
 
 def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
                   window_override: int = -1, training: bool = False,
-                  group: bool = False):
+                  group: bool = False, xattn=None):
     """Every layer of every (pattern, reps) segment in order. Returns
     (x, new_caches, aux); with ``group`` x, aux and the leaves carry the
-    party axis in front (no caches)."""
+    party axis in front (no caches). ``xattn`` = (cross-attention params,
+    k, v), leaves with a leading layer axis (behind the party axis with
+    ``group``): layer l's cross-attention follows layer l's block."""
     if caches is not None and (group or training):
         raise ValueError("a grouped or training forward carries no caches")
     remat = _remat(cfg, training)
     aux_total = torch.zeros((x.shape[0],) if group else (),
                             dtype=torch.float32, device=x.device)
     new_caches = []
+    layer = 0
     for si, (kinds, reps) in enumerate(stack_plan(cfg)):
         seg_params = params["segments"][si]
         seg_cache = caches[si] if caches is not None else None
+        if xattn is not None and len(kinds) != 1:
+            raise ValueError("cross-attention needs a pattern of length 1")
 
-        def rep(p_rep, x, c_rep=None, kinds=kinds):
+        def rep(p_rep, x, c_rep=None, x_rep=None, kinds=kinds):
             """One repeat of the segment's pattern: (x, new_caches, aux)."""
             aux, new_c = None, {}
             for i, kind in enumerate(kinds):
@@ -315,10 +367,14 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
                 if nc is not None:
                     new_c[f"p{i}"] = nc
                 aux = a if aux is None else aux + a
+                if x_rep is not None:
+                    x = _apply_xattn(x_rep, x, cfg, training)
             return x, new_c, aux
 
         if group:   # (x, aux) of every party at once
-            rep = vmap(lambda p_rep, x, rep=rep: rep(p_rep, x)[::2])
+            rep = vmap(lambda p_rep, x, x_rep, rep=rep:
+                       rep(p_rep, x, None, x_rep)[::2],
+                       in_dims=(0, 0, None if xattn is None else 0))
         if remat:
             rep = functools.partial(checkpoint, rep, use_reentrant=False,
                                     preserve_rng_state=False)
@@ -326,14 +382,19 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
         for r in range(reps):
             take = (lambda a: a[:, r]) if group else (lambda a: a[r])
             p_rep = tree_map(take, seg_params)
+            x_rep = None
+            if xattn is not None:
+                x_rep = tree_map((lambda a: a[:, layer + r]) if group
+                                 else (lambda a: a[layer + r]), xattn)
             if seg_cache is not None:
-                x, new_c, a = rep(p_rep, x, tree_map(take, seg_cache))
+                x, new_c, a = rep(p_rep, x, tree_map(take, seg_cache), x_rep)
                 per_rep.append(new_c)
             elif group:
-                x, a = rep(p_rep, x)
+                x, a = rep(p_rep, x, x_rep)
             else:
-                x, _, a = rep(p_rep, x)
+                x, _, a = rep(p_rep, x, None, x_rep)
             aux_total = aux_total + a
+        layer += reps * len(kinds)
         if seg_cache is not None:
             new_caches.append({
                 key: tree_map(lambda *xs: torch.stack(xs),
@@ -344,23 +405,120 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
     return x, (new_caches if caches is not None else None), aux_total
 
 
+def _apply_xattn(x_rep, x: torch.Tensor, cfg: ModelConfig,
+                 training: bool = False) -> torch.Tensor:
+    """The decoder's cross-attention insert for one layer: x_rep =
+    (params, k, v), k/v (B, F, Hkv, hd) of the encoder output."""
+    xp, ek, ev = x_rep
+    h = apply_norm(xp["lnx"], x, cfg.rms_eps)
+    B, S, _ = h.shape
+    hd = cfg.resolved_head_dim
+    q = linear(xp["attn"]["wq"], h).reshape(B, S, cfg.n_heads, hd)
+    o = cross_attend(q, ek, ev, training)
+    return x + linear(xp["attn"]["wo"], o.reshape(B, S, cfg.n_heads * hd))
+
+
+def _layer_stack(tree, n: int, group: bool):
+    """Layer l of (n, ...) leaves, or of (K, n, ...) leaves with ``group``."""
+    return [tree_map((lambda a: a[:, l]) if group else (lambda a: a[l]),
+                     tree) for l in range(n)]
+
+
+def encode(params: Params, audio_embed: torch.Tensor, cfg: ModelConfig, *,
+           training: bool = False, group: bool = False) -> torch.Tensor:
+    """Whisper-style encoder over stubbed frame embeddings (B, F, d):
+    sinusoidal positions, then ``n_encoder_layers`` non-causal attention
+    blocks and a norm. ``group``: the leaves carry K stacked parties in
+    front, and so does the output (K, B, F, d)."""
+    x = audio_embed + _sinusoid(audio_embed.shape[-2], cfg.d_model,
+                                audio_embed.dtype, audio_embed.device)
+    enc = params["encoder"]
+
+    def block(p, x):
+        return apply_block(p, x, cfg=cfg, kind="attn", cos=None, sin=None,
+                           cache=None, causal=False, training=training)[0]
+
+    norm = functools.partial(apply_norm, eps=cfg.rms_eps)
+    if group:
+        block, norm = vmap(block), vmap(norm)
+        x = x.expand((enc["norm"]["scale"].shape[0],) + tuple(x.shape))
+    for p in _layer_stack(enc["blocks"], cfg.n_encoder_layers, group):
+        x = block(p, x)
+    return norm(enc["norm"], x)
+
+
+def _encoder_kv(params: Params, enc_out: torch.Tensor, cfg: ModelConfig, *,
+                group: bool = False):
+    """Every decoder layer's cross K/V from the encoder output (B, F, d):
+    (k, v), each (n_layers, B, F, Hkv, hd). ``group``: enc_out (K, B, F,
+    d) and leaves with K in front give (K, n_layers, B, F, Hkv, hd),
+    laid out layer-major, so that one layer's K/V across the group,
+    ``k[:, l]``, is one contiguous block."""
+    shape = enc_out.shape[:-1] + (cfg.n_kv_heads, cfg.resolved_head_dim)
+    lin = vmap(linear) if group else linear
+    layers = _layer_stack(params["xattn"]["attn"], cfg.n_layers, group)
+
+    def proj(name):
+        t = torch.stack([lin(p[name], enc_out).reshape(shape)
+                         for p in layers])
+        return t.transpose(0, 1) if group else t
+
+    return proj("wk"), proj("wv")
+
+
 def apply_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  positions: Optional[torch.Tensor] = None, caches=None,
                  pos_offset=0, window_override: int = -1,
                  return_hidden: bool = False, training: bool = False,
-                 group: bool = False):
+                 group: bool = False,
+                 mrope_pos: Optional[torch.Tensor] = None,
+                 vision_embed: Optional[torch.Tensor] = None,
+                 audio_embed: Optional[torch.Tensor] = None,
+                 enc_kv: Optional[Tuple] = None):
     """The stack after the token embedding: x (B, S, d_model), or (K, B,
     S, d_model) with ``group``. Returns (logits | hidden, new_caches,
-    aux); ``group`` returns the hidden states only."""
+    aux); ``group`` returns the hidden states only.
+
+    Frontend inputs, shared by every party of a group: ``vision_embed``
+    (B, n_vision_tokens, d) replaces the first positions of a prompt at
+    least that long (decode steps carry no patches); ``mrope_pos`` (3, B,
+    S) gives a vision model M-RoPE; an encoder-decoder takes
+    ``audio_embed`` (B, F, d), encoded here, or the cross K/V ``enc_kv``
+    computed from it once (``_encoder_kv``; with ``group`` K stacked
+    ones)."""
     _check_family(cfg)
     B, S = x.shape[-3:-1]
+    if cfg.family == "vlm" and vision_embed is not None \
+            and S >= vision_embed.shape[-2]:
+        n = vision_embed.shape[-2]
+        ve = vision_embed.to(x.dtype).expand(x.shape[:-2] + (n, x.shape[-1]))
+        x = torch.cat([ve, x[..., n:, :]], dim=-2)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None] + pos_offset
         positions = positions.expand(B, S)
-    cos, sin = _cos_sin(cfg, positions)
+    cos, sin = _cos_sin(cfg, positions, mrope_pos)
+    xattn = None
+    if cfg.family == "encdec":
+        if cfg.rope_theta <= 0:
+            # sinusoidal absolute positions for the whisper-style decoder
+            x = x + _sinusoid_rows(positions, cfg.d_model).to(x.dtype)
+        if enc_kv is None:
+            if audio_embed is None:
+                # the reference asserts here; a caller that feeds tokens
+                # only (the launchers) gets this error, not invented audio
+                raise ValueError(
+                    f"{cfg.name}: an encoder-decoder needs audio_embed "
+                    f"(B, {cfg.n_audio_frames}, {cfg.d_model}) frame "
+                    f"embeddings or their enc_kv (EasterLM.encoder_kv)")
+            enc_kv = _encoder_kv(
+                params, encode(params, audio_embed, cfg, training=training,
+                               group=group), cfg, group=group)
+        k, v = enc_kv
+        xattn = (params["xattn"], k, v)
     x, new_caches, aux = _run_segments(
         params, x, cfg=cfg, cos=cos, sin=sin, caches=caches,
-        window_override=window_override, training=training, group=group)
+        window_override=window_override, training=training, group=group,
+        xattn=xattn)
     if group:
         if not return_hidden:
             raise ValueError("a grouped forward returns the hidden states")
@@ -384,12 +542,12 @@ def apply_lm(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     """Forward pass. tokens (B, S). Returns (logits | hidden, new_caches,
     aux). Decode: pass ``caches`` (from init_cache or the previous step)
     and ``pos_offset`` = the current sequence index (an int, a 0-d tensor
-    or a (B, 1) tensor of per-lane positions)."""
-    _check_family(cfg)
-    if frontend:
-        raise _unported(f"frontend inputs {sorted(frontend)}")
+    or a (B, 1) tensor of per-lane positions). ``frontend``: the
+    ``apply_hidden`` keywords ``mrope_pos``, ``vision_embed``,
+    ``audio_embed`` and ``enc_kv``."""
     return apply_hidden(params, embed(params["embed"], tokens), cfg,
                         positions=positions, caches=caches,
                         pos_offset=pos_offset,
                         window_override=window_override,
-                        return_hidden=return_hidden, training=training)
+                        return_hidden=return_hidden, training=training,
+                        **frontend)

@@ -32,9 +32,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.tree import tree_leaves
 
 RTOL, ATOL = 1e-4, 1e-5
-# the reference's archs that wait for their frontends (ROADMAP.md C.4-C.5)
-UNPORTED = {"whisper-small", "qwen2-vl-7b"}
-PORTED = sorted(set(jcfg.list_archs()) - UNPORTED)
+PORTED = sorted(jcfg.list_archs())
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -78,11 +76,11 @@ def _tree(x):
 
 
 def test_registry_holds_every_arch_but_the_frontend_families():
-    assert tcfg.list_archs() == PORTED and len(PORTED) == 9
-    assert {jcfg.get_config(a).family for a in UNPORTED} == {"encdec", "vlm"}
-    for arch in UNPORTED:
-        with pytest.raises(KeyError):
-            tcfg.get_config(arch)
+    """Every one of the reference's 11 archs, the two frontend families
+    (encoder-decoder, vision) among them."""
+    assert tcfg.list_archs() == PORTED and len(PORTED) == 11
+    assert {tcfg.get_config(a).family for a in PORTED} == {
+        "dense", "moe", "ssm", "hybrid", "encdec", "vlm"}
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -122,14 +120,18 @@ def test_gemma3_stack_plan_and_windows():
 
 
 def test_unported_families_raise():
-    for arch, what in (("whisper-small", "family 'encdec'"),
-                       ("qwen2-vl-7b", "family 'vlm'")):
-        cfg = tcfg.ModelConfig(**{
-            k: v for k, v in dataclasses.asdict(jcfg.get_config(arch))
-            .items() if k not in ("moe", "ssm", "hybrid")})
-        with pytest.raises(NotImplementedError, match="C.4-C.5") as e:
-            TT._check_family(cfg)
-        assert what in str(e.value)
+    """The frontend families are ported: _check_family accepts them and
+    the port builds their stack plans (the reference's); a family outside
+    the six still raises."""
+    for arch, family in (("whisper-small", "encdec"),
+                         ("qwen2-vl-7b", "vlm")):
+        cfg = tcfg.get_config(arch)
+        assert cfg.family == family
+        TT._check_family(cfg)
+        assert TT.stack_plan(cfg) == JT.stack_plan(jcfg.get_config(arch))
+        assert TT.stack_plan(cfg) == [(("attn",), cfg.n_layers)]
+    with pytest.raises(ValueError, match="family 'rnn'"):
+        TT._check_family(dataclasses.replace(cfg, family="rnn"))
 
 
 # ---------------------------------------------------------------------------

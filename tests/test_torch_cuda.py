@@ -31,7 +31,9 @@ at qwen2-moe-a2.7b's width run twice gives the same bits; the SSD mixer at
 mamba2-2.7b's width over a 2047-token prompt against the CPU within rtol
 1e-4 / atol 1e-5 x max|out| (float32, TF32 off: matmuls of 2,560 and
 5,120 terms summed in another order); the smoke variants' EasterLM
-prefill and decode round within rtol 1e-4 / atol 1e-5, as Griffin's.
+prefill and decode round within rtol 1e-4 / atol 1e-5, as Griffin's;
+the frontend families' (whisper-small, qwen2-vl-7b) smoke variants the
+same, whisper's cross K/V included.
 """
 import numpy as np
 import pytest
@@ -948,6 +950,86 @@ def test_cuda_moe_ssm_gemma3_easter_lm_match_cpu(cuda, arch, n_layers,
     assert out[0][2] == attn(card.party_cfgs[0]) + per * attn(
         card.party_cfgs[1])
     assert out[1][2] == 0
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,heads,causal", [
+    (1, 1500, 1500, (12, 12, 64), False), (4, 1500, 1500, (12, 12, 64), False),
+    (4, 3, 1500, (12, 12, 64), False), (12, 1, 1500, (12, 12, 64), False),
+    (4, 1, 1500, (12, 12, 64), False), (1, 1279, 1279, (28, 4, 128), True),
+    (4, 2047, 2047, (28, 4, 128), True)])
+def test_cuda_flash_matches_plain_at_frontend_shapes(cuda, B, S, T, heads,
+                                                     causal, dtype):
+    """The frontend families' shapes: whisper-small's non-causal encoder
+    over 1500 frames (12/12/64) and its cross-attention (S = 3 at the
+    prefill, S = 1 in a decode round, against T = 1500, B = 4 lanes or the
+    passive group's 12), qwen2-vl-7b's causal 28/4/128 prefills (a GQA
+    group of 7: query head h reads kv head h // 7), with the tolerances
+    of the prefill shapes above."""
+    dt = _TDT[dtype]
+    q, k, v = _flash_inputs(B, S, T, *heads, dt, cuda, B * S + T)
+    out = tfa.flash_attention_fwd(q, k, v, causal=causal)
+    _flash_close(out, ref.reference_attention(q, k, v, causal=causal), dt)
+    if dt == torch.bfloat16:
+        assert _bf16_bound_used(out, q, k, v, causal) <= 1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("engine", ["vectorized", "loop"])
+@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-7b"])
+def test_cuda_frontend_easter_lm_match_cpu(cuda, arch, engine):
+    """The frontend families' smoke variants served on the card against
+    the CPU port (float32, TF32 off, rtol 1e-4 / atol 1e-5): whisper's
+    encoder_kv, a prefill and a decode round given the cross K/V;
+    qwen2-vl's prefill of 20 tokens with its 8 patch embeddings and a
+    decode round. Launches: one flash_attention_fwd per encoder layer and
+    per self- and cross-attention layer (once for the passive group on
+    the vectorized engine), the decode round's cross-attention included."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.core.easter_lm import EasterLM
+    from repro_torch.models.build import frontend_inputs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_config(arch))
+    card = EasterLM(cfg, EasterConfig(), engine=engine)
+    cpu = EasterLM(cfg, EasterConfig(), engine=engine, device="cpu")
+    params0 = cpu.export_params(
+        cpu.init_params(torch.Generator().manual_seed(0)))
+    gen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 21), generator=gen)
+    fe = frontend_inputs(cfg, 2, gen)
+    out = []
+    for sys_ in (card, cpu):
+        params = sys_.load_params(params0)
+        seeds = sys_.mask_seeds()
+        tfa.reset_launches()
+        if "audio_embed" in fe:
+            fe_list = sys_.encoder_kv(params,
+                                      fe["audio_embed"].to(sys_.device))
+            kv = [f["enc_kv"][0].cpu() for f in fe_list]
+        else:
+            fe_list = [{"vision_embed": fe["vision_embed"].to(
+                sys_.device)}] * sys_.C
+            kv = []
+        t = tok.to(sys_.device)
+        E, caches = sys_.prefill(params, t[:, :-1], sys_.init_caches(2, 24),
+                                 fe_list=fe_list, seeds=seeds, round_idx=3)
+        logits, _ = sys_.serve_step(params, t[:, -1:], caches, 20, seeds,
+                                    fe_list=fe_list)
+        out.append((E.cpu(), logits.cpu(), kv,
+                    tfa.LAUNCHES["flash_attention_fwd"]))
+    c0, c1 = card.party_cfgs[:2]
+    per = 1 if engine == "vectorized" else card.easter.num_passive
+    if cfg.family == "encdec":
+        want = (c0.n_encoder_layers + per * c1.n_encoder_layers
+                + 3 * (c0.n_layers + per * c1.n_layers))
+    else:
+        want = c0.n_layers + per * c1.n_layers
+    assert out[0][3] == want and out[1][3] == 0
+    for a, b in zip(out[0][2], out[1][2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-5)
 

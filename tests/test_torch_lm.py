@@ -367,23 +367,28 @@ def test_transformer_matches(backbone):
 
 
 def test_unported_families_raise():
-    """The encoder-decoder and vision families, the cross-attention block
-    and the frontend inputs wait for ROADMAP.md C.4-C.5 (the MoE and SSM
-    families are ported: tests/test_torch_moe.py, test_torch_ssm.py)."""
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="C.4-C.5"):
-            TT.init_lm(torch.Generator(), tcfg.ModelConfig(family=family))
+    """The sharded engine waits for ROADMAP.md queue 1 item 14. The
+    encoder-decoder and vision families, the cross-attention block and
+    the frontend inputs are ported (tests/test_torch_frontends.py holds
+    them against the reference): they build, and a dense party's
+    loss_fn ignores a frontend key, as the reference's does."""
     _, tc = _cfgs("qwen2.5-3b")
-    with pytest.raises(NotImplementedError, match="C.4-C.5"):
-        TT.init_block(torch.Generator(), tc, "xattn")
     with pytest.raises(NotImplementedError, match="item 14"):
         TLM(tc, tcfg.EasterConfig(), engine="sharded", device="cpu")
+    for family in ("encdec", "vlm"):
+        p = TT.init_lm(torch.Generator(), dataclasses.replace(
+            tcfg.ModelConfig(family=family), n_encoder_layers=1))
+        assert ("encoder" in p and "xattn" in p) == (family == "encdec")
+    assert "xattn" in TT.init_block(torch.Generator(), tc, "xattn")
     sys_ = TLM(tc, tcfg.EasterConfig(), device="cpu")
     params = sys_.init_params(torch.Generator().manual_seed(0))
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="C.4-C.5"):
-        sys_.loss_fn(params, {"tokens": tok, "labels": tok,
-                              "audio_embed": tok}, 0, None)
+    with torch.no_grad():
+        plain = sys_.loss_fn(params, {"tokens": tok, "labels": tok}, 0, None)
+        extra = sys_.loss_fn(params, {"tokens": tok, "labels": tok,
+                                      "audio_embed": torch.ones(1, 3, 8),
+                                      "note": "ignored"}, 0, None)
+    assert all(torch.equal(a, b) for a, b in zip(plain, extra))
 
 
 # ---------------------------------------------------------------------------
