@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phase train
     python3 chip_smoke.py --phase moe        # or mamba, or cuts
     python3 chip_smoke.py --phase whisper    # or vlm, or frontend_cuts
+    python3 chip_smoke.py --phase baselines  # or wire
 
 Phases, each printing its own lines:
 
@@ -56,6 +57,21 @@ Phases, each printing its own lines:
   wires   the vectorized engine against the loop engine on the card at
           Table II (step-0 losses and gradients), and the int32 and int8
           ring wires at C = 64 against the CPU port (step-0 losses).
+  baselines  the paper's Table II methods at its setting: Local, SplitVFL,
+          C_VFL (top-k 0.25), AggVFL, and EASTER with a top-k 0.25 uplink
+          (float masks through blind_agg_fwd, and fused masks through
+          blind_agg_prng_fwd), 30 rounds each on the card, step 0 against
+          the CPU port, ms per step, per-party test accuracy, bytes per
+          round; then one compressed grad_mode="joint" round
+          (blind_agg_bwd), gradients against the CPU port. Launches
+          asserted round by round (none for the four baselines).
+  wire    WireEaster at Table II (C = 4, the slice's weights): three
+          passive processes on the card, 20 rounds on the float wire and
+          20 on the int8 wire, then evaluate; round 0 against the same run
+          on the CPU; the float transcript audited (blinded, not raw; the
+          masks cancel; the uplink kinds) and its bytes against
+          EasterClassifier.bytes_per_round; start() seconds, ms per round
+          beside the in-process loop engine's.
   engines the Table II masks and train step on the vectorized and the
           loop engine, timed in turns (vectorized, loop, loop, vectorized).
   timing  each kernel, its plain version and its bound, timed with CUDA
@@ -228,8 +244,9 @@ Phases, each printing its own lines:
 
 --phase runs one timing phase alone after the build, for comparing two
 checkouts in turns (the other checkout's tree given this script):
-engines, many, rg (the recurrentgemma-9b serving run), moe and mamba (the
-qwen2-moe-a2.7b and mamba2-2.7b serving runs), whisper and vlm (the
+engines, many, baselines, wire, rg (the recurrentgemma-9b serving run),
+moe and mamba (the qwen2-moe-a2.7b and mamba2-2.7b serving runs),
+whisper and vlm (the
 whisper-small and qwen2-vl-7b serving runs), frontend_cuts (whisper_cut
 and vlm_cut), cuts (gemma_cut, moe_cut, mamba_cut, whisper_cut and
 vlm_cut), train (the train phase), agg (the
@@ -240,7 +257,8 @@ cases, their outputs saved with --save or compared bit for bit with
 another checkout's file with --compare, then the prng timing).
 
 The launch counters are set to 0 just before each counted path (slice,
-joint, many-party fused, many-party joint, many-party unfused, qwen2.5-3b
+joint, many-party fused, many-party joint, many-party unfused, Table II
+top-k (float masks, fused masks, joint), qwen2.5-3b
 serving, recurrentgemma-9b serving, qwen2-1.5b training, its joint step,
 qwen2-moe-a2.7b serving, mamba2-2.7b serving, whisper-small serving,
 qwen2-vl-7b serving) and read just after; every kernel
@@ -1096,6 +1114,298 @@ def phase_wires(params0_t2, batches):
                      f"one quantization step away)")
         if not (same and rel <= limit):
             raise AssertionError(f"{mode} wire differs between card and CPU")
+
+
+# the paper's baselines (Table II) and compressed EASTER at Table II: one
+# builder per method, by device
+BASELINES = ("local", "split", "cvfl", "agg", "easter_topk",
+             "easter_topk_fused")
+TOPK_FRAC = 0.25
+
+
+def _build_method(name, device, grad_mode="easter"):
+    from repro_torch.core import baselines
+    arches, nf = table2_arches(4, 10, D_EMBED), [196] * 4
+    if name == "local":
+        return baselines.LocalOnly(arches, nf, device=device)
+    if name in ("split", "cvfl"):
+        return baselines.SplitVFL(
+            arches, nf, 10, compress_frac=TOPK_FRAC if name == "cvfl" else 0,
+            device=device)
+    if name == "agg":
+        return baselines.AggVFL(arches, nf, device=device)
+    return _build_slice(grad_mode, device, compress_frac=TOPK_FRAC,
+                        fused_masks=name == "easter_topk_fused")
+
+
+def _method_step(m):
+    from repro_torch.core import baselines
+    if hasattr(m, "easter"):       # EasterClassifier: per-party optimizers
+        return m.make_train_step("adam", 1e-3)
+    return baselines.make_train_step(m, "adam", 1e-3)
+
+
+def _method_masks(m, i):
+    return m.masks(SLICE_BATCH, i) if hasattr(m, "easter") else None
+
+
+def phase_baselines(ds, batches):
+    """Table II's methods on the card: Local, SplitVFL, C_VFL, AggVFL and
+    EASTER with a top-k uplink (float masks and fused), 30 rounds each,
+    step 0 against the CPU port; then one compressed joint round."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.kernels import blind_agg as tba
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    xs_te, y_te = _to(ds.x_test_parts, ds.y_test, "cuda")
+    out, paths = {}, {}
+    for name in BASELINES:
+        gpu, cpu = _build_method(name, "cuda"), _build_method(name, "cpu")
+        params0 = checkpoint.params_to_numpy(
+            cpu.init_params(torch.Generator().manual_seed(0)))
+        params = checkpoint.params_from_numpy(params0, "cuda")
+        init_opt, step = _method_step(gpu)
+        opt = init_opt(params)
+        key = {"easter_topk": "blind_agg_fwd",
+               "easter_topk_fused": "blind_agg_prng_fwd"}.get(name)
+        ms, totals = [], []
+        torch.cuda.synchronize()
+        tba.reset_launches()
+        for i in range(SLICE_ROUNDS):
+            xs, y = _to(*batches[i], "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            masks = _method_masks(gpu, i)
+            params, opt, total, per = step(params, opt, xs, y, masks)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            totals.append(float(total))
+            want = {k: 0 for k in tba.LAUNCHES}
+            if key:
+                want[key] = i + 1
+            if tba.LAUNCHES != want:
+                raise AssertionError(f"{name} round {i}: launches "
+                                     f"{tba.LAUNCHES} != {want}")
+            if i == 0:
+                per0, masks0 = per.cpu(), masks
+        if key:
+            paths[name] = _agg_launches()
+        # step 0 on the CPU port, from the same weights (and float masks)
+        cparams = checkpoint.params_from_numpy(params0, "cpu")
+        cinit, cstep = _method_step(cpu)
+        cm = (masks0.cpu() if isinstance(masks0, torch.Tensor)
+              else _method_masks(cpu, 0))
+        _, _, _, cper = cstep(cparams, cinit(cparams),
+                              *_to(*batches[0], "cpu"), cm)
+        rel = float(((per0 - cper).abs() / cper.abs()).max())
+        log("baselines", f"{name} step 0 per-party losses card "
+                         f"{[round(float(v), 6) for v in per0]}: max rel "
+                         f"diff to the CPU port {rel:.3g} (limit 1e-4)")
+        if not rel <= 1e-4:
+            raise AssertionError(f"{name} step 0 differs between card and "
+                                 f"CPU")
+        if not all(math.isfinite(t) for t in totals):
+            raise AssertionError(f"{name}: non-finite loss {totals}")
+        first, last = statistics.mean(totals[:3]), statistics.mean(totals[-3:])
+        if not last < first:
+            raise AssertionError(f"{name}: total loss did not fall")
+        acc = [round(float(a), 4) for a in gpu.accuracy(params, xs_te, y_te)]
+        out[name] = {"ms": statistics.median(ms[5:]), "accuracy": acc,
+                     "bytes_per_round": gpu.bytes_per_round(SLICE_BATCH),
+                     "loss_first3": first, "loss_last3": last}
+        if name == "agg":
+            out[name]["aggregate_accuracy"] = round(float(
+                gpu.aggregate_accuracy(params, xs_te, y_te)), 4)
+        log("baselines", f"{name}: {SLICE_ROUNDS} rounds, total loss "
+                         f"{first:.4f} -> {last:.4f} (means of the first "
+                         f"and last 3); ms per step {out[name]['ms']:.3f} "
+                         f"(median of rounds 5-{SLICE_ROUNDS - 1}); "
+                         f"per-party test accuracy {acc}"
+                         + (f" (averaged prediction "
+                            f"{out[name]['aggregate_accuracy']})"
+                            if name == "agg" else "")
+                         + f"; bytes per round "
+                         f"{out[name]['bytes_per_round']}")
+    # one compressed joint round: the backward kernel on sparsified rows
+    gpu = _build_method("easter_topk", "cuda", "joint")
+    cpu = _build_method("easter_topk", "cpu", "joint")
+    params0 = checkpoint.params_to_numpy(
+        cpu.init_params(torch.Generator().manual_seed(0)))
+    params = checkpoint.params_from_numpy(params0, "cuda")
+    init_opt, step = gpu.make_train_step("adam", 1e-3)
+    xs, y = _to(*batches[0], "cuda")
+    masks = gpu.masks(SLICE_BATCH, 0)
+    torch.cuda.synchronize()
+    tba.reset_launches()
+    step(params, init_opt(params), xs, y, masks)
+    torch.cuda.synchronize()
+    paths["easter_topk_joint"] = _agg_launches()
+    if (tba.LAUNCHES["blind_agg_fwd"], tba.LAUNCHES["blind_agg_bwd"]) != \
+            (1, 1):
+        raise AssertionError(f"compressed joint round launches "
+                             f"{tba.LAUNCHES}")
+    gp = checkpoint.params_from_numpy(params0, "cuda")
+    cp = checkpoint.params_from_numpy(params0, "cpu")
+    gt, _ = gpu.loss_fn(gp, xs, y, masks)
+    ct, _ = cpu.loss_fn(cp, *_to(*batches[0], "cpu"), masks.cpu())
+    worst = max(float(((a.cpu() - b).abs() / (1e-5 + 1e-4 * b.abs())).max())
+                for a, b in zip(torch.autograd.grad(gt, tree_leaves(gp)),
+                                torch.autograd.grad(ct, tree_leaves(cp))))
+    log("baselines", f"compressed joint round: launches "
+                     f"{paths['easter_topk_joint']}; gradients card vs CPU "
+                     f"within atol 1e-5 + rtol 1e-4 (worst ratio "
+                     f"{worst:.3g})")
+    if not worst <= 1.0:
+        raise AssertionError("compressed joint gradients differ between "
+                             "card and CPU")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("baselines", f"phase took {out['seconds']:.1f} s")
+    return paths, out
+
+
+def phase_wire(ds, batches, params0):
+    """WireEaster at Table II (C = 4): three passive processes on the
+    card, 20 rounds on the float wire and 20 on the int8 wire from the
+    slice's weights; round 0 against the same run on the CPU; the
+    transcript audited; beside it the in-process loop engine's round.
+    The four systems (12 passive processes) start at once, each start()
+    on a thread, and stay idle until their rounds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.core.party_models import embed_fn
+    from repro_torch.core.wire import WireEaster
+    t_phase = time.perf_counter()
+    systems = {(mode, card): WireEaster(
+        table2_arches(4, 10, D_EMBED), [196] * 4, 10, lr=1e-3,
+        record_transcript=card, mask_mode=mode,
+        device="cuda" if card else "cpu", init_params=params0)
+        for mode in ("float", "int8") for card in (True, False)}
+    start_s = {}
+
+    def timed_start(key):
+        t0 = time.perf_counter()
+        systems[key].start()
+        start_s[key] = time.perf_counter() - t0
+
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(systems)) as ex:
+            for f in [ex.submit(timed_start, k) for k in systems]:
+                f.result()
+        res["start_all_s"] = time.perf_counter() - t0
+        log("wire", f"4 WireEaster systems (float and int8, card and CPU; "
+                    f"12 passive processes) started at once in "
+                    f"{res['start_all_s']:.2f} s; each start(): "
+                    + ", ".join(f"{m} {'card' if card else 'CPU'} "
+                                f"{s:.2f} s"
+                                for (m, card), s in start_s.items()))
+        for mode in ("float", "int8"):
+            sys_ = systems[(mode, True)]
+            losses, ms = [], []
+            for i in range(MP_ROUNDS):
+                t0 = time.perf_counter()
+                losses.append(sys_.round(*batches[i], i))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            acc = sys_.evaluate(ds.x_test_parts, ds.y_test)
+            # round 0 of the same system on the CPU
+            closs = systems[(mode, False)].round(*batches[0], 0)
+            totals = [sum(l) for l in losses]
+            first = statistics.mean(totals[:3])
+            last = statistics.mean(totals[-3:])
+            if not (all(math.isfinite(t) for t in totals) and last < first):
+                raise AssertionError(f"{mode} wire: total loss {totals}")
+            if not np.isfinite(acc).all():
+                raise AssertionError(f"{mode} wire: accuracies {acc}")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses[0], closs))
+            kinds = {t[1] for t in sys_.transcript
+                     if t[0] == "passive->active"}
+            want = ({"blinded_embed", "prediction"} if mode == "float" else
+                    {"embed_amax", "blinded_embed", "prediction"})
+            if kinds != want:
+                raise AssertionError(f"{mode} wire uplink kinds {kinds}")
+            r0 = [t for t in sys_.transcript if t[2] == 0]
+            res[mode] = {"ms": statistics.median(ms[3:]),
+                         "start_s": start_s[(mode, True)],
+                         "first_round_ms": ms[0],
+                         "loss_first3": first, "loss_last3": last,
+                         "accuracy": [round(float(a), 4) for a in acc],
+                         "round0_rel_to_cpu": rel}
+            log("wire", f"{mode} wire, C=4, 3 passive processes on the "
+                        f"card: {MP_ROUNDS} rounds, total loss {first:.4f} "
+                        f"-> {last:.4f} (means of the first and last 3); ms "
+                        f"per round {res[mode]['ms']:.3f} (median of rounds "
+                        f"3-{MP_ROUNDS - 1}, first {ms[0]:.1f}); test "
+                        f"accuracy {res[mode]['accuracy']}; round 0 "
+                        f"per-party losses card vs CPU max rel diff "
+                        f"{rel:.3g} (limit 1e-4); uplink kinds "
+                        f"{sorted(kinds)}")
+            if not rel <= 1e-4:
+                raise AssertionError(f"{mode} wire round 0 differs between "
+                                     f"card and CPU")
+            if mode != "float":
+                continue
+            # the transcript audit: blinded, not raw, and the masks cancel
+            p = checkpoint.params_from_numpy(params0, "cuda")
+            xs, _ = _to(*batches[0], "cuda")
+            deltas = []
+            for (_, _, _, k, blinded) in (t for t in r0
+                                          if t[1] == "blinded_embed"):
+                with torch.no_grad():
+                    raw = embed_fn(p[k], sys_.arches[k], xs[k]).cpu().numpy()
+                deltas.append(blinded - raw)
+            gap = min(float(np.abs(d).max()) for d in deltas)
+            residue = float(np.abs(sum(deltas)).max())
+            n_bytes = sum(t[4].nbytes * (sys_.K if t[1] == "global_embed"
+                                         else 1) for t in r0)
+            want_bytes = _build_slice("easter", "cpu").bytes_per_round(
+                SLICE_BATCH)
+            res["float"].update(bytes_per_round=n_bytes,
+                                classifier_bytes_per_round=want_bytes)
+            log("wire", f"float transcript, round 0: no blinded embedding "
+                        f"is its raw E_k (max |difference| of each >= "
+                        f"{gap:.3f}, limit > 0.5); the {len(deltas)} deltas "
+                        f"sum to within {residue:.3g} of 0 (limit 1e-4); "
+                        f"{n_bytes} bytes on the wire (the global embedding "
+                        f"counted once per passive party) beside "
+                        f"EasterClassifier.bytes_per_round(128) = "
+                        f"{want_bytes}")
+            if len(deltas) != 3 or not gap > 0.5 or not residue <= 1e-4:
+                raise AssertionError("float wire transcript audit failed")
+            if n_bytes != want_bytes:
+                raise AssertionError("float wire bytes differ from "
+                                     "bytes_per_round")
+    finally:
+        for s in systems.values():
+            s.stop()
+    # beside it: the in-process classifier's round, loop engine, float
+    cls = _build_slice("easter", "cuda", engine="loop")
+    params = checkpoint.params_from_numpy(params0, "cuda")
+    init_opt, step = cls.make_train_step("adam", 1e-3)
+    opt = init_opt(params)
+    ms = []
+    for i in range(10):
+        xs, y = _to(*batches[i], "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _, _ = step(params, opt, xs, y,
+                                 cls.masks(SLICE_BATCH, i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res["in_process_loop_ms"] = statistics.median(ms[3:])
+    res["seconds"] = time.perf_counter() - t_phase
+    log("wire", f"in-process EasterClassifier, loop engine, float wire: "
+                f"{res['in_process_loop_ms']:.3f} ms per round (masks + "
+                f"train step, median of rounds 3-9) beside the wire's "
+                f"{res['float']['ms']:.3f} (float) and "
+                f"{res['int8']['ms']:.3f} (int8); phase took "
+                f"{res['seconds']:.1f} s")
+    return res
 
 
 def phase_engines(batches, params0):
@@ -3060,6 +3370,14 @@ def run_phase(name, save=None, compare=None):
             if not all(v for k, v in same.items() if "bwd" in k):
                 raise AssertionError(f"blind_agg_bwd outputs differ from "
                                      f"{compare}")
+    elif name in ("baselines", "wire"):
+        ds, batches = _table2_batches(SLICE_ROUNDS)
+        if name == "baselines":
+            res = phase_baselines(ds, batches)[1]
+        else:
+            res = phase_wire(ds, batches, checkpoint.params_to_numpy(
+                _build_slice("easter", "cpu").init_params(
+                    torch.Generator().manual_seed(0))))
     elif name == "flash":
         res = phase_timing_flash()
     elif name == "rglru":
@@ -3163,6 +3481,8 @@ def main() -> int:
     many_launches, many_joint, many_unfused, fused_ms, unfused_ms = \
         phase_many()
     phase_wires(params0, batches)
+    topk_paths, baselines = phase_baselines(ds, batches)
+    wire = phase_wire(ds, batches, params0)
     engines = phase_engines(batches, params0)
     timing = phase_timing()
     timing_prng = phase_timing_prng()
@@ -3212,7 +3532,9 @@ def main() -> int:
         raise AssertionError(f"the port imported {bad[:5]}")
 
     paths = (slice_launches, joint_launches, many_launches, many_joint,
-             many_unfused, lm_launches, rg_launches, train_launches,
+             many_unfused, topk_paths["easter_topk"],
+             topk_paths["easter_topk_fused"], topk_paths["easter_topk_joint"],
+             lm_launches, rg_launches, train_launches,
              joint_launches_lm, moe_launches, mamba_launches,
              whisper_launches, vlm_launches)
     launches = {name: sum(p.get(name, 0) for p in paths)
@@ -3223,6 +3545,9 @@ def main() -> int:
                     f"{slice_launches}, Table II joint {joint_launches}, "
                     f"many-party fused {many_launches}, many-party joint "
                     f"{many_joint}, many-party unfused {many_unfused}, "
+                    f"Table II top-k {topk_paths['easter_topk']}, Table II "
+                    f"top-k fused {topk_paths['easter_topk_fused']}, Table "
+                    f"II top-k joint {topk_paths['easter_topk_joint']}, "
                     f"qwen2.5-3b serving {lm_launches}, recurrentgemma-9b "
                     f"serving {rg_launches}, qwen2-1.5b training "
                     f"{train_launches}, qwen2-1.5b joint step "
@@ -3233,7 +3558,9 @@ def main() -> int:
     # blind_agg_fwd's launches by party groups, path by path: each path's
     # histogram counts every one of its forward launches
     names = ("Table II slice", "Table II joint", "many-party fused",
-             "many-party joint", "many-party unfused", "qwen2.5-3b serving",
+             "many-party joint", "many-party unfused", "Table II top-k",
+             "Table II top-k fused", "Table II top-k joint",
+             "qwen2.5-3b serving",
              "recurrentgemma-9b serving", "qwen2-1.5b training",
              "qwen2-1.5b joint step", "qwen2-moe-a2.7b serving",
              "mamba2-2.7b serving", "whisper-small serving",
@@ -3295,6 +3622,7 @@ def main() -> int:
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels, "slice_ms_per_round": ms_round,
+                      "table2_baselines": baselines, "wire": wire,
                       "table2_engines": engines,
                       "many_party_ms_per_round": {"fused": fused_ms,
                                                   "unfused": unfused_ms},

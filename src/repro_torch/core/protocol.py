@@ -23,8 +23,14 @@ Engines: ``engine="vectorized"`` (the default, as in the reference) groups
 parties by (arch, slice width) and runs each step as one ``vmap`` per
 group (``core/party_engine.py``), with MaskEngine masks; ``engine="loop"``
 is the reference's per-party loop with the loop-oracle masks. The sharded
-engine is ROADMAP queue 1 item 14 and top-k uplink compression item 9;
-both raise ``NotImplementedError`` naming their item.
+engine is ROADMAP queue 1 item 14 and raises ``NotImplementedError``
+naming it.
+
+``compress_frac`` > 0 (beyond-paper, C_VFL style) top-k sparsifies the
+passive parties' uplink embeddings after the embedding, with
+straight-through gradients (``baselines._topk_sparsify``), on both
+engines; the float wire then ships values + indices. A ring wire rejects
+it: its masks are dense, so a sparse uplink saves no bytes.
 
 Wires: ``mask_mode`` "float" aggregates through the blind+aggregate
 kernel; ``fused_masks=True`` (float mode, vectorized engine) makes the
@@ -47,7 +53,7 @@ import torch
 from torch.func import vmap
 
 from repro_torch.configs.base import EasterConfig
-from repro_torch.core import aggregation, blinding, losses
+from repro_torch.core import aggregation, baselines, blinding, losses
 from repro_torch.core.party_engine import PartyEngine
 from repro_torch.core.party_models import (PartyArch, decide_fn, embed_fn,
                                            init_party)
@@ -68,7 +74,7 @@ class EasterClassifier:
     # make the masks inside the blind+aggregate kernel (float mode,
     # vectorized engine); CPU tensors take MaskEngine masks
     fused_masks: bool = False
-    compress_frac: float = 0.0          # top-k uplink (not ported yet)
+    compress_frac: float = 0.0          # top-k uplink keep fraction
     device: Any = None                  # None = the card
 
     def __post_init__(self):
@@ -83,12 +89,12 @@ class EasterClassifier:
                 "queue 1 item 14")
         if self.engine not in ("vectorized", "loop"):
             raise ValueError(f"engine {self.engine!r}")
-        if self.compress_frac > 0:
-            raise NotImplementedError(
-                "compress_frac > 0: top-k uplink compression (baselines) is "
-                "ROADMAP.md queue 1 item 9")
         if self.easter.mask_mode not in ("float",) + blinding.RING_MODES:
             raise ValueError(f"mask_mode {self.easter.mask_mode!r}")
+        if self.compress_frac > 0 and self.easter.mask_mode in \
+                blinding.RING_MODES:
+            raise ValueError("compress_frac has no wire benefit under ring "
+                             "masking")
         if self.fused_masks and self.easter.mask_mode != "float":
             raise ValueError("fused (in-kernel) mask synthesis is float-mode "
                              "only")
@@ -136,11 +142,18 @@ class EasterClassifier:
                                         device=self.device)
 
     def local_embeds(self, params, xs) -> torch.Tensor:
-        """(C, B, d_embed) local embeddings, party order."""
+        """(C, B, d_embed) local embeddings, party order; the passive rows
+        top-k sparsified when ``compress_frac`` > 0."""
         if self.engine == "vectorized":
-            return self._eng.embed_all(params, xs)
-        return torch.stack([embed_fn(params[k], self.arches[k], xs[k])
-                            for k in range(self.C)])
+            E_all = self._eng.embed_all(params, xs)
+        else:
+            E_all = torch.stack([embed_fn(params[k], self.arches[k], xs[k])
+                                 for k in range(self.C)])
+        if self.compress_frac > 0:
+            # passive parties compress their uplink (active stays local)
+            E_all = torch.cat([E_all[:1], baselines._topk_sparsify(
+                E_all[1:], self.compress_frac)], dim=0)
+        return E_all
 
     def global_embed(self, E_all: torch.Tensor, masks) -> torch.Tensor:
         """Masked aggregation: in-kernel masks for a FusedMasks marker, the
@@ -290,11 +303,14 @@ class EasterClassifier:
         loss signal down. Bytes per element follow the wire
         (``blinding.wire_leg_bytes``): 4 on the float and int32 wires; the
         int8 wire packs 4 ring elements per int32 word plus one float32
-        scale per leg, on all four legs."""
+        scale per leg, on all four legs. A compressed float uplink ships
+        values + indices (ring masks are dense: no ring wire compresses)."""
         d_e = self.easter.d_embed
         n_cls = self.arches[0].n_classes
         mode = self.easter.mask_mode
         up_e = self.K * blinding.wire_leg_bytes(batch * d_e, mode)
+        if self.compress_frac > 0 and mode not in blinding.RING_MODES:
+            up_e = int(self.K * batch * d_e * 4 * self.compress_frac * 2)
         down_e = self.K * blinding.wire_leg_bytes(batch * d_e, mode)
         up_r = self.K * blinding.wire_leg_bytes(batch * n_cls, mode)
         down_l = self.K * blinding.wire_leg_bytes(batch * n_cls, mode)

@@ -288,12 +288,13 @@ def test_entry_points_default_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TClassifier(cfg, arches, [2, 2, 2])
-    for kw, item in (({"engine": "sharded"}, "item 14"),
-                     ({"compress_frac": 0.25}, "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            TClassifier(cfg, arches, [2, 2, 2], device="cpu", **kw)
-    # the vectorized engine (the default), in-kernel masks and the ring
-    # wires are ported; fused masks keep the reference's two conditions
+    with pytest.raises(NotImplementedError, match="item 14"):
+        TClassifier(cfg, arches, [2, 2, 2], device="cpu", engine="sharded")
+    # the vectorized engine (the default), in-kernel masks, the ring wires
+    # and top-k compression are ported; fused masks keep the reference's
+    # two conditions
+    assert TClassifier(cfg, arches, [2, 2, 2], compress_frac=0.25,
+                       device="cpu").compress_frac == 0.25
     assert TClassifier(cfg, arches, [2, 2, 2], fused_masks=True,
                        device="cpu").engine == "vectorized"
     int8 = TEasterConfig(num_passive=2, d_embed=4, mask_mode="int8")
@@ -313,7 +314,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.launch.serve, repro_torch.models.build, "
             "repro_torch.models.griffin, repro_torch.kernels.rg_lru, "
             "repro_torch.models.moe, repro_torch.models.ssm, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.core.baselines, "
+            "repro_torch.core.wire; "
             "from repro_torch.configs.base import list_archs; list_archs(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
