@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phase moe        # or mamba, or cuts
     python3 chip_smoke.py --phase whisper    # or vlm, or frontend_cuts
     python3 chip_smoke.py --phase baselines  # or wire
+    python3 chip_smoke.py --phase sharded
 
 Phases, each printing its own lines:
 
@@ -120,6 +121,38 @@ Phases, each printing its own lines:
           layers (passive 2) in float32 with TF32 off, against the CPU
           port: prefill embeddings and the logits of 4 decode rounds
           within rtol 1e-4 / atol 1e-5, identical greedy tokens.
+  sharded the sharded engine (engine="sharded", launch/mesh.py): 4 ranks
+          spawned at once share the card over gloo. Many-party C = 64 (the
+          many phase's zoo and batch, unfused MaskEngine masks): 10 float
+          and 10 int8 adam rounds and one joint round; every rank's
+          per-party losses bit for bit rank 0's and, every round, bit for
+          bit the single-process vectorized engine's forward on the same
+          weights (gathered to rank 0 before the round); the vectorized
+          engine's own run from the same start equal in round 0 and
+          within rtol 1e-5 later (the backward over 4 rows a group rounds
+          ~1e-8 from 16 rows', carried through adam); round 0's
+          gradients gathered to rank 0 within atol 5e-6 / rtol 1e-6; on
+          rank 0 (the active party's) one blind_agg_fwd a float round and
+          one blind_agg_bwd in the joint round, none on the other ranks.
+          qwen2.5-3b at full width and depth in bfloat16 with its three
+          9-layer passive proxies over 3 ranks (each rank draws every
+          party from the card's generator seeded 0 and keeps its own): 4
+          lanes of 2047-token prefill, then 16 greedy rounds; the
+          prefill's E, every round's logits and the greedy tokens bit for
+          bit the loop engine's (one passive party at a time: the GEMM
+          batch of a rank holding one party), the prefill's E bit for bit
+          the vectorized engine's, whose decode rounds (teacher-forced)
+          are printed beside it as information (its decode attention runs
+          the float32 probs x V GEMM over all parties at once, which
+          cuBLAS rounds otherwise), the tokens the same on every rank,
+          flash_attention_fwd launches a prefill 36 + 9 on rank 0 and 9 on
+          ranks 1-2, blind_agg_fwd on rank 0 only; then the 4-layer
+          float32 cut over 3 ranks against the lm cut's CPU port outputs
+          (rtol 1e-4 / atol 1e-5, identical tokens). Before the ranks
+          start, the dry run's weight bytes for qwen2.5-3b
+          (launch/dryrun.py on the meta device) must equal the bytes of
+          the tree the lm draw allocates. Prints each rank's start, ms
+          per round beside the vectorized engine's, per-rank peak memory.
   rglru   holds rglru_scan_fwd against its plain version on the card
           (rtol = atol = 1e-6; bit-identical expected): the reference sweep
           (2,64,128), (1,128,256), (4,32,64), (3,96,128), ragged L and W
@@ -249,7 +282,8 @@ moe and mamba (the qwen2-moe-a2.7b and mamba2-2.7b serving runs),
 whisper and vlm (the
 whisper-small and qwen2-vl-7b serving runs), frontend_cuts (whisper_cut
 and vlm_cut), cuts (gemma_cut, moe_cut, mamba_cut, whisper_cut and
-vlm_cut), train (the train phase), agg (the
+vlm_cut), train (the train phase), sharded (the lm depth cut, for its
+CPU outputs, then the sharded phase), agg (the
 blind_agg_fwd / blind_agg_bwd timing and the launch floor; --save and
 --compare as for prng, the backward's outputs required to be bit for bit
 the other checkout's), flash, rglru (the rglru timing) or prng (the prng
@@ -261,7 +295,8 @@ joint, many-party fused, many-party joint, many-party unfused, Table II
 top-k (float masks, fused masks, joint), qwen2.5-3b
 serving, recurrentgemma-9b serving, qwen2-1.5b training, its joint step,
 qwen2-moe-a2.7b serving, mamba2-2.7b serving, whisper-small serving,
-qwen2-vl-7b serving) and read just after; every kernel
+qwen2-vl-7b serving; in the sharded phase's ranks every round) and read
+just after; every kernel
 must have launched on some path, and blind_agg_fwd's launches are printed
 by party-group count G, path by path. The second-to-last line is the JSON
 kernel record; the last line is {"ok": true, "device": {...}}. Any failed
@@ -910,7 +945,8 @@ def mlp_zoo(C: int, n_cls: int, d_embed: int):
             for k in range(C)]
 
 
-def _build_many(device, *, fused=True, grad_mode="easter", mode="float"):
+def _build_many(device, *, fused=True, grad_mode="easter", mode="float",
+                engine="vectorized", group=None):
     import torch
     from repro_torch.configs.base import EasterConfig
     from repro_torch.core.protocol import EasterClassifier, split_features
@@ -920,7 +956,7 @@ def _build_many(device, *, fused=True, grad_mode="easter", mode="float"):
         EasterConfig(num_passive=MP_C - 1, d_embed=MP_D_EMBED,
                      mask_mode=mode),
         mlp_zoo(MP_C, MP_CLASSES, MP_D_EMBED), nf, grad_mode=grad_mode,
-        fused_masks=fused, device=device)
+        fused_masks=fused, device=device, engine=engine, group=group)
 
 
 def _many_data(cls):
@@ -2768,7 +2804,7 @@ def _host_gib():
 
 def _cut_phase(tag, arch, n_layers, *, check_host=False,
                batch=LM_CUT_BATCH, prompt_len=LM_CUT_PROMPT,
-               scaled_atol=False, **cfg_kw):
+               scaled_atol=False, keep=None, **cfg_kw):
     """The same width with depth cut to ``n_layers`` active layers (the
     passive proxies follow passive_cfg), float32 with TF32 off: card
     against the CPU port on the same weights and prompt. The host copy is
@@ -2785,7 +2821,8 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False,
     both devices (a CPU generator seeded 2): an encoder-decoder's frame
     embeddings through ``encoder_kv``, a vision model's patch embeddings
     for every party; ``cfg_kw`` overrides further config fields (the
-    encoder's depth)."""
+    encoder's depth). ``keep``, a dict, receives the prompt and the CPU
+    port's (E, logits, tokens)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2830,6 +2867,8 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False,
                           size=(batch, prompt_len)).astype(np.int32)
     fe = frontend_inputs(cfg, batch, torch.Generator().manual_seed(2))
     res = {}
+    if keep is not None:
+        keep["prompt"] = prompt
     for name, sys_, p in (("card", card, params), ("cpu", cpu, cparams)):
         toks = torch.from_numpy(prompt).to(sys_.device)
         seeds = sys_.mask_seeds()
@@ -2857,6 +2896,8 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False,
                       bool(torch.allclose(a, b, rtol=1e-4, atol=atol)),
                       scale, atol)
     same = bool(torch.equal(res["card"][2], res["cpu"][2]))
+    if keep is not None:                 # the CPU port's outputs, reused
+        keep["cpu"] = res["cpu"]
     log(tag, f"depth cut to {n_layers} active layers"
              f"{f' and {cfg.n_encoder_layers} encoder layers over {cfg.n_audio_frames} frames' if cfg.family == 'encdec' else ''}"
              f"{f' ({cfg.n_vision_tokens} patch positions)' if cfg.family == 'vlm' else ''}"
@@ -3286,6 +3327,518 @@ def phase_timing_flash():
 
 
 # ---------------------------------------------------------------------------
+# the sharded engine: ranks of a party group sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+SHARDED_RANKS, SHARDED_LM_RANKS = 4, 3
+SHARDED_ROUNDS = 10
+SHARDED_LM_LANES, SHARDED_LM_PROMPT, SHARDED_LM_ROUNDS = 4, 2048, 16
+
+
+def _many_rounds(cls, params, data, n, snap=None):
+    """n adam rounds of the many-party classifier ``cls`` on the card:
+    (ms per round, per-party losses per round (numpy), blind_agg
+    launches per round, ``snap(params)`` before each round). Masks round
+    i. ``snap`` runs outside the timing."""
+    import torch
+    from repro_torch.kernels import blind_agg as tba
+    init_opt, step = cls.make_train_step("adam", 1e-3)
+    opt = init_opt(params)
+    xs, y = _to(*data, "cuda")
+    ms, pers, launches, snaps = [], [], [], []
+    for i in range(n):
+        if snap is not None:
+            snaps.append(snap(params))
+        tba.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _, per = step(params, opt, xs, y,
+                                   cls.masks(MP_BATCH, i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        pers.append(per.cpu().numpy())
+        launches.append(_agg_launches())
+    return ms, pers, launches, snaps
+
+
+def _many_grads(cls, params, data):
+    """Round 0's per-party losses and gradients (numpy, per party)."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    xs, y = _to(*data, "cuda")
+    total, per = cls.loss_fn(params, xs, y, cls.masks(MP_BATCH, 0))
+    g = torch.autograd.grad(total, tree_leaves(params), allow_unused=True,
+                            materialize_grads=True)
+    return per.detach().cpu().numpy(), checkpoint.params_to_numpy(
+        tree_unflatten(params, g))
+
+
+def _sharded_many(grp):
+    """Rank side: the many-party rounds on the sharded engine (float,
+    int8, one joint round), round 0's gradients gathered to rank 0. Each
+    round's weights are gathered to rank 0 first, where the vectorized
+    engine's forward on them gives the per-party losses that round must
+    equal bit for bit (``"same_weights"``: the rounds' losses, rank 0
+    only)."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.core import party_group
+    out = {}
+    data = None
+    for mode, gm, n in (("float", "easter", SHARDED_ROUNDS),
+                        ("int8", "easter", SHARDED_ROUNDS),
+                        ("float", "joint", 1)):
+        cls = _build_many("cuda", fused=False, mode=mode, grad_mode=gm,
+                          engine="sharded", group=grp)
+        data = data or _many_data(cls)
+        params = cls.init_params(torch.Generator().manual_seed(0))
+        if mode == "float" and gm == "easter":
+            per0, grads = _many_grads(cls, params, data)
+            out["grads"] = party_group.gather_tree(grp, grads)
+            out["held"] = cls._eng.held()
+        rounds = _many_rounds(
+            cls, params, data, n,
+            snap=lambda p: party_group.gather_tree(grp, p))
+        out[(mode, gm)] = rounds[:3]
+        if grp.rank == 0:
+            vec = _build_many("cuda", fused=False, mode=mode, grad_mode=gm)
+            xs, y = _to(*data, "cuda")
+            with torch.no_grad():
+                out[("same_weights", mode, gm)] = [
+                    vec.loss_fn(checkpoint.params_from_numpy(w, "cuda"), xs,
+                                y, vec.masks(MP_BATCH, i))[1].cpu().numpy()
+                    for i, w in enumerate(rounds[3])]
+    return out
+
+
+def _lm_prompt(vocab):
+    import numpy as np
+    return np.random.default_rng(3).integers(
+        0, vocab, size=(SHARDED_LM_LANES, SHARDED_LM_PROMPT)).astype(
+            np.int32)
+
+
+def _serve_lm(sys_, params):
+    """A 2047-token prefill of every lane (nonce 5), then greedy rounds:
+    (tokens (numpy), prefill ms, ms per round, prefill launches, launches
+    a round, the prefill's E and every round's logits as float32 on the
+    host (None off the active party's rank))."""
+    import torch
+    from repro_torch.core import decode
+    prompt = torch.from_numpy(_lm_prompt(sys_.cfg.vocab_size)).cuda()
+    seeds = sys_.mask_seeds()
+    caches = sys_.init_caches(SHARDED_LM_LANES,
+                              SHARDED_LM_PROMPT + SHARDED_LM_ROUNDS)
+    _reset_lm_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    E, caches = sys_.prefill(params, prompt[:, :-1], caches, seeds=seeds,
+                             round_idx=5)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = _lm_launches()
+    _reset_lm_launches()
+    t0 = time.perf_counter()
+    out, _, _, _, logits = decode.serve_tokens(
+        sys_, params, prompt[:, -1:], caches, SHARDED_LM_PROMPT - 1,
+        SHARDED_LM_ROUNDS, seeds, return_logits=True)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3 / SHARDED_LM_ROUNDS
+    # numpy, not torch tensors: a rank's torch tensors would cross the
+    # pipe as shared-memory handles, gone once the rank exits
+    host = lambda t: None if t is None else t.float().cpu().numpy()
+    return (out.cpu().numpy(), prefill_ms, round_ms, pre, _lm_launches(),
+            host(E), host(logits))
+
+
+def _forced_rounds(sys_, params, tokens):
+    """The lm prompt's prefill, then SHARDED_LM_ROUNDS decode rounds fed
+    ``tokens`` (the vectorized engine's greedy tokens, teacher forcing):
+    every round's logits, float32 numpy, on the active party's rank (None
+    elsewhere)."""
+    import numpy as np
+    import torch
+    prompt = torch.from_numpy(_lm_prompt(sys_.cfg.vocab_size)).cuda()
+    seeds = sys_.mask_seeds()
+    caches = sys_.init_caches(SHARDED_LM_LANES,
+                              SHARDED_LM_PROMPT + SHARDED_LM_ROUNDS)
+    _, caches = sys_.prefill(params, prompt[:, :-1], caches, seeds=seeds,
+                             round_idx=5)
+    feed = torch.cat([prompt[:, -1:], torch.from_numpy(tokens).cuda()], 1)
+    out = []
+    for i in range(SHARDED_LM_ROUNDS):
+        logits, caches = sys_.serve_step(params, feed[:, i:i + 1], caches,
+                                         SHARDED_LM_PROMPT - 1 + i, seeds)
+        out.append(None if logits is None
+                   else logits[:, -1].float().cpu().numpy())
+    return None if out[0] is None else np.stack(out, 1)
+
+
+def _sharded_lm(grp, cut_prompt, vec_tokens):
+    """Rank side: qwen2.5-3b at full width and depth in bfloat16 over the
+    LM's ranks (each rank draws every party in order from the card's
+    generator seeded 0 and keeps its own), served as the parent serves it;
+    then the 4-layer float32 cut with the lm phase's prompt."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import EasterConfig, get_config
+    from repro_torch.core import decode
+    from repro_torch.core.easter_lm import EasterLM
+    cfg = get_config(LM_ARCH)
+    sys_ = EasterLM(cfg, EasterConfig(), engine="sharded", group=grp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = sys_.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    res = {"draw_s": time.perf_counter() - t0,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9,
+           "rows": list(sys_._rows())}
+    res["serve"] = _serve_lm(sys_, params)
+    res["forced"] = _forced_rounds(sys_, params, vec_tokens)
+    del params
+    torch.cuda.empty_cache()
+    cut = EasterLM(dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS,
+                                       dtype="float32"), EasterConfig(),
+                   engine="sharded", group=grp)
+    p = cut.init_params(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.from_numpy(cut_prompt).cuda()
+    seeds = cut.mask_seeds()
+    caches = cut.init_caches(LM_CUT_BATCH, LM_CUT_PROMPT + LM_CUT_ROUNDS)
+    E, caches = cut.prefill(p, toks[:, :-1], caches, seeds=seeds,
+                            round_idx=5)
+    out, _, _, _, logits = decode.serve_tokens(
+        cut, p, toks[:, -1:], caches, LM_CUT_PROMPT - 1, LM_CUT_ROUNDS,
+        seeds, return_logits=True)
+    host = lambda t: None if t is None else t.cpu().numpy()
+    res["cut"] = (host(E), host(logits), host(out))
+    return res
+
+
+def _sharded_rank(cut_prompt, vec_tokens, t_spawn):
+    """One rank of the sharded phase (a spawned process on the card):
+    joins the 4-rank group, runs the many-party rounds, then ranks 0-2 the
+    LM. Returns its results, the seconds from the spawn to its joining the
+    group (wall clock) and its peak device memory."""
+    import torch
+    from repro_torch.launch import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grp = mesh.make_party_group(device="cuda")
+    torch.zeros((), device=grp.device)          # this rank's CUDA context
+    res = {"rank": grp.rank, "backend": grp.backend,
+           "device": str(grp.device), "start_s": time.time() - t_spawn}
+    res["many"] = _sharded_many(grp)
+    res["many_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    lm_grp = mesh.make_party_group(SHARDED_LM_RANKS, device="cuda")
+    if lm_grp is not None:
+        torch.cuda.reset_peak_memory_stats()
+        res["lm"] = _sharded_lm(lm_grp, cut_prompt, vec_tokens)
+        res["lm_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def _sum_launches(launches):
+    """Per-round launch dicts -> one dict (fwd_groups summed too)."""
+    tot = {}
+    for d in launches:
+        for k, v in d.items():
+            if k == "fwd_groups":
+                g = tot.setdefault(k, {})
+                for G, n in (v or {}).items():
+                    g[G] = g.get(G, 0) + n
+            else:
+                tot[k] = tot.get(k, 0) + v
+    return tot
+
+
+def phase_sharded(cut_cpu=None):
+    """The sharded engine on the card (the module docstring's ``sharded``):
+    4 ranks spawned at once share the card over gloo; many-party C = 64
+    and qwen2.5-3b over 3 ranks against the vectorized engine on the card,
+    the 4-layer float32 cut against the CPU port (``cut_cpu``: the lm
+    cut's prompt and CPU outputs). Every check is logged; the phase fails
+    at its end if any failed. Returns (the counted paths' launches, the
+    numbers)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import EasterConfig, get_config
+    from repro_torch.core.easter_lm import EasterLM
+    from repro_torch.launch import dryrun, mesh, steps
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    res = {}
+    # the single-process vectorized engine on the card, the reference
+    ref = {}
+    data = None
+    for mode, gm, n in (("float", "easter", SHARDED_ROUNDS),
+                        ("int8", "easter", SHARDED_ROUNDS),
+                        ("float", "joint", 1)):
+        cls = _build_many("cuda", fused=False, mode=mode, grad_mode=gm)
+        data = data or _many_data(cls)
+        params = cls.init_params(torch.Generator().manual_seed(0))
+        if mode == "float" and gm == "easter":
+            ref["grads"] = _many_grads(cls, params, data)[1]
+        ref[(mode, gm)] = _many_rounds(cls, params, data, n)
+    # qwen2.5-3b, drawn as the lm phase draws it; the dry run's weight
+    # bytes against what the draw allocated
+    cfg = get_config(LM_ARCH)
+    _free_card()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    sys_ = _lm_system(cfg, "cuda")
+    params = sys_.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    drawn = torch.cuda.memory_allocated() - before
+    tree = dryrun.tree_bytes({"parties": params["parties"]})
+    allocs = len(tree_leaves(params["parties"][0])) + len(
+        tree_leaves(params["passive_stacked"]))
+    meta = steps.make_system(cfg, EasterConfig(), device="meta")
+    dry = dryrun.tree_bytes({"parties": steps.abstract_params(
+        meta)["parties"]})
+    res["dryrun_weight_bytes"] = {"dry_run": dry, "tree": tree,
+                                  "allocated": drawn,
+                                  "allocations": allocs}
+    log("sharded", f"dry run vs the lm draw ({cfg.name}, bfloat16, C = "
+                   f"{sys_.C}): the dry run's weight bytes {dry}, the drawn "
+                   f"tree's {tree}, the caching allocator's growth over the "
+                   f"draw {drawn} ({allocs} allocations; the allocator "
+                   f"rounds a large one up to 2 MiB segments and leaves a "
+                   f"remainder under 1 MiB unsplit)")
+    if not (dry == tree and 0 <= drawn - tree < 2 ** 20 * allocs):
+        raise AssertionError("the dry run's weight bytes differ from the "
+                             "draw's")
+    vec = _serve_lm(sys_, params)
+    del params, sys_
+    _free_card()
+    # the loop engine, drawn from the same generator (the same weights),
+    # runs each passive party alone: one party's GEMM batch, as a rank of
+    # the sharded engine holding one party runs it
+    loop_sys = EasterLM(cfg, EasterConfig(), engine="loop", device="cuda")
+    loop = _serve_lm(loop_sys, loop_sys.init_params(
+        torch.Generator(device="cuda").manual_seed(0)))
+    del loop_sys
+    _free_card()
+    cut_prompt = cut_cpu["prompt"]
+    # the ranks: spawned at once, each joining the group on the card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        ranks = mesh.spawn_ranks(_sharded_rank, SHARDED_RANKS, cut_prompt,
+                                 vec[0], time.time(), store_dir=store,
+                                 device="cuda", timeout_s=300)
+    res["ranks_s"] = time.perf_counter() - t0
+    res["start_s"] = [r["start_s"] for r in ranks]
+    log("sharded", f"{SHARDED_RANKS} ranks spawned at once on "
+                   f"{ranks[0]['device']} over {ranks[0]['backend']}: each "
+                   f"in the group with its CUDA context "
+                   f"{[round(s, 2) for s in res['start_s']]} s after the "
+                   f"spawn; every rank done in {res['ranks_s']:.1f} s")
+    # many-party: losses bit for bit, gradients, launches; every check is
+    # logged, and the phase fails at its end if any failed
+    paths, failures = [], []
+    for key in (("float", "easter"), ("int8", "easter"), ("float", "joint")):
+        want = ref[key][1]
+        same = ranks[0]["many"][("same_weights",) + key]
+        for r in ranks:
+            got = r["many"][key][1]
+            # every round's forward bit for bit the vectorized engine's on
+            # the same weights (the round's, gathered to rank 0 first)
+            if len(same) != len(got) or not all(
+                    np.array_equal(a, b) for a, b in zip(got, same)):
+                failures.append(f"many-party {key} rank {r['rank']}: a "
+                                f"round's losses differ from the vectorized "
+                                f"engine's forward on the same weights")
+            # the two engines' own adam runs: round 0 from the same
+            # weights bit for bit; later rounds carry the gradients'
+            # rounding (held below at atol 5e-6 / rtol 1e-6) through the
+            # updates, held at rtol 1e-5; the ranks agree bit for bit
+            rel = [float(np.abs(a - b).max() / np.abs(b).max())
+                   for a, b in zip(got, want)]
+            if rel[0] != 0.0 or max(rel) > 1e-5:
+                failures.append(f"many-party {key} rank {r['rank']}: "
+                                f"losses differ from the vectorized "
+                                f"engine's run by {rel} relative by round")
+            if not all(np.array_equal(a, b) for a, b in
+                       zip(got, ranks[0]["many"][key][1])):
+                failures.append(f"many-party {key}: rank {r['rank']}'s "
+                                f"losses differ from rank 0's")
+            n_fwd = [d["blind_agg_fwd"] for d in r["many"][key][2]]
+            n_bwd = [d["blind_agg_bwd"] for d in r["many"][key][2]]
+            want_fwd = 1 if r["rank"] == 0 and key[0] == "float" else 0
+            want_bwd = 1 if r["rank"] == 0 and key[1] == "joint" else 0
+            if set(n_fwd) != {want_fwd} or set(n_bwd) != {want_bwd}:
+                failures.append(f"many-party {key} rank {r['rank']}: "
+                                f"blind_agg_fwd {n_fwd}, blind_agg_bwd "
+                                f"{n_bwd} a round")
+        paths.append(_sum_launches(ranks[0]["many"][key][2]))
+        ms = {r["rank"]: statistics.median(r["many"][key][0][2:] or
+                                           r["many"][key][0])
+              for r in ranks}
+        vms = statistics.median(ref[key][0][2:] or ref[key][0])
+        res[f"many_{key[0]}_{key[1]}"] = {"ms_by_rank": ms,
+                                          "vectorized_ms": vms}
+        log("sharded", f"many-party C = {MP_C} {key[0]} {key[1]}: "
+                       f"{len(want)} rounds, every rank's per-party losses "
+                       f"bit for bit rank 0's and, every round, the "
+                       f"vectorized engine's forward on the same weights; "
+                       f"their max relative difference from the vectorized "
+                       f"engine's own run by round {rel} (round 0 bit for "
+                       f"bit, then rtol 1e-5); "
+                       f"failures so far {len(failures)}; ms per "
+                       f"round by rank {ms} (median from round 2) beside "
+                       f"the vectorized engine's {vms:.3f} on one process; "
+                       f"rank 0 launches {paths[-1]}")
+    got = ranks[0]["many"]["grads"]
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(ref["grads"])):
+        if not np.allclose(a, b, atol=5e-6, rtol=1e-6):
+            failures.append("many-party round 0 gradients beyond atol 5e-6 "
+                            "/ rtol 1e-6")
+        worst = max(worst, float(np.abs(a - b).max()))
+    res["many_grad_max_abs"] = worst
+    log("sharded", f"round 0 gradients gathered to rank 0, against the "
+                   f"vectorized engine's: max |difference| {worst:.3g} "
+                   f"(atol 5e-6, rtol 1e-6)")
+    # the LM: tokens, launches
+    lm = {r["rank"]: r["lm"] for r in ranks if "lm" in r}
+    cfgs = _lm_system(cfg, "cpu").party_cfgs
+    attn_a, attn_p = _layer_kinds(cfgs[0])[0], _layer_kinds(cfgs[1])[0]
+    # against the loop engine (the same GEMM batches as a rank): the
+    # prefill's E, every free-running round's logits and the greedy tokens
+    # bit for bit
+    E, logits, toks0 = lm[0]["serve"][5], lm[0]["serve"][6], lm[0]["serve"][0]
+    res["lm_vs_loop"] = {
+        "prefill_E_max_abs": float(np.abs(E - loop[5]).max()),
+        "logits_max_abs": float(np.abs(logits - loop[6]).max()),
+        "tokens_equal": bool(np.array_equal(toks0, loop[0]))}
+    log("sharded", f"rank 0 against the loop engine: prefill E max "
+                   f"|difference| {res['lm_vs_loop']['prefill_E_max_abs']!r}, "
+                   f"the {SHARDED_LM_ROUNDS} greedy rounds' logits "
+                   f"{res['lm_vs_loop']['logits_max_abs']!r}, tokens "
+                   f"identical {res['lm_vs_loop']['tokens_equal']} (all bit "
+                   f"for bit required)")
+    if res["lm_vs_loop"] != {"prefill_E_max_abs": 0.0, "logits_max_abs": 0.0,
+                             "tokens_equal": True}:
+        failures.append("qwen2.5-3b: the sharded prefill, logits or tokens "
+                        "differ from the loop engine's")
+    # against the vectorized engine: the prefill's E bit for bit; the
+    # decode rounds as information, each fed the vectorized engine's tokens
+    # (teacher forcing): its passive decode attention runs the float32
+    # probs x V GEMM over all K parties at once, which cuBLAS rounds
+    # otherwise than one party's (tests/test_torch_cuda.py::
+    # test_cuda_decode_attention_rounds_by_party_batch; ROADMAP.md queue 3)
+    forced = lm[0]["forced"]
+    want = vec[6]
+    diffs = [float(np.abs(forced[:, i] - want[:, i]).max())
+             for i in range(SHARDED_LM_ROUNDS)]
+    rel = [d / float(np.abs(want[:, i]).max()) for i, d in enumerate(diffs)]
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]                   # (lanes, rounds)
+    agree = forced.argmax(-1) == want.argmax(-1)
+    free_same = [bool(np.array_equal(r["serve"][0], vec[0]))
+                 for r in lm.values()]
+    first = [int(np.argmax(~(toks0[b] == vec[0][b])))
+             if not np.array_equal(toks0[b], vec[0][b]) else None
+             for b in range(SHARDED_LM_LANES)]
+    res["lm_vs_vectorized"] = {
+        "prefill_E_max_abs": float(np.abs(E - vec[5]).max()),
+        "forced_logits_max_abs_by_round": diffs,
+        "forced_logits_rel_by_round": rel,
+        "min_top2_margin_by_round": margin.min(axis=0).tolist(),
+        "forced_tokens_equal": int(agree.sum()),
+        "free_run_tokens_equal_by_rank": free_same,
+        "free_run_first_difference_by_lane": first,
+        "loop_free_run_tokens_equal": bool(np.array_equal(loop[0], vec[0]))}
+    log("sharded", f"rank 0 against the vectorized engine: prefill E max "
+                   f"|difference| {res['lm_vs_vectorized']['prefill_E_max_abs']!r} "
+                   f"(bit for bit required); as information, the "
+                   f"teacher-forced rounds' logits max |difference| by round "
+                   f"{diffs}, relative to the round's max |logit| {rel}; "
+                   f"greedy tokens equal in {int(agree.sum())} of "
+                   f"{agree.size} (lane, round)s; the free-running tokens "
+                   f"equal the vectorized engine's on every rank "
+                   f"{free_same}, first difference by lane {first}, the loop "
+                   f"engine's equal them "
+                   f"{res['lm_vs_vectorized']['loop_free_run_tokens_equal']} "
+                   f"(the smallest top-2 margin by round "
+                   f"{[round(m, 4) for m in margin.min(axis=0).tolist()]})")
+    if res["lm_vs_vectorized"]["prefill_E_max_abs"] != 0.0:
+        failures.append("qwen2.5-3b: the prefill E differs from the "
+                        "vectorized engine's")
+    for rank, r in lm.items():
+        toks, pre_ms, round_ms, pre, per_rounds = r["serve"][:5]
+        if not np.array_equal(toks, lm[0]["serve"][0]):
+            failures.append(f"qwen2.5-3b rank {rank}: its tokens differ "
+                            f"from rank 0's")
+        want = {"flash_attention_fwd": attn_p + (attn_a if rank == 0 else 0),
+                "blind_agg_fwd": 1 if rank == 0 else 0}
+        for name, n in want.items():
+            if pre[name] != n or per_rounds["flash_attention_fwd"] != 0 or \
+                    per_rounds["blind_agg_fwd"] != (SHARDED_LM_ROUNDS
+                                                    if rank == 0 else 0):
+                failures.append(f"qwen2.5-3b rank {rank}: prefill "
+                                f"launches {pre}, decode {per_rounds}")
+    paths.append(_sum_launches([lm[r]["serve"][3] for r in lm]
+                               + [lm[r]["serve"][4] for r in lm]))
+    res["lm"] = {"prefill_ms_by_rank": {k: v["serve"][1]
+                                        for k, v in lm.items()},
+                 "round_ms_by_rank": {k: v["serve"][2]
+                                      for k, v in lm.items()},
+                 "vectorized_prefill_ms": vec[1],
+                 "vectorized_round_ms": vec[2],
+                 "draw_s_by_rank": {k: v["draw_s"] for k, v in lm.items()},
+                 "weights_gb_by_rank": {k: v["weights_gb"]
+                                        for k, v in lm.items()},
+                 "rows_by_rank": {k: v["rows"] for k, v in lm.items()}}
+    log("sharded", f"{cfg.name} at full width and depth, bfloat16, K = 3 "
+                   f"over {SHARDED_LM_RANKS} ranks (passive rows "
+                   f"{res['lm']['rows_by_rank']}): {SHARDED_LM_LANES} lanes, "
+                   f"{SHARDED_LM_PROMPT - 1}-token prefill then "
+                   f"{SHARDED_LM_ROUNDS} greedy rounds, the same tokens "
+                   f"on every rank (failures so far {len(failures)}); "
+                   f"prefill ms by rank {res['lm']['prefill_ms_by_rank']} "
+                   f"(vectorized {vec[1]:.1f}), ms a round by rank "
+                   f"{res['lm']['round_ms_by_rank']} (vectorized "
+                   f"{vec[2]:.2f}); flash_attention_fwd a prefill: rank 0 "
+                   f"{attn_a} + {attn_p}, ranks 1-2 {attn_p}; blind_agg_fwd "
+                   f"on rank 0 only; weights GB by rank "
+                   f"{res['lm']['weights_gb_by_rank']}")
+    # the 4-layer float32 cut against the CPU port
+    E, logits, out = lm[0]["cut"]
+    cE, clogits, cout = (t.numpy() for t in cut_cpu["cpu"])
+    errs = {}
+    for what, a, b in (("prefill embeddings", E, cE),
+                       ("logits", logits, clogits)):
+        errs[what] = (float(np.abs(a - b).max()),
+                      bool(np.allclose(a, b, rtol=1e-4, atol=1e-5)))
+    same = all(np.array_equal(r["cut"][2], cout) for r in lm.values())
+    res["lm_cut"] = {"errors": errs, "tokens_equal": same}
+    log("sharded", f"{cfg.name} cut to {LM_CUT_LAYERS} layers, float32, "
+                   f"over {SHARDED_LM_RANKS} ranks, against the CPU port: "
+                   + "; ".join(f"{w} max abs {e:.3g} "
+                               f"{'ok' if ok else 'FAIL'} (rtol 1e-4, atol "
+                               f"1e-5)" for w, (e, ok) in errs.items())
+                   + f"; tokens identical on every rank {same}")
+    if not same or not all(ok for _, ok in errs.values()):
+        failures.append("the sharded depth cut differs from the CPU port")
+    res["peak_gb_by_rank"] = {r["rank"]: (r["many_peak_gb"],
+                                          r.get("lm_peak_gb"))
+                              for r in ranks}
+    res["seconds"] = time.perf_counter() - t_phase
+    res["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log("sharded", f"peak device memory by rank (many-party, LM) GB "
+                   f"{res['peak_gb_by_rank']}; phase took "
+                   f"{res['seconds']:.1f} s on {res['card']}")
+    if failures:
+        raise AssertionError("sharded phase: " + "; ".join(failures))
+    return paths, res
+
+
+# ---------------------------------------------------------------------------
 
 
 def _table2_batches(n):
@@ -3405,6 +3958,10 @@ def run_phase(name, save=None, compare=None):
         res.update(zip(("whisper_cut", "vlm_cut"), _frontend_cuts()))
     elif name == "train":
         res = phase_train()[1]
+    elif name == "sharded":
+        cut_cpu = {}
+        _cut_phase("lm", LM_ARCH, LM_CUT_LAYERS, keep=cut_cpu)
+        res = phase_sharded(cut_cpu)[1]
     elif name == "prng":
         outs = []
         phase_prng(outs)
@@ -3489,7 +4046,10 @@ def main() -> int:
     phase_profile(batches, params0)
     worst_f32["flash_attention_fwd"] = phase_flash()
     lm_launches, lm = _serve_phase("lm", LM_ARCH)
-    lm_cut = _cut_phase("lm", LM_ARCH, LM_CUT_LAYERS)
+    cut_cpu = {}
+    lm_cut = _cut_phase("lm", LM_ARCH, LM_CUT_LAYERS, keep=cut_cpu)
+    sharded_paths, sharded = phase_sharded(cut_cpu)
+    del cut_cpu
     worst_f32["rglru_scan_fwd"] = phase_rglru()
     rg_launches, rg = _serve_phase("rg", RG_ARCH)
     # every prefill scan runs at a width of 4096: the TMA ring
@@ -3536,7 +4096,7 @@ def main() -> int:
              topk_paths["easter_topk_fused"], topk_paths["easter_topk_joint"],
              lm_launches, rg_launches, train_launches,
              joint_launches_lm, moe_launches, mamba_launches,
-             whisper_launches, vlm_launches)
+             whisper_launches, vlm_launches) + tuple(sharded_paths)
     launches = {name: sum(p.get(name, 0) for p in paths)
                 for name in ("blind_agg_fwd", "blind_agg_bwd",
                              "blind_agg_prng_fwd", "flash_attention_fwd",
@@ -3554,7 +4114,9 @@ def main() -> int:
                     f"{joint_launches_lm}, qwen2-moe-a2.7b serving "
                     f"{moe_launches}, mamba2-2.7b serving {mamba_launches}, "
                     f"whisper-small serving {whisper_launches}, "
-                    f"qwen2-vl-7b serving {vlm_launches})")
+                    f"qwen2-vl-7b serving {vlm_launches}, sharded engine "
+                    f"(rank 0's many-party float, int8 and joint rounds, "
+                    f"every LM rank's serving) {sharded_paths})")
     # blind_agg_fwd's launches by party groups, path by path: each path's
     # histogram counts every one of its forward launches
     names = ("Table II slice", "Table II joint", "many-party fused",
@@ -3564,7 +4126,9 @@ def main() -> int:
              "recurrentgemma-9b serving", "qwen2-1.5b training",
              "qwen2-1.5b joint step", "qwen2-moe-a2.7b serving",
              "mamba2-2.7b serving", "whisper-small serving",
-             "qwen2-vl-7b serving")
+             "qwen2-vl-7b serving", "sharded many-party float",
+             "sharded many-party int8", "sharded many-party joint",
+             "sharded qwen2.5-3b serving")
     groups = {n: p["fwd_groups"] for n, p in zip(names, paths)}
     log("launches", f"blind_agg_fwd launches by party groups G, path by "
                     f"path: {groups}")
@@ -3636,7 +4200,7 @@ def main() -> int:
                       "moe_cut": moe_cut, "mamba": mamba,
                       "mamba_cut": mamba_cut, "whisper": whisper,
                       "whisper_cut": whisper_cut, "vlm": vlm,
-                      "vlm_cut": vlm_cut}))
+                      "vlm_cut": vlm_cut, "sharded": sharded}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -3,7 +3,8 @@ the protocol and training configs.
 
 Own copy of the reference's ``repro.configs.base`` (``ModelConfig`` with
 its sub-configs, ``register``/``get_config``/``list_archs``,
-``smoke_variant``, ``EasterConfig``, ``TrainConfig``). The port runs
+``smoke_variant``, ``EasterConfig``, ``TrainConfig``, ``InputShape`` and
+``INPUT_SHAPES``, the dry run's input shapes). The port runs
 every family: dense, MoE, SSM (Mamba-2), hybrid (RG-LRU), the
 encoder-decoder (whisper) and vision (qwen2-vl) ones.
 """
@@ -135,6 +136,16 @@ class ModelConfig:
         head = 0 if self.tie_embeddings else self.vocab_size * d
         return int(emb + body + head + d)
 
+    def active_param_count(self) -> int:
+        """MoE: params touched per token (top_k + shared experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        m = self.moe
+        full = self.param_count()
+        ff_all = 3 * self.d_model * m.d_expert_ff * m.n_experts * self.n_layers
+        ff_act = 3 * self.d_model * m.d_expert_ff * m.top_k * self.n_layers
+        return int(full - ff_all + ff_act)
+
 
 # ---------------------------------------------------------------------------
 # registry
@@ -238,3 +249,19 @@ class TrainConfig:
     seq: int = 128
     steps: int = 100
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -271,8 +271,11 @@ class Trainer:
         elif callable(getattr(cfg.optimizer, "update", None)):
             self.opt = cfg.optimizer
         else:
-            self.opt = optim.make_optimizer(cfg.optimizer, cfg.lr,
-                                            grad_clip=cfg.grad_clip)
+            # one optimizer over every party: on the sharded engine its
+            # clipping norm sums over the ranks
+            self.opt = optim.make_optimizer(
+                cfg.optimizer, cfg.lr, grad_clip=cfg.grad_clip,
+                norm_reduce=getattr(sys, "sum_over_ranks", None))
         self.chunk = max(1, cfg.chunk)
         self._chunk_fn = train_loop.build_train_chunk(sys, self.opt,
                                                       donate=cfg.donate)

@@ -363,7 +363,7 @@ class MaskEngine:
 
     def masks(self, shape, round_idx=0, mode: str = "float",
               scalar: bool = False, scale: float = 1.0,
-              device=None) -> torch.Tensor:
+              device=None, *, group=None, rows=None) -> torch.Tensor:
         """(K, *shape) stacked masks, equal to ``all_party_masks``.
 
         Every distinct pair mask is drawn once, in one batched threefry
@@ -371,9 +371,19 @@ class MaskEngine:
         axis, the loop oracle's addition order. ``round_idx`` may be an
         (R,) sequence or tensor of per-lane rounds (batched serving):
         ``shape`` then leads with the lane axis R and each lane's slice is
-        drawn under its own round, as R scalar calls of ``shape[1:]``."""
+        drawn under its own round, as R scalar calls of ``shape[1:]``.
+
+        ``group`` (a ``party_group.PartyGroup``, the sharded engine): only
+        this rank's rows, ``group.rows(K)`` (all K where K does not divide
+        over the group, as the reference's ``mesh=``). ``rows``: those
+        party rows, in that order. Only the pairs of those rows are drawn,
+        so no rank makes, and no collective carries, another rank's masks;
+        each row equals its row of the full tensor bit for bit."""
         device = resolve_device(device)
         K = self.n_passive
+        if group is not None:
+            rows = group.rows(K)
+        sel = list(range(K)) if rows is None else [int(k) for k in rows]
         shape = tuple(shape)
         mshape = () if scalar else shape
         if isinstance(round_idx, torch.Tensor):
@@ -385,10 +395,11 @@ class MaskEngine:
                              f"leading lane axis on the shape, got {mshape}")
         n = math.prod(mshape)
         words = sorted({(int(h), int(l)) for h, l in
-                        zip(self.seed_hi[:, :K - 1].ravel(),
-                            self.seed_lo[:, :K - 1].ravel())})
+                        zip(self.seed_hi[sel, :K - 1].ravel(),
+                            self.seed_lo[sel, :K - 1].ravel())})
         row = {w: i for i, w in enumerate(words)}
-        total = torch.zeros((K,) + mshape, dtype=mask_dtype(mode),
+        M = len(sel)
+        total = torch.zeros((M,) + mshape, dtype=mask_dtype(mode),
                             device=device)
         if words:
             # one draw of n / R elements per (lane, pair) key, laid out as
@@ -402,20 +413,20 @@ class MaskEngine:
             idx = torch.tensor([[row[(int(h), int(l))] for h, l in
                                  zip(self.seed_hi[k, :K - 1],
                                      self.seed_lo[k, :K - 1])]
-                                for k in range(K)], device=device)
-            coeff = torch.as_tensor(self.signs[:, :K - 1],
+                                for k in sel], device=device)
+            coeff = torch.as_tensor(self.signs[sel, :K - 1],
                                     device=device).to(total.dtype)
-            terms = pm[idx] * coeff[..., None]        # (K, K-1, n)
-            flat = total.reshape(K, n)
+            terms = pm[idx] * coeff[..., None]        # (M, K-1, n)
+            flat = total.reshape(M, n)
             for j in range(K - 1):
                 flat = flat + terms[:, j]
-            total = flat.reshape((K,) + mshape)
+            total = flat.reshape((M,) + mshape)
         if scalar:
-            total = total.reshape((K,) + (1,) * len(shape))
+            total = total.reshape((M,) + (1,) * len(shape))
         if mode == "float" and scale != 1.0:
             total = total * scale
         if scalar:
-            total = total.expand((K,) + shape)
+            total = total.expand((M,) + shape)
         return total
 
 

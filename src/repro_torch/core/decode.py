@@ -17,6 +17,10 @@ by the Gumbel-max trick, so a sampled lane gets the reference's keys and
 tokens. Keys are int64 tensors of shape (..., 2) holding the two uint32
 words.
 
+Under the sharded engine only the active party's rank gets logits; the
+drivers sample there and ``EasterLM.share_tokens`` broadcasts the tokens
+to the other ranks, whose lane state then moves in step.
+
 ``decode_chunk`` drives R request lanes through one protocol round per
 generated token; a lane that emitted its EOS or spent its budget freezes
 (caches, position and key untouched, zero uplink, pad output), and the
@@ -152,14 +156,18 @@ def serve_tokens(sys, params, tokens, caches, pos, n_steps: int, seeds, *,
                                         window_override=window_override,
                                         fe_list=fe_list)
         key, sub = split_key(key)
-        tok = sample_token(logits[:, -1], sub, temperature)
+        tok = sys.share_tokens(
+            None if logits is None
+            else sample_token(logits[:, -1], sub, temperature),
+            (tokens.shape[0], 1))
         toks.append(tok)
-        if return_logits:
+        if return_logits and logits is not None:
             logs.append(logits[:, -1])
         pos = pos + 1
     out = torch.cat(toks, dim=1)
     if return_logits:
-        return out, caches, pos, key, torch.stack(logs, dim=1)
+        return (out, caches, pos, key,
+                torch.stack(logs, dim=1) if logs else None)
     return out, caches, pos, key
 
 
@@ -199,8 +207,10 @@ def decode_chunk(sys, params, state, n_steps: int, seeds, *,
         logits, cc = sys.serve_step(params, st.tok, st.caches, st.pos, seeds,
                                     lane_mask=active, nonces=st.nonce)
         k_next, k_sub = split_key(st.key)
-        nxt = sample_token(logits[:, -1], k_sub, st.temp, done=st.done,
-                           pad_id=pad_id)
+        nxt = sys.share_tokens(
+            None if logits is None
+            else sample_token(logits[:, -1], k_sub, st.temp, done=st.done,
+                              pad_id=pad_id), (R, 1))
         cc = _freeze(cc, st.caches, active)
         key = torch.where(active[:, None], k_next, st.key)
         step = active.to(torch.int32)

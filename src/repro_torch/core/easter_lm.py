@@ -42,8 +42,28 @@ as it is and copies no weight (the reference restacks on every step,
 which costs nothing under jit and about 6 GB a round in eager torch at
 qwen2.5-3b). The group's token embeddings are one offset gather from
 the flat view of the stacked tables (``layers.embed_grouped``), outside
-the vmap. ``engine="loop"`` is the per-party oracle. ``engine="sharded"``
-raises (ROADMAP.md queue 1 item 14).
+the vmap. ``engine="loop"`` is the per-party oracle.
+
+``engine="sharded"`` lays the stacked passive group over a party group of
+``torch.distributed`` ranks (``group``, a ``party_group.PartyGroup``;
+None joins the launcher's, ``launch.mesh.make_party_group``). Where K
+divides over the ranks (``_shard_ok``), each rank holds and runs its own
+rows of the group (``passive_stacked`` holds those rows; a party another
+rank holds is ``{}`` in ``params["parties"]`` and in the caches), makes
+only its own rows' masks, and blinds them in place; the gather of that
+uplink is the only collective that carries embeddings. The active
+party's weights, caches and decision live on rank 0, which aggregates.
+In training the global embedding is broadcast back and every rank's
+losses arrive on every rank; in serving only rank 0 gets the embedding
+and the logits, and the decode drivers broadcast the sampled tokens
+(``share_tokens``). The labels reach every rank's decision losses, as
+the reference's shards take them. With K not dividing over the ranks
+every rank runs every party (replicated), the reference's rule. Both
+stacked engines run one code path (``_loss_fn_grouped``,
+``_serve_grouped``): the vectorized engine is the one-process case,
+whose rows are all K and whose collectives are the identity; the two
+differ only in ``_held_aggregate``, where one process hands its float
+masks to the blind+aggregate kernel.
 
 Training: ``loss_fn`` is the reference's, with its stop-gradient
 surrogate, so one backward gives every party the gradient of its own
@@ -72,6 +92,7 @@ from torch.func import vmap
 from repro_torch import checkpoint
 from repro_torch.configs.base import EasterConfig, ModelConfig
 from repro_torch.core import aggregation, blinding
+from repro_torch.core import party_group as pg
 from repro_torch.core.losses import chunked_lm_head_xent
 from repro_torch.core.party_engine import (stack_trees, stack_views,
                                            unstack_tree)
@@ -136,17 +157,22 @@ class EasterLM:
     easter: EasterConfig
     grad_mode: str = "easter"        # easter (paper) | joint (beyond-paper)
     # vectorized: the K passive proxies share one config, so they run as
-    # one vmap over their stacked parameters; loop: the per-party oracle
+    # one vmap over their stacked parameters; sharded: that stack over a
+    # party group of ranks; loop: the per-party oracle
     engine: str = "vectorized"
-    device: Any = None               # None = the card
+    device: Any = None               # None = the card (the group's, sharded)
+    # engine="sharded": the ranks' party group; None joins the launcher's
+    group: Any = None
 
     def __post_init__(self):
-        if self.engine == "sharded":
-            raise NotImplementedError(
-                "engine='sharded': the sharded party engine is ROADMAP.md "
-                "queue 1 item 14")
-        if self.engine not in ("vectorized", "loop"):
+        if self.engine not in ("vectorized", "sharded", "loop"):
             raise ValueError(f"engine {self.engine!r}")
+        if self.engine == "sharded":
+            if self.group is None:
+                from repro_torch.launch.mesh import make_party_group
+                self.group = make_party_group(device=self.device)
+            if self.device is None:
+                self.device = self.group.device
         if self.grad_mode not in ("easter", "joint"):
             raise ValueError(f"grad_mode {self.grad_mode!r}")
         if self.easter.mask_mode not in ("float",) + blinding.RING_MODES:
@@ -173,7 +199,7 @@ class EasterLM:
         K(K-1)/2 2048-bit modexps."""
         if self.easter.num_passive < 2 or not self.easter.enabled:
             return None
-        if self.engine == "vectorized":
+        if self.engine != "loop":
             return blinding.cached_mask_engine(self.easter.num_passive,
                                                CEREMONY_SEED)
         return blinding.cached_passive_setup(self.easter.num_passive,
@@ -217,16 +243,46 @@ class EasterLM:
             return {"parties": [active] + [draw(c)
                                            for c in self.party_cfgs[1:]]}
         K = self.easter.num_passive
-        stacked = stack_drawn(lambda k: draw(self.party_cfgs[1 + k]), K,
-                              _empty_passive_stack)
-        return {"parties": [active] + unstack_tree(stacked, K),
-                "passive_stacked": stacked}
+        if not self._shard_ok():
+            stacked = stack_drawn(lambda k: draw(self.party_cfgs[1 + k]), K,
+                                  _empty_passive_stack)
+            return {"parties": [active] + unstack_tree(stacked, K),
+                    "passive_stacked": stacked}
+        # every rank draws every party in order (one process's bits) and
+        # keeps its own: the active party on rank 0, its rows of the group
+        rows = self._rows()
+        if not self._holds_active():
+            active = {}
+        for k in range(rows[0]):
+            draw(self.party_cfgs[1 + k])
+        stacked = stack_drawn(lambda i: draw(self.party_cfgs[1 + rows[i]]),
+                              len(rows), _empty_passive_stack)
+        return self._held_tree(active, stacked)
+
+    def _held_tree(self, active, stacked) -> Dict[str, Any]:
+        """{"parties": [active or {}, own rows' views, {} elsewhere],
+        "passive_stacked": own rows} of a rank of the sharded engine."""
+        rows = self._rows()
+        views = unstack_tree(stacked, len(rows))
+        parties = [active] + [{}] * self.easter.num_passive
+        for i, r in enumerate(rows):
+            parties[1 + r] = views[i]
+        return {"parties": parties, "passive_stacked": stacked}
 
     def load_params(self, trees) -> Dict[str, Any]:
         """The reference's ``init_params`` tree as numpy arrays (bfloat16
         included) -> this system's grouped tensors on ``self.device``."""
         return self.group_params(checkpoint.params_from_numpy(
-            trees, self.device, requires_grad=False))
+            self.held_parties(trees), self.device, requires_grad=False))
+
+    def held_parties(self, params):
+        """``{"parties": [...]}`` with the parties this rank does not hold
+        (the sharded engine) replaced by ``{}``; otherwise unchanged."""
+        if not self._shard_ok():
+            return params
+        held = self._held()
+        return {**params, "parties": [p if k in held else {} for k, p in
+                                      enumerate(params["parties"])]}
 
     @staticmethod
     def export_params(params) -> Dict[str, Any]:
@@ -244,11 +300,11 @@ class EasterLM:
         if not self._passive_group_ok():
             return params
         parties = params["parties"]
-        stacked = stack_drawn(lambda k: parties[1 + k], len(parties) - 1,
+        rows = self._rows()
+        stacked = stack_drawn(lambda i: parties[1 + rows[i]], len(rows),
                               _empty_passive_stack)
-        return {**params, "passive_stacked": stacked,
-                "parties": [params["parties"][0]]
-                + unstack_tree(stacked, self.easter.num_passive)}
+        return {**params, **self._held_tree(
+            parties[0] if self._holds_active() else {}, stacked)}
 
     @staticmethod
     def _passive_stack(params):
@@ -275,8 +331,8 @@ class EasterLM:
         """``train_leaves``-shaped gradients -> the reference's per-party
         list (passive entries row views of the stacked gradients)."""
         if "stacked" in grads:
-            return [grads["active"]] + unstack_tree(grads["stacked"],
-                                                    self.easter.num_passive)
+            return self._held_tree(grads["active"],
+                                   grads["stacked"])["parties"]
         return list(grads["parties"])
 
     # -- protocol pieces -----------------------------------------------------
@@ -300,10 +356,11 @@ class EasterLM:
         E = linear(pparams["proj"], h)                 # (B, S, d_embed)
         return E, new_caches, aux
 
-    def masks_for(self, shape, round_idx, seeds):
+    def masks_for(self, shape, round_idx, seeds, rows=None):
         """(K, *shape) masks for ``round_idx`` (a scalar or an (R,) tensor
         of per-lane rounds); ``fresh_masks=False`` collapses every round to
-        0, the paper's single static pad (per lane when per-lane)."""
+        0, the paper's single static pad (per lane when per-lane).
+        ``rows``: only those passive rows (a MaskEngine)."""
         if seeds is None:
             return None
         if self.easter.fresh_masks:
@@ -314,7 +371,7 @@ class EasterLM:
             r = 0
         if isinstance(seeds, blinding.MaskEngine):
             return seeds.masks(shape, r, self.easter.mask_mode,
-                               device=self.device)
+                               device=self.device, rows=rows)
         return blinding.all_party_masks(self.easter.num_passive, seeds, shape,
                                         r, self.easter.mask_mode,
                                         device=self.device)
@@ -332,12 +389,57 @@ class EasterLM:
 
     def _passive_group_ok(self) -> bool:
         """True when parties 1..K are structurally identical (they are by
-        construction of passive_cfg: only the name differs) and the
-        vectorized engine is selected."""
-        if self.engine != "vectorized" or self.easter.num_passive < 1:
+        construction of passive_cfg: only the name differs) and a stacked
+        engine (vectorized or sharded) is selected."""
+        if self.engine == "loop" or self.easter.num_passive < 1:
             return False
         anon = [dataclasses.replace(c, name="") for c in self.party_cfgs[1:]]
         return all(c == anon[0] for c in anon)
+
+    def _shard_ok(self) -> bool:
+        """True when the K-passive stack lies over the party group (the
+        sharded engine, K dividing over its ranks)."""
+        return (self.engine == "sharded" and self._passive_group_ok()
+                and pg.party_shardable(self.group, self.easter.num_passive))
+
+    def _grp(self):
+        """The party group the passive rows lie over, or None: one process
+        holds every row, and the collectives are the identity."""
+        return self.group if self._shard_ok() else None
+
+    def _rows(self) -> range:
+        """This rank's rows of the passive group (all K off the sharded
+        path)."""
+        K = self.easter.num_passive
+        return self.group.rows(K) if self._shard_ok() else range(K)
+
+    def _holds_active(self) -> bool:
+        """True where the active party runs: rank 0 of a sharded group,
+        every process otherwise."""
+        return not self._shard_ok() or self.group.rank == 0
+
+    def _held(self) -> set:
+        """The parties whose weights and caches this process holds."""
+        held = {0} if self._holds_active() else set()
+        return held | {1 + r for r in self._rows()}
+
+    def sum_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the party group's ranks where the parties lie
+        over them (an optimizer's clipping norm); unchanged otherwise."""
+        if not self._shard_ok():
+            return x
+        return self.group.all_reduce(x.reshape(1).clone(), "sum")[0]
+
+    def share_tokens(self, tok, shape):
+        """The decode drivers' next tokens (int32, ``shape``): sampled on
+        the active party's rank and broadcast to the others under the
+        sharded engine (other ranks pass None); unchanged otherwise."""
+        if not self._shard_ok():
+            return tok
+        buf = (tok.to(torch.int32).contiguous() if self._holds_active()
+               else torch.empty(shape, dtype=torch.int32,
+                                device=self.device))
+        return self.group.broadcast(buf, 0)
 
     def _aggregate(self, E_all, round_idx, seeds, lane_mask=None):
         """Blind + aggregate (C, B, S, d) -> (E_all, global E).
@@ -392,7 +494,7 @@ class EasterLM:
         ``vision_embed``: the keys ending in ``_embed``; other keys are
         ignored, as in the reference)."""
         if self._passive_group_ok():
-            return self._loss_fn_vectorized(params, batch, round_idx, seeds)
+            return self._loss_fn_grouped(params, batch, round_idx, seeds)
         tokens, labels, fe = self._batch(batch)
         Es, auxes = [], []
         for k, pcfg in enumerate(self.party_cfgs):
@@ -417,35 +519,122 @@ class EasterLM:
         fe = {k: on(v) for k, v in batch.items() if k.endswith("_embed")}
         return on(batch["tokens"]), on(batch["labels"]), fe
 
-    def _loss_fn_vectorized(self, params, batch, round_idx, seeds):
-        """The passive group at once: one offset gather of its token
-        embeddings, its layers as ``checkpoint(vmap(...))`` per repeat
-        (``transformer.apply_hidden(group=True)``), its decision stacks
-        as one vmap and its heads' cross-entropy party by party. The
-        stop-gradient surrogate acts on the stacked (C, B, S, d) view, so
-        one backward still gives every party its own loss's gradient."""
+    def _loss_fn_grouped(self, params, batch, round_idx, seeds):
+        """The stacked engines' training round: the active party on its
+        rank, this rank's passive rows at once (every row in one process):
+        one offset gather of their token embeddings, their layers as
+        ``checkpoint(vmap(...))`` per repeat
+        (``transformer.apply_hidden(group=True)``), ``_held_aggregate``,
+        their decision stacks as one vmap and their heads' cross-entropy
+        party by party. The stop-gradient surrogate acts on each party's
+        own rows, so one backward on every rank gives each party its own
+        loss's gradient. Over a party group the per-party and aux losses
+        are gathered and the active party's broadcast."""
         tokens, labels, fe = self._batch(batch)
+        grp, C = self._grp(), self.C
         pcfg_a, pcfg_p = self.party_cfgs[0], self.party_cfgs[1]
-        E_a, _, aux_a = self.local_embed(params["parties"][0], pcfg_a,
-                                         tokens, training=True, **fe)
+        E_a = aux_a = None
+        if self._holds_active():
+            E_a, _, aux_a = self.local_embed(params["parties"][0], pcfg_a,
+                                             tokens, training=True, **fe)
         sp = self._passive_stack(params)
         x_p = embed_grouped(sp["backbone"]["embed"]["table"], tokens)
         h_p, _, aux_p = transformer.apply_hidden(
             sp["backbone"], x_p, pcfg_p, return_hidden=True, training=True,
             group=True, **fe)
-        E_p = vmap(linear)(sp["proj"], h_p)              # (K, B, S, d_e)
-        E_all, E = self._aggregate(torch.cat([E_a[None], E_p], dim=0),
-                                   round_idx, seeds)
-        E_for = self._per_party_E(E.to(E_all.dtype), E_all)
-        h_a = self.decide_hidden(params["parties"][0], pcfg_a, E_for[0])
-        per = [chunked_lm_head_xent(h_a, params["parties"][0]["head"]["w"],
-                                    labels)]
+        E_p = vmap(linear)(sp["proj"], h_p)          # (K_own, B, S, d_e)
+        E = self._held_aggregate(E_a, E_p, round_idx, seeds,
+                                 share=True).to(E_p.dtype)
+        if E.requires_grad:             # alike on every rank
+            E = pg.enter_shard(E, grp)
+
+        def view(e):
+            if self.grad_mode == "easter":
+                return E.detach() - e.detach() / C + e / C
+            return E.expand(e.shape)
+
         hs = vmap(lambda p, e: self.decide_hidden(p, pcfg_p, e))(
-            sp, E_for[1:])
-        per += [chunked_lm_head_xent(hs[k], sp["head"]["w"][k], labels)
-                for k in range(self.easter.num_passive)]
-        per = torch.stack(per)
+            sp, view(E_p))
+        per_p = pg.gather_rows(torch.stack(
+            [chunked_lm_head_xent(hs[i], sp["head"]["w"][i], labels)
+             for i in range(len(hs))]), grp)
+        aux_p = pg.gather_rows(aux_p.reshape(-1), grp)
+        per_a = None
+        if E_a is not None:
+            h_a = self.decide_hidden(params["parties"][0], pcfg_a, view(E_a))
+            per_a = chunked_lm_head_xent(
+                h_a, params["parties"][0]["head"]["w"], labels)
+        per_a = pg.from_rank(per_a, grp, 0, (), per_p.dtype)
+        aux_a = pg.from_rank(aux_a, grp, 0, (), aux_p.dtype)
+        per = torch.cat([per_a[None], per_p])
         return torch.sum(per) + aux_a + torch.sum(aux_p), per
+
+    # -- the stacked engines' aggregation -------------------------------------
+    def _blind_own(self, E_p, masks, scale):
+        """This rank's uplink rows: the float wire ships E + r in the
+        masks' float32 (the precision the blind+aggregate kernel adds
+        them in, so a bfloat16 E's aggregate is the one process's), the
+        ring wires quantize(E) + r."""
+        if masks is not None and self.easter.mask_mode == "float":
+            return blinding.blind_uplink(E_p.to(masks.dtype), masks, "float")
+        return blinding.blind_uplink(E_p, masks, self.easter.mask_mode,
+                                     scale)
+
+    def _round_scale(self, E_p, E_a, masks):
+        """The int8 wire's round scale from max |E| over every party: one
+        ``all_reduce(MAX)`` of this rank's rows' max (and the active
+        party's on rank 0); None on the other wires."""
+        if masks is None or self.easter.mask_mode != "int8":
+            return None
+        amax = torch.max(torch.abs(E_p.detach())).float()
+        if E_a is not None:
+            amax = torch.maximum(amax, torch.max(torch.abs(
+                E_a.detach())).float())
+        amax = self.group.all_reduce(amax.reshape(1).contiguous(), "max")[0]
+        return blinding.ring_scale(amax, self.C, "int8")
+
+    def _held_aggregate(self, E_a, E_p, round_idx, seeds, lane_mask=None,
+                        *, share: bool):
+        """The global embedding from the active party's embedding (None off
+        its rank) and this rank's passive rows E_p (K_own, B, S, d).
+
+        In one process: ``_aggregate`` of the (C, ...) stack, where the
+        float wire's masks enter the blind+aggregate kernel. Over a party
+        group: each rank makes and adds only its own rows' masks
+        (``_blind_own``), the gather of that uplink is the only collective
+        that carries embeddings, and rank 0 aggregates
+        (``_aggregate_grouped``, the same bits); with ``share`` it
+        broadcasts E, differentiably (``reduce_on_rank``), else the other
+        ranks get None. Finished lanes (``lane_mask``) ship exact-zero
+        rows and leave the int8 scale alone, as in ``_aggregate``."""
+        grp = self._grp()
+        if grp is None:
+            return self._aggregate(torch.cat([E_a[None], E_p], dim=0),
+                                   round_idx, seeds, lane_mask)[1]
+        masks = self.masks_for(tuple(E_p.shape[1:]), round_idx, seeds,
+                               rows=self._rows())
+        if lane_mask is not None:
+            keep = lane_mask.reshape((1, -1) + (1,) * (E_p.dim() - 2))
+            E_p = torch.where(keep, E_p, 0)
+            if masks is not None:
+                masks = torch.where(keep, masks, 0)
+            if E_a is not None:
+                E_a = torch.where(keep[0], E_a, 0)
+        scale = self._round_scale(E_p, E_a, masks)
+        blinded = masks is not None
+        up = self._blind_own(E_p, masks, scale)
+
+        def agg(u, e_a):
+            return self._aggregate_grouped(e_a, u, blinded, scale)
+
+        if not share:
+            up = grp.all_gather(up)
+            return None if E_a is None else agg(up, E_a)
+        ring = blinded and self.easter.mask_mode in blinding.RING_MODES
+        return pg.reduce_on_rank(
+            agg, grp, 0, E_p.shape[1:],
+            torch.float32 if ring else E_p.dtype, pg.gather_rows(up, grp),
+            *(() if E_a is None else (E_a,)))
 
     def train_chunk(self, params, opt_state, batches, step0, opt):
         """``len(batches)`` optimizer steps of ``opt`` (any
@@ -465,11 +654,14 @@ class EasterLM:
         """KV caches for every party on ``self.device``. ``per_lane=True``
         gives each batch row its own position counter (continuous-batching
         decode slots, required whenever ``serve_step`` gets a vector
-        pos)."""
+        pos). On the sharded engine a party another rank holds gets
+        ``{}``."""
+        held = self._held()
         return [transformer.init_cache(pcfg, batch, cache_len,
                                        window_override, per_lane,
                                        device=self.device)
-                for pcfg in self.party_cfgs]
+                if k in held else {}
+                for k, pcfg in enumerate(self.party_cfgs)]
 
     @torch.no_grad()
     def serve_step(self, params, tokens, caches, pos, seeds,
@@ -487,9 +679,13 @@ class EasterLM:
         (see ``_aggregate``). ``fe_list``: per-party frontend inputs (an
         encoder-decoder's ``{"enc_kv": ...}`` from ``encoder_kv``)."""
         fe_list = fe_list or [{}] * self.C
+        # an int position keeps the PRF round on the host (the dry run's
+        # meta tensors hold no value to read it from)
+        host_pos = pos if isinstance(pos, int) else None
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         if nonces is None:
-            round_idx = blinding.SERVE_DOMAIN + pos
+            round_idx = blinding.SERVE_DOMAIN + (pos if host_pos is None
+                                                 else host_pos)
         else:
             round_idx = blinding.serve_round(torch.as_tensor(
                 nonces, dtype=torch.int32, device=self.device), pos)
@@ -497,9 +693,9 @@ class EasterLM:
             lane_mask = torch.as_tensor(lane_mask, device=self.device)
         po = pos[:, None] if pos.dim() == 1 else pos
         if self._passive_group_ok():
-            return self._serve_step_grouped(params, tokens, caches, po, seeds,
-                                            window_override, round_idx,
-                                            lane_mask, fe_list)
+            return self._serve_grouped(params, tokens, caches, po, seeds,
+                                       window_override, round_idx, lane_mask,
+                                       fe_list)
         Es, new_caches = [], []
         for k, pcfg in enumerate(self.party_cfgs):
             E_k, nc, _ = self.local_embed(
@@ -524,8 +720,9 @@ class EasterLM:
         in place, not copied."""
         pcfg_p = self.party_cfgs[1]
         sp = self._passive_stack(params)
-        sc = stack_trees(caches[1:])
-        sfe = stack_views(fe_list[1:])
+        rows = self._rows()
+        sc = stack_trees([caches[1 + r] for r in rows])
+        sfe = stack_views([fe_list[1 + r] for r in rows])
         x = embed_grouped(sp["backbone"]["embed"]["table"], tokens)
 
         def one(p, c, x, fe):
@@ -537,19 +734,34 @@ class EasterLM:
 
         return vmap(one)(sp, sc, x, sfe)
 
-    def _serve_step_grouped(self, params, tokens, caches, pos, seeds,
-                            window_override, round_idx, lane_mask, fe_list):
+    def _serve_grouped(self, params, tokens, caches, pos, seeds,
+                       window_override, round_idx, lane_mask, fe_list, *,
+                       decide=True):
+        """One serving round (prefill or decode) of the stacked engines: the
+        active party on its rank, this rank's passive rows as one vmap
+        (``_passive_embed_grouped``), then ``_held_aggregate``. Returns
+        (the active party's logits, or E with ``decide=False``, None off
+        its rank; this rank's caches, ``{}`` for the parties it does not
+        hold)."""
+        E_a = nc_a = None
         pcfg_a = self.party_cfgs[0]
-        E_a, nc_a, _ = self.local_embed(
-            params["parties"][0], pcfg_a, tokens, caches=caches[0],
-            pos_offset=pos, window_override=window_override, **fe_list[0])
+        if self._holds_active():
+            E_a, nc_a, _ = self.local_embed(
+                params["parties"][0], pcfg_a, tokens, caches=caches[0],
+                pos_offset=pos, window_override=window_override,
+                **fe_list[0])
         E_p, nc_p = self._passive_embed_grouped(params, tokens, caches, pos,
                                                 window_override, fe_list)
-        E_all, E = self._aggregate(torch.cat([E_a[None], E_p], dim=0),
-                                   round_idx, seeds, lane_mask)
-        logits = self.decide(params["parties"][0], pcfg_a, E.to(E_all.dtype))
-        new_caches = [nc_a] + unstack_tree(nc_p, self.easter.num_passive)
-        return logits, new_caches
+        out = self._held_aggregate(E_a, E_p, round_idx, seeds, lane_mask,
+                                   share=False)
+        if out is not None and decide:
+            out = self.decide(params["parties"][0], pcfg_a, out.to(E_a.dtype))
+        rows = self._rows()
+        new_caches = [{} if nc_a is None else nc_a] \
+            + [{}] * self.easter.num_passive
+        for i, c in zip(rows, unstack_tree(nc_p, len(rows))):
+            new_caches[1 + i] = c
+        return out, new_caches
 
     @torch.no_grad()
     def prefill(self, params, tokens, caches, window_override: int = -1,
@@ -565,15 +777,9 @@ class EasterLM:
         r = blinding.PREFILL_DOMAIN + round_idx
         fe_list = fe_list or [{}] * self.C
         if self._passive_group_ok():
-            pcfg_a = self.party_cfgs[0]
-            E_a, nc_a, _ = self.local_embed(
-                params["parties"][0], pcfg_a, tokens, caches=caches[0],
-                window_override=window_override, **fe_list[0])
-            E_p, nc_p = self._passive_embed_grouped(params, tokens, caches, 0,
-                                                    window_override, fe_list)
-            _, E = self._aggregate(torch.cat([E_a[None], E_p], dim=0), r,
-                                   seeds)
-            return E, [nc_a] + unstack_tree(nc_p, self.easter.num_passive)
+            return self._serve_grouped(params, tokens, caches, 0, seeds,
+                                       window_override, r, None, fe_list,
+                                       decide=False)
         Es, new_caches = [], []
         for k, pcfg in enumerate(self.party_cfgs):
             E_k, nc, _ = self.local_embed(
@@ -603,9 +809,12 @@ class EasterLM:
         if not self._passive_group_ok():
             return [{"enc_kv": one_kv(params["parties"][k]["backbone"], pcfg)}
                     for k, pcfg in enumerate(self.party_cfgs)]
-        active = {"enc_kv": one_kv(params["parties"][0]["backbone"],
-                                   self.party_cfgs[0])}
+        active = ({"enc_kv": one_kv(params["parties"][0]["backbone"],
+                                    self.party_cfgs[0])}
+                  if self._holds_active() else {})
         k_p, v_p = one_kv(self._passive_stack(params)["backbone"],
                           self.party_cfgs[1], group=True)
-        return [active] + [{"enc_kv": (k_p[i], v_p[i])}
-                           for i in range(self.easter.num_passive)]
+        out = [active] + [{}] * self.easter.num_passive
+        for i, r in enumerate(self._rows()):
+            out[1 + r] = {"enc_kv": (k_p[i], v_p[i])}
+        return out

@@ -22,9 +22,16 @@ message-passing form of the same round (explicit per-party pullbacks).
 Engines: ``engine="vectorized"`` (the default, as in the reference) groups
 parties by (arch, slice width) and runs each step as one ``vmap`` per
 group (``core/party_engine.py``), with MaskEngine masks; ``engine="loop"``
-is the reference's per-party loop with the loop-oracle masks. The sharded
-engine is ROADMAP queue 1 item 14 and raises ``NotImplementedError``
-naming it.
+is the reference's per-party loop with the loop-oracle masks.
+``engine="sharded"`` runs the vectorized groups over a party group of
+``torch.distributed`` ranks (``group``, a ``party_group.PartyGroup``;
+None joins the launcher's, ``mesh.make_party_group()``): each rank holds
+and runs its own rows of every group that divides over the ranks, makes
+only its own parties' masks, blinds them in place, and the gather of that
+uplink is the only collective that carries embeddings; the active
+party's rank aggregates and broadcasts E. Losses and predictions come
+back on every rank. As in the reference it takes no ``compress_frac``
+and no ``fused_masks``.
 
 ``compress_frac`` > 0 (beyond-paper, C_VFL style) top-k sparsifies the
 passive parties' uplink embeddings after the embedding, with
@@ -70,12 +77,17 @@ class EasterClassifier:
     n_features: List[int]               # per-party vertical feature split
     loss: str = "ce"
     grad_mode: str = "easter"           # easter (paper) | joint (beyond)
-    engine: str = "vectorized"          # vectorized (grouped vmap) | loop
+    # vectorized (grouped vmap) | sharded (the groups over a party group
+    # of ranks) | loop
+    engine: str = "vectorized"
     # make the masks inside the blind+aggregate kernel (float mode,
     # vectorized engine); CPU tensors take MaskEngine masks
     fused_masks: bool = False
     compress_frac: float = 0.0          # top-k uplink keep fraction
     device: Any = None                  # None = the card
+    # engine="sharded": the ranks' party group (party_group.PartyGroup);
+    # None joins the launcher's group. Its device is the default device.
+    group: Any = None
 
     def __post_init__(self):
         if len(self.arches) != len(self.n_features):
@@ -83,12 +95,21 @@ class EasterClassifier:
                              f"{len(self.n_features)} feature slices")
         if self.grad_mode not in ("easter", "joint"):
             raise ValueError(f"grad_mode {self.grad_mode!r}")
-        if self.engine == "sharded":
-            raise NotImplementedError(
-                "engine='sharded': the sharded party engine is ROADMAP.md "
-                "queue 1 item 14")
-        if self.engine not in ("vectorized", "loop"):
+        if self.engine not in ("vectorized", "sharded", "loop"):
             raise ValueError(f"engine {self.engine!r}")
+        if self.engine == "sharded":
+            if self.compress_frac > 0:
+                raise ValueError("top-k uplink compression needs the "
+                                 "gathered raw stack: not available under "
+                                 "the sharded engine")
+            if self.fused_masks:
+                raise ValueError("fused mask synthesis requires the "
+                                 "vectorized engine")
+            if self.group is None:
+                from repro_torch.launch.mesh import make_party_group
+                self.group = make_party_group(device=self.device)
+            if self.device is None:
+                self.device = self.group.device
         if self.easter.mask_mode not in ("float",) + blinding.RING_MODES:
             raise ValueError(f"mask_mode {self.easter.mask_mode!r}")
         if self.compress_frac > 0 and self.easter.mask_mode in \
@@ -104,7 +125,9 @@ class EasterClassifier:
         self.device = resolve_device(self.device)
         self.C = len(self.arches)
         self.K = self.C - 1
-        self._eng = PartyEngine(self.arches, self.n_features)
+        self._eng = PartyEngine(
+            self.arches, self.n_features,
+            group=self.group if self.engine == "sharded" else None)
         if self.K > 1:
             # memoized DH ceremony, the same federation as the reference's
             self.keys, self.seeds = blinding.cached_passive_setup(self.K, 7)
@@ -116,12 +139,23 @@ class EasterClassifier:
     # -- params ------------------------------------------------------------
     def init_params(self, gen: torch.Generator) -> List[dict]:
         """Per-party {"embed": ..., "decide": ...} trees on ``self.device``,
-        drawn from a CPU ``torch.Generator``; leaves require grad."""
-        params = [init_party(gen, self.arches[k], self.n_features[k],
-                             self.device) for k in range(self.C)]
+        drawn from a CPU ``torch.Generator``; leaves require grad. On the
+        sharded engine every rank draws every party, in order (the same
+        bits as one process), and keeps its own (``held_params``)."""
+        params = self.held_params(
+            [init_party(gen, self.arches[k], self.n_features[k],
+                        self.device) for k in range(self.C)])
         for leaf in tree_leaves(params):
             leaf.requires_grad_(True)
         return params
+
+    def held_params(self, params: List[Any]) -> List[Any]:
+        """A per-party list with the parties this rank does not hold (the
+        sharded engine) replaced by ``{}``; other engines: unchanged."""
+        if self.engine != "sharded":
+            return list(params)
+        held = set(self._eng.held())
+        return [p if k in held else {} for k, p in enumerate(params)]
 
     # -- protocol steps ----------------------------------------------------
     def masks(self, batch: int, round_idx: int = 0):
@@ -137,6 +171,11 @@ class EasterClassifier:
         if self.engine == "vectorized":
             return self.mask_engine.masks(shape, r, self.easter.mask_mode,
                                           device=self.device)
+        if self.engine == "sharded":
+            # this rank's passive parties' rows only
+            return self.mask_engine.masks(
+                shape, r, self.easter.mask_mode, device=self.device,
+                rows=[k - 1 for k in self._eng.passive_held()])
         return blinding.all_party_masks(self.K, self.seeds, shape, r,
                                         self.easter.mask_mode,
                                         device=self.device)
@@ -144,7 +183,7 @@ class EasterClassifier:
     def local_embeds(self, params, xs) -> torch.Tensor:
         """(C, B, d_embed) local embeddings, party order; the passive rows
         top-k sparsified when ``compress_frac`` > 0."""
-        if self.engine == "vectorized":
+        if self.engine != "loop":
             E_all = self._eng.embed_all(params, xs)
         else:
             E_all = torch.stack([embed_fn(params[k], self.arches[k], xs[k])
@@ -178,7 +217,7 @@ class EasterClassifier:
     def _predictions_stacked(self, params, E, E_all=None) -> torch.Tensor:
         """(C, B, n_classes) logits, party order."""
         E_for = self._per_party_E(E, E_all)
-        if self.engine == "vectorized":
+        if self.engine != "loop":
             return self._eng.decide_all(params, E_for)
         return torch.stack([decide_fn(params[k], self.arches[k], E_for[k])
                             for k in range(self.C)])
@@ -196,6 +235,8 @@ class EasterClassifier:
 
     def loss_fn(self, params, xs, y, masks=None):
         """Total (sum over parties) + per-party losses."""
+        if self.engine == "sharded":
+            return self._loss_fn_sharded(params, xs, y, masks)
         E_all = self.local_embeds(params, xs)
         E = self.global_embed(E_all, masks)
         R_all = self._predictions_stacked(params, E, E_all)
@@ -206,11 +247,62 @@ class EasterClassifier:
             per = torch.stack([lf(R_all[k], y) for k in range(self.C)])
         return torch.sum(per), per
 
+    def _loss_fn_sharded(self, params, xs, y, masks=None):
+        """The training round over the party group. What crosses ranks:
+        the gather of the blinded uplink (the active party's row zero),
+        the broadcast of the global embedding the active party aggregated
+        on its rank (paper line 6), the gathered predictions, and on the
+        int8 wire one max |E| scalar. Raw embeddings stay on their rank:
+        the stop-gradient surrogate is applied to each rank's own rows.
+        ``masks``: this rank's rows (``masks``), or the full (K, B, d)
+        tensor, whose own rows are taken. The aggregate replays
+        ``global_embed``'s op order, so the forward equals the vectorized
+        engine's bit for bit."""
+        mode = self.easter.mask_mode
+        if masks is not None and masks.shape[0] == self.K:
+            masks = masks[[k - 1 for k in self._eng.passive_held()]]
+        scale = None
+        if masks is not None and mode == "int8":
+            E_parts, up, scale = self._eng.embed_blind_uplink_scaled(
+                params, xs, masks, "int8")
+        else:
+            E_parts, up = self._eng.embed_blind_uplink(params, xs, masks,
+                                                       mode)
+        if masks is None:
+            E = torch.mean(up, dim=0)
+        elif mode == "int8":
+            E = self._eng.aggregate_via_active(
+                E_parts, up, lambda u, e_a: aggregation.aggregate_int8_blinded(
+                    torch.cat([blinding.quantize_ring(e_a, "int8",
+                                                      scale)[None], u[1:]]),
+                    scale))
+        elif mode == "int32":
+            E = self._eng.aggregate_via_active(
+                E_parts, up, lambda u, e_a: aggregation.aggregate_int32_blinded(
+                    torch.cat([blinding.quantize(e_a)[None], u[1:]])))
+        else:
+            E = self._eng.aggregate_via_active(
+                E_parts, up, lambda u, e_a: aggregation.aggregate(e_a, u[1:]),
+                dtype=E_parts[0].dtype)
+        C = self.C
+        if self.grad_mode == "easter":
+            def view(e_glob, e_loc):
+                return (e_glob.detach()[None] - e_loc.detach() / C
+                        + e_loc / C)
+        else:
+            def view(e_glob, e_loc):
+                return e_glob[None].expand(e_loc.shape)
+        R_all = self._eng.decide_from(params, E_parts, E, view)
+        lf = losses.LOSSES[self.loss]
+        per = vmap(lambda r: lf(r, y))(R_all)
+        return torch.sum(per), per
+
     # -- assisted-gradient reference path (message passing) ----------------
     def assisted_grads(self, params, xs, y, masks=None):
         """Paper's explicit protocol: per-party pullbacks with active-party
-        loss assist. Returns (grads list, per-party losses)."""
-        if self.engine == "vectorized":
+        loss assist. Returns (grads list, per-party losses); on the
+        sharded engine a party another rank holds gets ``{}``."""
+        if self.engine != "loop":
             return self._assisted_grads_vectorized(params, xs, y, masks)
         lf = losses.LOSSES[self.loss]
         # step 1: local embeddings, each party keeps its own graph
@@ -258,8 +350,9 @@ class EasterClassifier:
         g_dec, gE_all = pull_dec(gR_all)
         # step 6: embedding-net grads via dE/dE_k = 1/C (mean aggregation)
         g_emb = pull_embed(gE_all / self.C)
-        grads = [{"embed": g_emb[k], "decide": g_dec[k]}
-                 for k in range(self.C)]
+        held = set(self._eng.held())
+        grads = [{"embed": g_emb[k], "decide": g_dec[k]} if k in held
+                 else {} for k in range(self.C)]
         return grads, L_all.detach()
 
     # -- training ----------------------------------------------------------
@@ -281,14 +374,16 @@ class EasterClassifier:
                                         default=default)
 
         def init_opt(params):
-            return [opts[k].init(p) for k, p in enumerate(params)]
+            # a party another rank holds ({}) has no state here
+            return [opts[k].init(p) if tree_leaves(p) else {}
+                    for k, p in enumerate(params)]
 
         def step(params, opt_state, xs, y, masks):
             total, per = self.loss_fn(params, xs, y, masks)
             flat = tree_leaves(params)
             grads = tree_unflatten(params, torch.autograd.grad(
                 total, flat, allow_unused=True, materialize_grads=True))
-            if self.engine == "vectorized":
+            if self.engine != "loop":
                 self._eng.update_groups(opts, grads, opt_state, params)
             else:
                 for k in range(self.C):

@@ -1,7 +1,10 @@
-"""Data pipeline: vertical partitioning + host batching (own numpy copy of
-the reference's ``repro.data.pipeline``; outputs are byte-identical)."""
+"""Data pipeline: vertical partitioning + host batching with prefetch (own
+copy of the reference's ``repro.data.pipeline``; outputs are
+byte-identical)."""
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator, List
 
 import numpy as np
@@ -38,3 +41,30 @@ def batch_iterator(x: np.ndarray, y: np.ndarray, batch: int, *,
         for i in range(0, n - batch + 1, batch):
             b = idx[i:i + batch]
             yield x[b], y[b]
+
+
+class Prefetcher:
+    """Background-thread prefetch of an iterator (depth-bounded)."""
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._it = it
+        self._done = object()
+        t = threading.Thread(target=self._run, daemon=True)
+        t.start()
+
+    def _run(self):
+        try:
+            for item in self._it:
+                self._q.put(item)
+        finally:
+            self._q.put(self._done)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._done:
+            raise StopIteration
+        return item

@@ -1,7 +1,8 @@
 """Public kernel entry points, dispatched on the tensors' device.
 
 CUDA tensors go to the hand-written kernels (``blind_agg``,
-``flash_attention``, ``rglru_scan``), which launch or raise; CPU tensors
+``flash_attention``, ``rglru_scan``), which launch or raise; tensors of
+any other one device type (the CPU, or the meta device of the dry run)
 go to the plain versions in ``ref``. Nothing falls back from the kernel
 to the plain version."""
 from __future__ import annotations
@@ -22,7 +23,7 @@ def blind_agg(E_active: torch.Tensor, E_passive: torch.Tensor,
                masks.device.type}
     if devices == {"cuda"}:
         return _ba.blind_agg(E_active, E_passive, masks)
-    if devices == {"cpu"}:
+    if len(devices) == 1:           # one non-CUDA device type
         return ref.reference_blind_agg(E_active, E_passive, masks)
     raise ValueError(f"blind_agg needs all inputs on one device type, got "
                      f"{sorted(devices)}")
@@ -39,7 +40,7 @@ def blind_agg_prng(E_active: torch.Tensor, E_passive: torch.Tensor, engine,
     if devices == {"cuda"}:
         return _ba.prng_blind_agg(E_active, E_passive, engine, round_idx,
                                   mask_scale)
-    if devices == {"cpu"}:
+    if len(devices) == 1:           # one non-CUDA device type
         return ref.reference_blind_agg_prng(E_active, E_passive, engine,
                                             round_idx, mask_scale=mask_scale)
     raise ValueError(f"blind_agg_prng needs all inputs on one device type, "
@@ -55,7 +56,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     devices = {q.device.type, k.device.type, v.device.type}
     if devices == {"cuda"}:
         return _fa.flash_attention(q, k, v, causal=causal, window=window)
-    if devices == {"cpu"}:
+    if len(devices) == 1:           # one non-CUDA device type
         return ref.reference_attention(q, k, v, causal=causal, window=window)
     raise ValueError(f"flash_attention needs all inputs on one device type, "
                      f"got {sorted(devices)}")
@@ -69,7 +70,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     devices = {a.device.type, b.device.type, h0.device.type}
     if devices == {"cuda"}:
         return _rg.rglru_scan(a, b, h0)
-    if devices == {"cpu"}:
+    if len(devices) == 1:           # one non-CUDA device type
         return ref.reference_rglru(a, b, h0)
     raise ValueError(f"rglru_scan needs all inputs on one device type, got "
                      f"{sorted(devices)}")

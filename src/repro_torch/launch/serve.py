@@ -20,9 +20,17 @@ Both modes run on the typed serving surface (core/api.py): requests are
 ``ServeRequest``s admitted into decode slots by the ``ServingEngine``
 (core/serving.py); every decoded token is one blinded protocol round
 shared by all live lanes. ``--step-loop`` drives single-stream decode one
-``serve_step`` at a time. ``--engine sharded`` raises (ROADMAP.md queue 1
-item 14). Parameters are random, drawn from ``--seed`` (on the card for
-``--device cuda``).
+``serve_step`` at a time. Parameters are random, drawn from ``--seed``
+(on the card for ``--device cuda``).
+
+``--engine sharded --party-devices N`` lays the passive parties over N
+ranks (``launch/mesh.py``); start one process per rank with torchrun:
+    torchrun --nproc-per-node N -m repro_torch.launch.serve \
+        --engine sharded --party-devices N --arch qwen2.5-3b --num-passive 3
+With N cards each rank takes one (NCCL); with one card every rank shares
+it over gloo; ``--device cpu`` runs the ranks on the CPU over gloo. Rank 0
+holds the active party and prints; the others hold their passive rows
+and follow the sampled tokens.
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ import torch
 from repro_torch.configs.base import EasterConfig, get_config, smoke_variant
 from repro_torch.core import api, blinding, decode as decode_mod, serving
 from repro_torch.core.easter_lm import EasterLM
-from repro_torch.device import resolve_device
+from repro_torch.launch import mesh
 
 
 def _sync(device) -> None:
@@ -58,11 +66,11 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--engine", default="vectorized",
                     choices=["vectorized", "sharded", "loop"],
-                    help="passive-party execution: grouped vmap | party "
-                         "mesh (not ported) | per-party loop")
+                    help="passive-party execution: grouped vmap | over "
+                         "a party group of ranks | per-party loop")
     ap.add_argument("--party-devices", type=int, default=0,
-                    help="party-axis mesh size for --engine sharded (not "
-                         "ported: ROADMAP.md queue 1 item 14)")
+                    help="ranks of the party group for --engine sharded "
+                         "(0 = every rank torchrun started)")
     ap.add_argument("--requests", type=int, default=0,
                     help="serve a stream of N requests through the "
                          "continuous-batching scheduler (mixed lengths, "
@@ -91,17 +99,19 @@ def main(argv=None):
         cfg = smoke_variant(cfg)
     args.prompt_len = args.prompt_len or (8 if args.smoke else 32)
     args.gen = args.gen or (8 if args.smoke else 32)
-    if args.party_devices:
-        raise NotImplementedError("--party-devices: the sharded party engine "
-                                  "is ROADMAP.md queue 1 item 14")
-    device = resolve_device(args.device)
+    group, device = mesh.launcher_group(args)
+    if args.engine == "sharded" and group is None:
+        return None                  # a rank outside the party group
     sys_ = EasterLM(cfg=cfg, easter=EasterConfig(
         num_passive=args.num_passive, d_embed=args.d_embed),
-        engine=args.engine, device=device)
+        engine=args.engine, device=device, group=group)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = sys_.init_params(gen)
+    mesh.quiet_other_ranks(group)
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{sys_.C} parties, {sys_.engine} engine on {device}")
+          f"{sys_.C} parties, {sys_.engine} engine on {device}"
+          + (f", {group.size} ranks over {group.backend}, passive rows "
+             f"{list(sys_._rows())} on rank 0" if group else ""))
 
     if args.requests > 0:
         _serve_stream(args, cfg, sys_, params)

@@ -14,10 +14,17 @@ doubling as the TRAIN-domain PRF round. Heterogeneous per-party optimization (pa
 parties fall back to ``--optimizer``/``--lr``, and the per-party states
 ride the same checkpoint as the params (``--ckpt``, ``--resume``; the
 reference's format, so either package resumes the other's run).
-``--engine sharded`` and ``--party-devices`` raise (ROADMAP.md queue 1
-item 14). Parameters are random, drawn from ``--seed`` (on the card for
-``--device cuda``); the history is written to
-``experiments/train/<arch>_train.json`` under the working directory.
+Parameters are random, drawn from ``--seed`` (on the card for ``--device
+cuda``); the history is written to ``experiments/train/<arch>_train.json``
+under the working directory.
+
+``--engine sharded --party-devices N`` trains with the passive parties
+over N ranks, started by torchrun (see ``launch/serve.py``):
+    torchrun --nproc-per-node N -m repro_torch.launch.train \
+        --engine sharded --party-devices N --smoke --num-passive 4
+Each rank updates the parties it holds (one optimizer's clipping norm is
+summed over the ranks); the checkpoint is gathered to rank 0, which
+writes it and the history and prints.
 """
 from __future__ import annotations
 
@@ -31,10 +38,10 @@ import torch
 
 from repro_torch import checkpoint, optim
 from repro_torch.configs.base import EasterConfig, get_config, smoke_variant
-from repro_torch.core import api
+from repro_torch.core import api, party_group
 from repro_torch.core.easter_lm import EasterLM
 from repro_torch.data.synthetic import lm_batch_iterator
-from repro_torch.device import resolve_device
+from repro_torch.launch import mesh
 from repro_torch.tree import tree_leaves
 
 
@@ -66,11 +73,11 @@ def main(argv=None):
                     choices=["easter", "joint"])
     ap.add_argument("--engine", default="vectorized",
                     choices=["vectorized", "sharded", "loop"],
-                    help="passive-party execution: grouped vmap | party "
-                         "mesh (not ported) | per-party loop")
+                    help="passive-party execution: grouped vmap | over "
+                         "a party group of ranks | per-party loop")
     ap.add_argument("--party-devices", type=int, default=0,
-                    help="party-axis mesh size for --engine sharded (not "
-                         "ported: ROADMAP.md queue 1 item 14)")
+                    help="ranks of the party group for --engine sharded "
+                         "(0 = every rank torchrun started)")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--resume", action="store_true",
                     help="restore params/opt state from --ckpt if present")
@@ -85,15 +92,16 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
-    if args.party_devices:
-        raise NotImplementedError("--party-devices: the sharded party engine "
-                                  "is ROADMAP.md queue 1 item 14")
-    device = resolve_device(args.device)
+    group, device = mesh.launcher_group(args)
+    if args.engine == "sharded" and group is None:
+        return None                  # a rank outside the party group
+    mesh.quiet_other_ranks(group)
     easter = EasterConfig(num_passive=args.num_passive,
                           d_embed=args.d_embed, mask_mode=args.mask_mode,
                           enabled=not args.no_easter)
     sys_ = EasterLM(cfg=cfg, easter=easter, grad_mode=args.grad_mode,
-                    engine=args.engine, device=device)
+                    engine=args.engine, device=device, group=group)
+    lead = group is None or group.rank == 0
     print(f"arch={cfg.name} parties={sys_.C} engine={args.engine} "
           f"party_depths={[c.n_layers for c in sys_.party_cfgs]} "
           f"d_embed={easter.d_embed} device={device}")
@@ -101,7 +109,7 @@ def main(argv=None):
     params = sys_.init_params(
         torch.Generator(device=device).manual_seed(args.seed))
     n = sum(t.numel() for p in params["parties"] for t in tree_leaves(p))
-    print(f"total params (all parties): {n:,}")
+    print(f"total params ({'rank 0' if group else 'all parties'}): {n:,}")
 
     tcfg = api.TrainConfig(
         optimizer=args.optimizer, lr=args.lr, chunk=args.chunk,
@@ -122,9 +130,12 @@ def main(argv=None):
         print(f"resumed from {args.ckpt} at step {start_step}")
 
     def save(step):
-        checkpoint.save(args.ckpt, {"params": {"parties":
-                                               state.params["parties"]},
-                                    "opt": state.opt_state}, step=step)
+        tree = {"params": {"parties": state.params["parties"]},
+                "opt": state.opt_state}
+        if group is not None:
+            tree = party_group.gather_tree(group, tree)
+        if lead:
+            checkpoint.save(args.ckpt, tree, step=step)
 
     it = lm_batch_iterator(cfg.vocab_size, args.batch, args.seq,
                            seed=args.seed)
@@ -162,9 +173,10 @@ def main(argv=None):
         save(end)
         print(f"checkpoint -> {args.ckpt}")
     out = {"arch": cfg.name, "history": history}
-    os.makedirs("experiments/train", exist_ok=True)
-    with open(f"experiments/train/{cfg.name}_train.json", "w") as f:
-        json.dump(out, f, indent=1)
+    if lead:
+        os.makedirs("experiments/train", exist_ok=True)
+        with open(f"experiments/train/{cfg.name}_train.json", "w") as f:
+            json.dump(out, f, indent=1)
     return out
 
 

@@ -34,11 +34,22 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where only the parameter tree's
+    shapes and dtypes are wanted: every init function then builds its
+    tensors on the meta device, drawing and allocating nothing (the dry
+    run's abstract parameters)."""
+    device = torch.device("meta")
+
+
 def _dense_init(gen: torch.Generator, shape, dtype,
                 scale: Optional[float] = None) -> torch.Tensor:
     """Normal(0, 1/fan_in) weights drawn from ``gen`` on the generator's
     own device (a CPU generator gives the same weights whatever device
-    they land on; a CUDA generator draws large models on the card)."""
+    they land on; a CUDA generator draws large models on the card); a
+    ``MetaGenerator`` gives a meta tensor."""
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(tuple(shape), dtype=dtype, device=gen.device)
     fan_in = shape[0]
     s = scale if scale is not None else 1.0 / math.sqrt(max(1, fan_in))
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,

@@ -36,13 +36,19 @@ def _tree_zeros(params, dtype=None):
                                                requires_grad=False), params)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, norm_reduce=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf. ``norm_reduce`` sums the
+    squares over the ranks that hold the rest of the tree (the sharded
+    engine's parties)."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    sq = torch.sum(torch.stack(leaves))
+    if norm_reduce is not None:
+        sq = norm_reduce(sq)
+    return torch.sqrt(sq)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    n = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm_reduce=None):
+    n = global_norm(grads, norm_reduce)
     scale = torch.clamp(max_norm / (n + 1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), n
 
@@ -57,12 +63,14 @@ def make_optimizer(name: str, lr: float, *, momentum: float = 0.9,
                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                    weight_decay: float = 0.0,
                    grad_clip: float = 0.0,
-                   state_dtype=torch.float32) -> Optimizer:
+                   state_dtype=torch.float32, norm_reduce=None) -> Optimizer:
+    """``norm_reduce``: for a tree whose leaves lie over ranks, the sum of
+    the clipping norm's squares over the ranks (``global_norm``)."""
     name = name.lower()
 
     def maybe_clip(grads):
         if grad_clip > 0:
-            grads, _ = clip_by_global_norm(grads, grad_clip)
+            grads, _ = clip_by_global_norm(grads, grad_clip, norm_reduce)
         return grads
 
     def apply_wd(g, p):
@@ -265,7 +273,9 @@ def make_party_optimizers(specs, C: int, *,
         if len(parties) != C:
             raise ValueError(f"params hold {len(parties)} parties, "
                              f"optimizer built for {C}")
-        return rebuild([opts[k].init(p) for k, p in enumerate(parties)])
+        # a party another rank holds (the sharded engine's {}) has no state
+        return rebuild([opts[k].init(p) if tree_leaves(p) else {}
+                        for k, p in enumerate(parties)])
 
     def update(grads, state, params):
         gs, _ = split_parties(grads)
@@ -273,6 +283,10 @@ def make_party_optimizers(specs, C: int, *,
         ps, rebuild = split_parties(params)
         new_p, new_s = [], []
         for k in range(C):
+            if not tree_leaves(ps[k]):
+                new_p.append(ps[k])
+                new_s.append(ss[k])
+                continue
             p, s = opts[k].update(gs[k], ss[k], ps[k])
             new_p.append(p)
             new_s.append(s)

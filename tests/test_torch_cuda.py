@@ -1170,3 +1170,125 @@ def test_cuda_chunked_lm_head_xent_matches_cpu(cuda):
         out.append([t.cpu() for t in (v, *torch.autograd.grad(v, [hh, ww]))])
     for a, b in zip(*out):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the sharded engine: two ranks on one card over gloo
+# ---------------------------------------------------------------------------
+
+SHARDED_CASES = tuple((C, mode) for C in (4, 8) for mode in ("float", "int8"))
+
+
+def _sharded_rounds_on_card():
+    """Rank side of the card tests: one masked round of each
+    SHARDED_CASES classifier over the party group; {case: (loss,
+    per-party losses, this rank's blind_agg launches)} and the rank."""
+    from repro_torch.launch import mesh
+    grp = mesh.make_party_group(device="cuda")
+    out = {}
+    for C, mode in SHARDED_CASES:
+        cls = _sharded_cls("sharded", C, mode, grp)
+        params = cls.init_params(torch.Generator().manual_seed(0))
+        xs, y = _sharded_batch(C)
+        tba.reset_launches()
+        with torch.no_grad():
+            total, per = cls.loss_fn(params, xs, y, cls.masks(8, 0))
+        torch.cuda.synchronize()
+        out[(C, mode)] = (total.cpu().numpy(), per.cpu().numpy(),
+                          dict(tba.LAUNCHES))
+    return grp.rank, out
+
+
+def _sharded_cls(engine, C, mode, group=None):
+    arches = [PartyArch("mlp", (32, 16) if k % 2 == 0 else (48,), (16,), 24,
+                        5) for k in range(C)]
+    return EasterClassifier(EasterConfig(num_passive=C - 1, d_embed=24,
+                                         mask_mode=mode), arches, [10] * C,
+                            engine=engine, device="cuda", group=group)
+
+
+def _sharded_batch(C):
+    rng = np.random.default_rng(0)
+    xs = [torch.from_numpy(rng.normal(size=(8, 10)).astype(np.float32)
+                           ).cuda() for _ in range(C)]
+    return xs, torch.from_numpy(rng.integers(0, 5, 8)).cuda()
+
+
+@pytest.fixture(scope="module")
+def sharded_ranks(tmp_path_factory):
+    """Both ranks' results of one spawn of 2 ranks sharing the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import mesh
+    return mesh.spawn_ranks(_sharded_rounds_on_card, 2,
+                            store_dir=str(tmp_path_factory.mktemp("pg")),
+                            device="cuda")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", SHARDED_CASES,
+                         ids=lambda c: f"C{c[0]}-{c[1]}")
+def test_cuda_sharded_classifier_round_on_one_card(cuda, sharded_ranks,
+                                                   case):
+    """Two ranks share the card over gloo. The active party's rank alone
+    aggregates: one blind_agg_fwd on the float wire, none on the int8
+    ring. At C = 8 each rank runs two rows of each group, batched GEMMs
+    as the group's: the loss equals the vectorized engine's bit for bit.
+    At C = 4 each rank runs one row, and cuBLAS's single-matrix float32
+    GEMM rounds differently from the batched one (ROADMAP.md queue 3):
+    bit for bit the loop engine's, whose parties run as single matrices
+    too, and within rtol 2e-7 of the vectorized engine's (7.3e-8 measured
+    on the H100)."""
+    C, mode = case
+    sv = _sharded_cls("vectorized", C, mode)
+    params = sv.init_params(torch.Generator().manual_seed(0))
+    xs, y = _sharded_batch(C)
+    with torch.no_grad():
+        total, per = sv.loss_fn(params, xs, y, sv.masks(8, 0))
+        # the loop engine runs each party as a single matrix, as a rank
+        # with one row of a group does
+        _, per_loop = _sharded_cls("loop", C, mode).loss_fn(
+            params, xs, y, sv.masks(8, 0))
+    for rank, out in sharded_ranks:
+        t, p, launches = out[case]
+        if C == 8:
+            np.testing.assert_array_equal(t, total.cpu().numpy())
+            np.testing.assert_array_equal(p, per.cpu().numpy())
+        else:
+            np.testing.assert_array_equal(p, per_loop.cpu().numpy())
+            np.testing.assert_allclose(p, per.cpu().numpy(), rtol=2e-7,
+                                       atol=0)
+        want = 1 if rank == 0 and mode == "float" else 0
+        assert launches["blind_agg_fwd"] == want, (rank, launches)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_decode_attention_rounds_by_party_batch(cuda):
+    """The witness of a standing difference (ROADMAP.md queue 3): decode
+    attention's float32 probs x V einsum (``layers._gqa_out``) at
+    qwen2.5-3b's decode shape (4 lanes, 16/2 heads, hd 128, a 2064-slot
+    cache), for K = 3 passive parties. A rank of the sharded engine with
+    one party runs it under a vmap of one row: bit for bit the loop
+    engine's, one party at a time (a bmm of batch 4 x 2 = 8). The
+    vectorized engine's vmap over all three is one bmm of batch 24, which
+    cuBLAS rounds otherwise in some elements, by a few float32 ulps: so
+    the sharded decode is held bit for bit against the loop engine on the
+    card, and against the vectorized engine only within that size. Should
+    this test fail because the batch-24 bits equal the batch-8 ones, the
+    standing difference is gone."""
+    from torch.func import vmap
+    from repro_torch.models.layers import _gqa_out
+    K, B, Hkv, G, T, hd = 3, 4, 2, 8, 2064, 128
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((K, B, Hkv, G, 1, T), generator=gen, device="cuda")
+    probs = torch.softmax(4 * logits, dim=-1)
+    v = torch.randn((K, B, T, Hkv, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    loop = torch.stack([_gqa_out(probs[k], v[k]) for k in range(K)])
+    rank = torch.cat([vmap(_gqa_out)(probs[k:k + 1], v[k:k + 1])
+                      for k in range(K)])
+    vec = vmap(_gqa_out)(probs, v)
+    assert torch.equal(rank, loop)
+    assert not torch.equal(vec, loop)
+    rel = float((vec - loop).abs().max() / loop.abs().max())
+    assert rel < 2 ** -20, rel

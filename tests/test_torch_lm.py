@@ -367,13 +367,15 @@ def test_transformer_matches(backbone):
 
 
 def test_unported_families_raise():
-    """The sharded engine waits for ROADMAP.md queue 1 item 14. The
-    encoder-decoder and vision families, the cross-attention block and
-    the frontend inputs are ported (tests/test_torch_frontends.py holds
-    them against the reference): they build, and a dense party's
-    loss_fn ignores a frontend key, as the reference's does."""
+    """The sharded engine needs a party group: without a launcher's
+    ranks (torchrun, ``mesh.spawn_ranks``; tests/test_torch_sharded.py
+    runs it) it raises. The encoder-decoder and vision families, the
+    cross-attention block and the frontend inputs are ported
+    (tests/test_torch_frontends.py holds them against the reference):
+    they build, and a dense party's loss_fn ignores a frontend key, as
+    the reference's does."""
     _, tc = _cfgs("qwen2.5-3b")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         TLM(tc, tcfg.EasterConfig(), engine="sharded", device="cpu")
     for family in ("encdec", "vlm"):
         p = TT.init_lm(torch.Generator(), dataclasses.replace(

@@ -495,7 +495,8 @@ def test_train_cli_runs_and_resumes(tmp_path, monkeypatch):
     with np.load(ck) as f:
         assert int(f["__step__"]) == 6
     assert len(list((tmp_path / "experiments" / "train").iterdir())) == 1
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # the sharded engine runs under torchrun (one process per rank)
+    with pytest.raises(RuntimeError, match="torchrun"):
         train_cli.main(base + ["--steps", "1", "--engine", "sharded"])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="--engine sharded"):
         train_cli.main(base + ["--steps", "1", "--party-devices", "2"])

@@ -288,7 +288,8 @@ def test_entry_points_default_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TClassifier(cfg, arches, [2, 2, 2])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # the sharded engine needs the ranks' party group
+    with pytest.raises(RuntimeError, match="torchrun"):
         TClassifier(cfg, arches, [2, 2, 2], device="cpu", engine="sharded")
     # the vectorized engine (the default), in-kernel masks, the ring wires
     # and top-k compression are ported; fused masks keep the reference's
@@ -315,7 +316,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.models.griffin, repro_torch.kernels.rg_lru, "
             "repro_torch.models.moe, repro_torch.models.ssm, "
             "repro_torch.launch.train, repro_torch.core.baselines, "
-            "repro_torch.core.wire; "
+            "repro_torch.core.wire, repro_torch.launch.mesh, "
+            "repro_torch.core.party_group, "
+            "repro_torch.launch.steps, repro_torch.launch.dryrun, "
+            "repro_torch.data.pipeline; "
             "from repro_torch.configs.base import list_archs; list_archs(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
