@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phase whisper    # or vlm, or frontend_cuts
     python3 chip_smoke.py --phase baselines  # or wire
     python3 chip_smoke.py --phase sharded
+    python3 chip_smoke.py --phase fsdp
 
 Phases, each printing its own lines:
 
@@ -220,6 +221,31 @@ Phases, each printing its own lines:
           asserted: whether a chunk of 2 adam steps equals the step loop
           bit for bit on the card, and one step's gradients computed
           twice, with the parameter leaves that differ.
+  fsdp    the FSDP plan (repro_torch.sharding, launch/steps.shard_step):
+          4 ranks spawned at once share the card over gloo as a 2 x 2
+          (data x model) MeshGroup. (a) qwen2-1.5b as train runs it (full
+          width, bfloat16, remat per layer, adam 1e-3 clip 1.0, 4 x 2048
+          tokens a step from lm_batch_iterator(seed=0), one row a rank)
+          but cut to 8 layers (three 2-layer proxies; gloo moves each
+          rank's gathers at under a GB/s, and the phase must stay within
+          180 s) under layout zero3 with ZeRO-1, 2 steps, beside the same
+          2 steps in one process on the card first: losses (every rank's the same, finite; step 0
+          within rtol 1e-2 of the one process's), ms a step by rank, the
+          resident bytes of weights + gradients + adam state by rank and
+          torch.cuda.max_memory_allocated by rank; one blind_agg_fwd a
+          step on every rank. (b) qwen2-1.5b cut to 2 layers, float32,
+          TF32 off, grad_mode joint, one adam 1e-3 step at 4 x 128 under
+          layout tp (the reference's default), gathered to rank 0,
+          against the CPU port's one-process step from the same weights:
+          the loss at rtol 1e-4 / atol 1e-5, the parameters there where
+          the clipped |g| >= 1e-4 and within 2 lr + 1e-5 elsewhere (adam's
+          first step is about lr sign(g)); one blind_agg_fwd and one
+          blind_agg_bwd on every rank. (c) qwen2.5-3b cut to 2 layers,
+          float32, under prefill_shardings / serve_shardings: a 4-lane
+          63-token prefill and 4 greedy rounds against the CPU port
+          (embeddings and logits at rtol 1e-4 / atol 1e-5, tokens
+          identical on every rank); per rank 2 + 2 flash_attention_fwd
+          launches and 1 + 4 blind_agg_fwd.
   gemma_cut  gemma3-4b at full width (d_model 2560, 8/4 heads of 256,
           gelu MLP of 10240, vocab 262,144) cut to one (5 local, 1 global)
           period: 6 active layers, 2 local per passive proxy, float32 with
@@ -283,7 +309,7 @@ whisper and vlm (the
 whisper-small and qwen2-vl-7b serving runs), frontend_cuts (whisper_cut
 and vlm_cut), cuts (gemma_cut, moe_cut, mamba_cut, whisper_cut and
 vlm_cut), train (the train phase), sharded (the lm depth cut, for its
-CPU outputs, then the sharded phase), agg (the
+CPU outputs, then the sharded phase), fsdp (the fsdp phase), agg (the
 blind_agg_fwd / blind_agg_bwd timing and the launch floor; --save and
 --compare as for prng, the backward's outputs required to be bit for bit
 the other checkout's), flash, rglru (the rglru timing) or prng (the prng
@@ -295,7 +321,8 @@ joint, many-party fused, many-party joint, many-party unfused, Table II
 top-k (float masks, fused masks, joint), qwen2.5-3b
 serving, recurrentgemma-9b serving, qwen2-1.5b training, its joint step,
 qwen2-moe-a2.7b serving, mamba2-2.7b serving, whisper-small serving,
-qwen2-vl-7b serving; in the sharded phase's ranks every round) and read
+qwen2-vl-7b serving; in the sharded phase's ranks every round; in the
+fsdp phase's ranks (a), (b) and (c)) and read
 just after; every kernel
 must have launched on some path, and blind_agg_fwd's launches are printed
 by party-group count G, path by path. The second-to-last line is the JSON
@@ -316,6 +343,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# when this module was loaded: a spawned rank, which loads it as
+# __mp_main__, reports how long it took to start
+LOADED_AT = time.time()
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet peak
@@ -3839,6 +3869,536 @@ def phase_sharded(cut_cpu=None):
 
 
 # ---------------------------------------------------------------------------
+# the FSDP plan: 4 ranks share the card over gloo as a 2 x 2 mesh
+# ---------------------------------------------------------------------------
+
+# (a)'s steps: at full depth 3 took 62 + 41 + 41 s a rank over gloo and 2
+# took 73 + 48 (H100 80GB HBM3 at 700 W; PERF.md), past the phase's 180
+# s with (b) and (c); at 14 layers the phase fit, but the whole script
+# took ~1,010 s of the 1000 asked; so 2 steps at 8 layers (three 2-layer
+# proxies; the width whole)
+FSDP_RANKS, FSDP_MESH, FSDP_STEPS, FSDP_TRAIN_LAYERS = 4, (2, 2), 2, 8
+FSDP_CUT_LAYERS, FSDP_CUT_BATCH, FSDP_CUT_SEQ, FSDP_LR = 2, 4, 128, 1e-3
+FSDP_SERVE_LAYERS, FSDP_SERVE_LANES = 2, 4
+FSDP_SERVE_PROMPT, FSDP_SERVE_ROUNDS = 64, 4
+
+
+def _fsdp_batches(cfg):
+    from repro_torch.data.synthetic import lm_batch_iterator
+    it = lm_batch_iterator(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    return [next(it) for _ in range(FSDP_STEPS)]
+
+
+def _fsdp_cut_batch(cfg):
+    from repro_torch.data.synthetic import lm_batch_iterator
+    return next(lm_batch_iterator(cfg.vocab_size, FSDP_CUT_BATCH,
+                                  FSDP_CUT_SEQ, seed=1))
+
+
+def _fsdp_cfgs():
+    """(qwen2-1.5b cut to FSDP_TRAIN_LAYERS, its float32 depth cut,
+    qwen2.5-3b's float32 depth cut)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    cfg = get_config(TRAIN_ARCH)
+    return (dataclasses.replace(cfg, n_layers=FSDP_TRAIN_LAYERS),
+            dataclasses.replace(cfg, n_layers=FSDP_CUT_LAYERS,
+                                dtype="float32"),
+            dataclasses.replace(get_config(LM_ARCH),
+                                n_layers=FSDP_SERVE_LAYERS, dtype="float32"))
+
+
+def _fsdp_step_loop(run, params, opt_state, batches):
+    """FSDP_STEPS train steps through ``run`` (a built or sharded step):
+    (params, opt_state, total losses, ms a step, launches)."""
+    import torch
+    losses, ms = [], []
+    _reset_lm_launches()
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = run(params, opt_state, b, i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    return params, opt_state, losses, ms, _lm_launches()
+
+
+def _fsdp_one_process(cfg, batches):
+    """(a)'s one-process run on the card: qwen2-1.5b's step (adam 1e-3,
+    clip 1.0) on the whole batch."""
+    import torch
+    from repro_torch.launch import dryrun, steps
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    sys_ = _lm_system(cfg, "cuda")
+    params = sys_.init_params(torch.Generator(device="cuda").manual_seed(0))
+    step, opt = steps.build_train_step(sys_, "adam", lr=1e-3)
+    state = opt.init({"parties": params["parties"]})
+    on = lambda b: {k: torch.as_tensor(v, device="cuda")
+                    for k, v in b.items()}
+    params, state, losses, ms, launches = _fsdp_step_loop(
+        step, params, state, [on(b) for b in batches])
+    _check_train_launches("one-process qwen2-1.5b", launches, FSDP_STEPS)
+    w = dryrun.tree_bytes({"parties": params["parties"]})
+    out = {"losses": losses, "step_ms": ms, "weights": w, "grads": w,
+           "adam": dryrun.tree_bytes(state),
+           "peak": torch.cuda.max_memory_allocated()}
+    del params, state, step, opt, sys_
+    _free_card()
+    return out
+
+
+def _fsdp_rank(batches, cut_batch, prompt, ref_dir, go, t_spawn):
+    """One rank of the fsdp phase: started while the parent's one-process
+    run holds the card, it joins the group and waits for the file ``go``;
+    then (a) qwen2-1.5b under zero3 + ZeRO-1, (b) its float32 cut's joint
+    adam step under tp, its blocks held against the CPU port's step
+    (``ref_dir``, written by the parent meanwhile), (c) qwen2.5-3b's
+    float32 cut served under serve_shardings; results for the parent,
+    numpy, with the seconds each part ended at (``marks``)."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.configs.base import EasterConfig
+    from repro_torch.core.easter_lm import EasterLM
+    from repro_torch.launch import dryrun, mesh, steps
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    m = mesh.make_debug_mesh(*FSDP_MESH, device="cuda")
+    torch.zeros((), device=m.device)            # this rank's CUDA context
+    res = {"rank": m.rank, "coords": dict(m.coords), "backend": m.backend,
+           "start_s": time.time() - t_spawn,
+           "loaded_s": LOADED_AT - t_spawn,
+           "in_group_s": time.time() - t_spawn - (time.perf_counter()
+                                                  - t_start),
+           "marks": {}}
+    mark = lambda k: res["marks"].__setitem__(
+        k, round(time.perf_counter() - t_start, 2))
+    mark("mesh")
+    res["gloo_gbps"] = _gloo_rate(m)
+    mark("gloo probe")
+    while not os.path.exists(go):
+        time.sleep(0.1)
+    t_go = time.perf_counter()
+    mark("go")
+    cfg, cut, serve_cfg = _fsdp_cfgs()
+    on = lambda b: {k: torch.as_tensor(v, device="cuda")
+                    for k, v in b.items()}
+    meta = lambda tree: tree_map(lambda t: torch.empty_like(
+        t, device="meta"), tree)
+
+    def sharded_train(sys_, opt_name, layout, zero1, batch_list, tag):
+        params = sys_.init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        step, opt = steps.build_train_step(sys_, opt_name, lr=FSDP_LR)
+        mp = meta({"parties": params["parties"]})
+        in_sh, out_sh = steps.train_shardings(
+            sys_, m, {"batch": batch_list[0]}, params, opt.init(mp),
+            zero1=zero1, layout=layout)
+        pspec, ospec, bspec, _ = in_sh
+        lp = sharding.shard_tree(params, pspec, m)
+        del params
+        _free_card()
+        lo = sharding.init_opt_state(opt, lp, pspec, ospec, m)
+        lbs = [sharding.shard_tree(b, bspec, m) for b in batch_list]
+        run = steps.shard_step(step, m, in_sh, out_sh, layout)
+        mark(f"{tag} drawn and cut")
+        return run, lp, lo, lbs, pspec
+
+    # (a) full width: zero3 + ZeRO-1, one row a rank
+    torch.cuda.reset_peak_memory_stats()
+    sys_ = _lm_system(cfg, "cuda")
+    run, lp, lo, lbs, pspec = sharded_train(
+        sys_, "adam", "zero3", True, [on(b) for b in batches], "(a)")
+    lp, lo, losses, ms, launches = _fsdp_step_loop(run, lp, lo, lbs)
+    mark("(a) steps")
+    w = dryrun.tree_bytes({"parties": lp["parties"]})
+    res["a"] = {"losses": losses, "step_ms": ms, "launches": launches,
+                "weights": w, "grads": w, "adam": dryrun.tree_bytes(lo),
+                "rows": int(lbs[0]["tokens"].shape[0]),
+                "peak": torch.cuda.max_memory_allocated()}
+    log("fsdp", f"rank {m.rank}: (a) losses {losses}, ms a step "
+                f"{[round(x, 1) for x in ms]}, peak "
+                f"{res['a']['peak'] / 1e9:.2f} GB; gloo "
+                f"{res['gloo_gbps']} GB/s; {res['marks']}")
+    del run, lp, lo, lbs, sys_
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    # (b) the float32 cut: one joint adam step under tp (blind_agg_bwd),
+    # each rank's blocks against the CPU port's whole leaves
+    sys_ = EasterLM(cut, EasterConfig(), grad_mode="joint", device="cuda")
+    run, lp, lo, lbs, pspec = sharded_train(sys_, "adam", "tp", False,
+                                            [on(cut_batch)], "(b)")
+    lp, lo, losses, _, launches = _fsdp_step_loop(run, lp, lo, lbs)
+    mark("(b) step")
+    del run, lo
+    _free_card()
+    res["b"] = {"loss": losses[0], "launches": launches,
+                "peak": torch.cuda.max_memory_allocated(),
+                **_fsdp_compare_blocks(lp, pspec, m, ref_dir)}
+    mark("(b) compared")
+    log("fsdp", f"rank {m.rank}: (b) loss {losses[0]}, blocks max abs "
+                f"{res['b']['max_abs']:.3g} ok {res['b']['ok']}, peak "
+                f"{res['b']['peak'] / 1e9:.2f} GB; {res['marks']}")
+    del lp, lbs, sys_
+    _free_card()
+    # (c) serving: a 4-lane prefill and greedy rounds under serve_shardings
+    sys_ = _lm_system(serve_cfg, "cuda")
+    res["c"] = _fsdp_serve(sys_, m, prompt)
+    mark("(c) served")
+    log("fsdp", f"rank {m.rank}: (c) tokens {res['c']['tokens'].tolist()}; "
+                f"{res['marks']}")
+    res["work_s"] = time.perf_counter() - t_go
+    del sys_
+    _free_card()
+    return res
+
+
+def _gloo_rate(m):
+    """GB/s of an all-gather over the whole mesh as the plan moves a CUDA
+    tensor (staged through the host) and a host tensor, 16 MB a rank, the
+    better of two, by the bytes gathered."""
+    import torch
+    out = {}
+    for where in ("cuda", "cpu"):
+        x = torch.ones(4 * 2 ** 20, device=where)
+        best = None
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = m.all_gather(x, m.axis_names)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        out[where] = round(y.numel() * 4 / best / 1e9, 3)
+    return out
+
+
+def _fsdp_compare_blocks(lp, pspec, m, ref_dir):
+    """This rank's blocks of (b)'s updated parameters against the same
+    blocks of the CPU port's whole leaves (``ref_dir``: one .npy a leaf
+    and a mask where the clipped |g| >= 1e-4, written by the parent; read
+    mapped, a block at a time): the loss-free half of (b)'s check, with no
+    parameter crossing the ranks."""
+    import numpy as np
+    import torch
+    from repro_torch import sharding
+    from repro_torch.tree import tree_leaves
+    done = os.path.join(ref_dir, "done")
+    t0 = time.perf_counter()
+    while not os.path.exists(done):
+        if time.perf_counter() - t0 > 600:
+            raise TimeoutError("the CPU port's (b) step never arrived")
+        time.sleep(0.5)
+    worst, ok = 0.0, True
+    for i, (x, s) in enumerate(zip(
+            tree_leaves({"parties": lp["parties"]}),
+            sharding.spec_leaves({"parties": pspec["parties"]}))):
+        ref, big = (sharding.local_block(torch.from_numpy(np.load(
+            os.path.join(ref_dir, f"{k}{i}.npy"), mmap_mode="r")), s, m)
+            for k in ("p", "g"))
+        x = x.detach().float()
+        ref, big = ref.to(x.device).float(), big.to(x.device)
+        d = (x - ref).abs()
+        worst = max(worst, float(d.max()))
+        ok = ok and bool(torch.allclose(x[big], ref[big], rtol=1e-4,
+                                        atol=1e-5)) \
+            and bool((d <= 2 * FSDP_LR + 1e-5).all())
+    return {"max_abs": worst, "ok": ok}
+
+
+def _fsdp_serve(sys_, m, prompt):
+    """A FSDP_SERVE_LANES-lane prefill of ``prompt[:, :-1]`` into caches of
+    prompt + rounds slots, then FSDP_SERVE_ROUNDS greedy decode rounds from
+    its last token: (E, logits by round, tokens, launches), numpy. With a
+    mesh ``m`` each step runs under the plan on this rank's blocks (the
+    prefill's specs from prefill_shardings, the rounds' from
+    serve_shardings); without, in one process."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps
+    dev = sys_.device
+    gen = torch.Generator(device=dev.type).manual_seed(0)
+    params = sys_.init_params(gen)
+    B, P = prompt.shape
+    T = P - 1 + FSDP_SERVE_ROUNDS
+    seeds = sys_.mask_seeds()
+    toks = torch.as_tensor(prompt, device=dev)
+
+    def prefill(params, batch):
+        caches = sys_.init_caches(batch["tokens"].shape[0], T)
+        return sys_.prefill(params, batch["tokens"], caches, seeds=seeds,
+                            round_idx=5)
+
+    serve = steps.build_serve_step(sys_, InputShape("fsdp", T, B, "decode"))
+    batch = {"tokens": toks[:, :-1]}
+    if m is not None:
+        pre_in, pre_out = steps.prefill_shardings(
+            sys_, m, {"batch": batch}, params, _meta_caches(sys_, B, T))
+        dec_in, dec_out = steps.serve_shardings(
+            sys_, m, {"batch": {"tokens": toks[:, -1:]},
+                      "caches": _meta_caches(sys_, B, T)}, params)
+        params = sharding.shard_tree(params, pre_in[0], m)
+        _free_card()
+        batch = sharding.shard_tree(batch, pre_in[1], m)
+        prefill = steps.shard_step(prefill, m, pre_in, pre_out)
+        serve = steps.shard_step(serve, m, dec_in, dec_out)
+    rows = (lambda t: t) if m is None else \
+        (lambda t: sharding.shard_tree({"tokens": t}, dec_in[1], m)["tokens"])
+    if m is not None:           # the CPU run (a thread) leaves them alone
+        _reset_lm_launches()
+    E, caches = prefill(params, batch)
+    tok, logits, out = toks[:, -1:], [], []
+    for i in range(FSDP_SERVE_ROUNDS):
+        lg, caches = serve(params, {"tokens": rows(tok)}, caches, P - 1 + i)
+        logits.append(lg.float().cpu().numpy())
+        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+        out.append(tok.cpu().numpy())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = None if m is None else _lm_launches()
+    import numpy as np
+    return {"E": E.float().cpu().numpy(), "logits": np.stack(logits),
+            "tokens": np.concatenate(out, 1), "launches": launches}
+
+
+def _meta_caches(sys_, B, T):
+    """``sys_``'s caches for B lanes of T slots, as meta tensors."""
+    from repro_torch.models import transformer
+    return [transformer.init_cache(c, B, T, device="meta")
+            for c in sys_.party_cfgs]
+
+
+def _fsdp_n_params(cfg):
+    """Every party's parameters of ``cfg``'s EasterLM (counted on meta)."""
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves
+    p = steps.abstract_params(_lm_system(cfg, "meta"))
+    return sum(t.numel() for t in tree_leaves({"parties": p["parties"]}))
+
+
+def _fsdp_cpu_refs(weights, cut_batch, prompt, ref_dir):
+    """The CPU port's one-process counterparts of (b) and (c) from the
+    card's weights (host numpy, popped from ``weights`` as they are loaded,
+    so the host holds one copy): (b)'s updated params and where the
+    clipped gradient is at least 1e-4 written to ``ref_dir`` for the ranks
+    (``_fsdp_compare_blocks``), its loss returned; (c)'s prefill, logits
+    and tokens."""
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.configs.base import EasterConfig
+    from repro_torch.core import train_loop
+    from repro_torch.core.easter_lm import EasterLM
+    from repro_torch.launch import steps
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import tree_leaves
+    _, cut, serve_cfg = _fsdp_cfgs()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)         # the other cores to the card's runs
+    sys_ = EasterLM(cut, EasterConfig(), grad_mode="joint", device="cpu")
+    batch = {k: torch.as_tensor(v) for k, v in cut_batch.items()}
+    params = sys_.load_params(weights.pop("cut"))
+    _, _, grads = train_loop.loss_and_grads(sys_, params, batch, 0,
+                                            sys_.mask_seeds())
+    scale = min(1.0, 1.0 / (float(global_norm(grads)) + 1e-9))
+    big = [np.abs(g.detach().numpy()) * scale >= 1e-4
+           for g in tree_leaves(grads)]
+    del grads
+    step, opt = steps.build_train_step(sys_, "adam", lr=FSDP_LR)
+    params, _, m = step(params, opt.init({"parties": params["parties"]}),
+                        batch, 0)
+    for i, (p, g) in enumerate(zip(tree_leaves({"parties": params[
+            "parties"]}), big)):
+        np.save(os.path.join(ref_dir, f"p{i}.npy"),
+                checkpoint.params_to_numpy(p))
+        np.save(os.path.join(ref_dir, f"g{i}.npy"), g)
+    open(os.path.join(ref_dir, "done"), "w").close()
+    b = {"loss": float(m["loss"])}
+    del params, step, opt, sys_, big
+    serve_sys = _lm_system(serve_cfg, "cpu")
+    serve_sys.init_params = lambda gen: serve_sys.load_params(
+        weights.pop("serve"))
+    c = _fsdp_serve(serve_sys, None, prompt)
+    torch.set_num_threads(threads)
+    return b, c
+
+
+def phase_fsdp():
+    """The FSDP plan on the card (the module docstring's ``fsdp``).
+    Returns (the counted paths' launches, the numbers)."""
+    import concurrent.futures
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import mesh
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg, cut, serve_cfg = _fsdp_cfgs()
+    batches = _fsdp_batches(cfg)
+    # the cuts' weights, drawn on the card as the ranks draw them; the
+    # ranks start, and the CPU steps run (two threads), while the one
+    # process trains on the card; the ranks then work once it is done
+    weights = {k: _lm_system(c, "cuda").export_params(_lm_system(
+        c, "cuda").init_params(torch.Generator(device="cuda").manual_seed(0)))
+        for k, c in (("cut", cut), ("serve", serve_cfg))}
+    _free_card()
+    cut_batch = _fsdp_cut_batch(cfg)
+    prompt = np.random.default_rng(2).integers(
+        0, serve_cfg.vocab_size, (FSDP_SERVE_LANES, FSDP_SERVE_PROMPT),
+        dtype=np.int32)
+    with concurrent.futures.ThreadPoolExecutor(2) as ex, \
+            tempfile.TemporaryDirectory() as store:
+        ref_dir, go = os.path.join(store, "b"), os.path.join(store, "go")
+        os.makedirs(ref_dir)
+        # one torch thread a rank: the host's 8 cores among the 4 ranks
+        # (whose host work is gloo's staging) and the CPU port's steps
+        spawned = ex.submit(mesh.spawn_ranks, _fsdp_rank, FSDP_RANKS,
+                            batches, cut_batch, prompt, ref_dir, go,
+                            time.time(), store_dir=store, device="cuda",
+                            threads=1, timeout_s=600)
+        cpu = ex.submit(_fsdp_cpu_refs, weights, cut_batch, prompt, ref_dir)
+        one = _fsdp_one_process(cfg, batches)
+        pre_s = time.perf_counter() - t_phase
+        open(go, "w").close()
+        ranks = spawned.result()
+        ranks_s = max(r["work_s"] for r in ranks)
+        b_cpu, c_cpu = cpu.result()
+    res = {"ranks_s": ranks_s, "before_ranks_s": pre_s,
+           "mesh": list(FSDP_MESH), "train_layers": FSDP_TRAIN_LAYERS,
+           "rank_marks_s": ranks[0]["marks"],
+           "gloo_gbps": ranks[0]["gloo_gbps"],
+           "start_s": [r["start_s"] for r in ranks]}
+    failures = []
+    # (a): launches, finite losses, the same losses on every rank
+    a = {r["rank"]: r["a"] for r in ranks}
+    for rank, ra in a.items():
+        try:
+            _check_train_launches(f"fsdp (a) rank {rank}", ra["launches"],
+                                  FSDP_STEPS)
+        except AssertionError as e:
+            failures.append(str(e))
+        if ra["losses"] != a[0]["losses"] or not all(
+                math.isfinite(v) for v in ra["losses"]):
+            failures.append(f"(a) rank {rank}: losses {ra['losses']} vs "
+                            f"rank 0's {a[0]['losses']}")
+    if abs(a[0]["losses"][0] - one["losses"][0]) > 1e-2 * abs(
+            one["losses"][0]):
+        failures.append(f"(a) step 0's loss {a[0]['losses'][0]} vs the one "
+                        f"process's {one['losses'][0]} (rtol 1e-2)")
+    resident = {k: a[k]["weights"] + a[k]["grads"] + a[k]["adam"] for k in a}
+    one_res = one["weights"] + one["grads"] + one["adam"]
+    res["a"] = {"losses_rank0": a[0]["losses"],
+                "losses_one_process": one["losses"],
+                "step_ms_by_rank": {k: v["step_ms"] for k, v in a.items()},
+                "step_ms_one_process": one["step_ms"],
+                "resident_bytes_by_rank": resident,
+                "resident_bytes_one_process": one_res,
+                "adam_bytes_by_rank": {k: v["adam"] for k, v in a.items()},
+                "peak_bytes_by_rank": {k: v["peak"] for k, v in a.items()},
+                "peak_bytes_one_process": one["peak"],
+                "rows_by_rank": {k: v["rows"] for k, v in a.items()}}
+    n_params = _fsdp_n_params(cfg)
+    res["a"]["params"] = n_params
+    log("fsdp", f"(a) {cfg.name} at full width, depth cut to "
+                f"{cfg.n_layers} layers (three "
+                f"{_lm_system(cfg, 'meta').party_cfgs[1].n_layers}-layer "
+                f"proxies; {n_params} parameters), bfloat16, remat "
+                f"{cfg.remat}, adam 1e-3 clip 1.0, {TRAIN_BATCH} x "
+                f"{TRAIN_SEQ} tokens a step over a {FSDP_MESH[0]} x "
+                f"{FSDP_MESH[1]} mesh (zero3 + ZeRO-1, rows a rank "
+                f"{res['a']['rows_by_rank']}), {FSDP_RANKS} ranks on "
+                f"{ranks[0]['backend']}: losses rank 0 "
+                f"{[round(v, 4) for v in a[0]['losses']]} vs one process "
+                f"{[round(v, 4) for v in one['losses']]}; ms a step by rank "
+                f"{ {k: [round(x, 1) for x in v['step_ms']] for k, v in a.items()} } "
+                f"(one process {[round(x, 1) for x in one['step_ms']]}); "
+                f"resident weights + gradients + adam GB by rank "
+                f"{ {k: round(v / 1e9, 3) for k, v in resident.items()} } "
+                f"(one process {one_res / 1e9:.3f}); "
+                f"torch.cuda.max_memory_allocated GB by rank "
+                f"{ {k: round(v['peak'] / 1e9, 2) for k, v in a.items()} } "
+                f"(one process {one['peak'] / 1e9:.2f})")
+    # (b): the float32 cut's joint adam step against the CPU port
+    b = ranks[0]["b"]
+    loss_ok = bool(np.isclose(b["loss"], b_cpu["loss"], rtol=1e-4,
+                              atol=1e-5))
+    blocks_ok = all(r["b"]["ok"] for r in ranks)
+    worst = max(r["b"]["max_abs"] for r in ranks)
+    for r in ranks:
+        try:
+            _check_train_launches(f"fsdp (b) rank {r['rank']}",
+                                  r["b"]["launches"], 1, 1)
+        except AssertionError as e:
+            failures.append(str(e))
+    res["b"] = {"loss": b["loss"], "cpu_loss": b_cpu["loss"],
+                "params_max_abs": worst, "ok": loss_ok and blocks_ok}
+    log("fsdp", f"(b) {cut.name} cut to {FSDP_CUT_LAYERS} layers, float32, "
+                f"TF32 off, grad_mode joint, one adam {FSDP_LR} step at "
+                f"{FSDP_CUT_BATCH} x {FSDP_CUT_SEQ} under layout tp: loss "
+                f"{b['loss']:.6f} vs the CPU port's {b_cpu['loss']:.6f} "
+                f"{'ok' if loss_ok else 'FAIL'} (rtol 1e-4, atol 1e-5); "
+                f"every rank's blocks of the updated params against the "
+                f"CPU port's, max abs {worst:.3g} "
+                f"{'ok' if blocks_ok else 'FAIL'} (rtol 1e-4 / atol 1e-5 "
+                f"where the clipped |g| >= 1e-4, 2 lr + 1e-5 elsewhere)")
+    if not res["b"]["ok"]:
+        failures.append("(b) the sharded float32 step differs from the CPU "
+                        "port's")
+    # (c): serving against the CPU port
+    attn = _layer_kinds(serve_cfg)[0] + _layer_kinds(
+        _lm_system(serve_cfg, "meta").party_cfgs[1])[0]
+    for r in ranks:
+        got = r["c"]["launches"]
+        want = {"flash_attention_fwd": attn,
+                "blind_agg_fwd": 1 + FSDP_SERVE_ROUNDS}
+        if any(got[k] != n for k, n in want.items()):
+            failures.append(f"(c) rank {r['rank']}: launches {got}, want "
+                            f"{want}")
+        if not np.array_equal(r["c"]["tokens"], c_cpu["tokens"]):
+            failures.append(f"(c) rank {r['rank']}: greedy tokens differ "
+                            f"from the CPU port's")
+    c = ranks[0]["c"]
+    c_errs = {w: (float(np.abs(c[w] - c_cpu[w]).max()),
+                  bool(np.allclose(c[w], c_cpu[w], rtol=1e-4, atol=1e-5)))
+              for w in ("E", "logits")}
+    res["c"] = {"errors": c_errs, "tokens": c["tokens"].tolist()}
+    log("fsdp", f"(c) {serve_cfg.name} cut to {FSDP_SERVE_LAYERS} layers, "
+                f"float32: a {FSDP_SERVE_LANES}-lane "
+                f"{FSDP_SERVE_PROMPT - 1}-token prefill then "
+                f"{FSDP_SERVE_ROUNDS} greedy rounds under serve_shardings: "
+                + "; ".join(f"{w} max abs {e:.3g} {'ok' if ok else 'FAIL'}"
+                            for w, (e, ok) in c_errs.items())
+                + f" (rtol 1e-4, atol 1e-5); tokens identical on every rank "
+                f"and to the CPU port's "
+                f"{not any('tokens' in f for f in failures)}; launches a "
+                f"rank {c['launches']}")
+    if not all(ok for _, ok in c_errs.values()):
+        failures.append("(c) the sharded serving differs from the CPU port's")
+    res["seconds"] = time.perf_counter() - t_phase
+    res["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log("fsdp", f"before the ranks' work (the draws, the one process, "
+                f"meanwhile the ranks' start) {pre_s:.1f} s; a rank loaded "
+                f"this script {[round(r['loaded_s'], 1) for r in ranks]} s "
+                f"after the spawn and was in the group at "
+                f"{[round(r['in_group_s'], 1) for r in ranks]} s; "
+                f"the ranks' work took {ranks_s:.1f} s (joined the group "
+                f"{[round(s_, 1) for s_ in res['start_s']]} s after the "
+                f"spawn); phase took {res['seconds']:.1f} s on {res['card']}")
+    if failures:
+        raise AssertionError("fsdp phase: " + "; ".join(failures))
+    paths = [_sum_launches([r[k]["launches"] for r in ranks])
+             for k in ("a", "b", "c")]
+    return paths, res
+
+
+# ---------------------------------------------------------------------------
 
 
 def _table2_batches(n):
@@ -3962,6 +4522,8 @@ def run_phase(name, save=None, compare=None):
         cut_cpu = {}
         _cut_phase("lm", LM_ARCH, LM_CUT_LAYERS, keep=cut_cpu)
         res = phase_sharded(cut_cpu)[1]
+    elif name == "fsdp":
+        res = phase_fsdp()[1]
     elif name == "prng":
         outs = []
         phase_prng(outs)
@@ -4063,6 +4625,7 @@ def main() -> int:
     timing_flash = phase_timing_flash()
     timing_rglru = phase_timing_rglru()
     (train_launches, joint_launches_lm), train = phase_train()
+    fsdp_paths, fsdp = phase_fsdp()
     gemma_cut = _cut_phase("gemma_cut", GEMMA_ARCH, GEMMA_CUT_LAYERS,
                            check_host=True, batch=GEMMA_CUT_BATCH,
                            prompt_len=GEMMA_CUT_PROMPT)
@@ -4096,7 +4659,8 @@ def main() -> int:
              topk_paths["easter_topk_fused"], topk_paths["easter_topk_joint"],
              lm_launches, rg_launches, train_launches,
              joint_launches_lm, moe_launches, mamba_launches,
-             whisper_launches, vlm_launches) + tuple(sharded_paths)
+             whisper_launches, vlm_launches) + tuple(sharded_paths) \
+        + tuple(fsdp_paths)
     launches = {name: sum(p.get(name, 0) for p in paths)
                 for name in ("blind_agg_fwd", "blind_agg_bwd",
                              "blind_agg_prng_fwd", "flash_attention_fwd",
@@ -4116,7 +4680,9 @@ def main() -> int:
                     f"whisper-small serving {whisper_launches}, "
                     f"qwen2-vl-7b serving {vlm_launches}, sharded engine "
                     f"(rank 0's many-party float, int8 and joint rounds, "
-                    f"every LM rank's serving) {sharded_paths})")
+                    f"every LM rank's serving) {sharded_paths}, FSDP plan "
+                    f"(every rank's qwen2-1.5b zero3 steps, float32 cut's "
+                    f"joint step, qwen2.5-3b cut's serving) {fsdp_paths})")
     # blind_agg_fwd's launches by party groups, path by path: each path's
     # histogram counts every one of its forward launches
     names = ("Table II slice", "Table II joint", "many-party fused",
@@ -4128,7 +4694,8 @@ def main() -> int:
              "mamba2-2.7b serving", "whisper-small serving",
              "qwen2-vl-7b serving", "sharded many-party float",
              "sharded many-party int8", "sharded many-party joint",
-             "sharded qwen2.5-3b serving")
+             "sharded qwen2.5-3b serving", "fsdp qwen2-1.5b training",
+             "fsdp qwen2-1.5b cut joint step", "fsdp qwen2.5-3b cut serving")
     groups = {n: p["fwd_groups"] for n, p in zip(names, paths)}
     log("launches", f"blind_agg_fwd launches by party groups G, path by "
                     f"path: {groups}")
@@ -4200,7 +4767,8 @@ def main() -> int:
                       "moe_cut": moe_cut, "mamba": mamba,
                       "mamba_cut": mamba_cut, "whisper": whisper,
                       "whisper_cut": whisper_cut, "vlm": vlm,
-                      "vlm_cut": vlm_cut, "sharded": sharded}))
+                      "vlm_cut": vlm_cut, "sharded": sharded,
+                      "fsdp": fsdp}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -41,7 +41,8 @@ the per-party trees are row views of it, and the per-step path reads it
 as it is and copies no weight (the reference restacks on every step,
 which costs nothing under jit and about 6 GB a round in eager torch at
 qwen2.5-3b). The group's token embeddings are one offset gather from
-the flat view of the stacked tables (``layers.embed_grouped``), outside
+the flat view of the stacked tables (``layers.embed_grouped``, through
+``sharding.embed_rows``), outside
 the vmap. ``engine="loop"`` is the per-party oracle.
 
 ``engine="sharded"`` lays the stacked passive group over a party group of
@@ -78,18 +79,30 @@ one ``checkpoint(vmap(...))`` under ``remat="full"``
 
 Serving entry points run under ``torch.no_grad()``; every entry point
 runs on the system's device (None = the card).
+
+Under a sharding plan (``repro_torch.sharding.ambient_mesh``, the FSDP
+plan on the vectorized engine: ``launch.steps.shard_step``) the
+parameters and caches are this rank's blocks and the batch this rank's
+rows: ``sharding.step_view`` materialises the leaves outside the layer
+stacks once a step, each party's backbone runs in its
+``sharding.party_scope`` (its layers gathered one at a time), the masks
+are the global step's rows for this rank's rows, the int8 scale is the
+max over the ranks, every loss is the global mean (sums and counts
+reduced over the batch axes), and the served embedding or logits are
+gathered to every rank.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List
 
 import torch
 from torch.func import vmap
 
-from repro_torch import checkpoint
+from repro_torch import checkpoint, sharding
 from repro_torch.configs.base import EasterConfig, ModelConfig
 from repro_torch.core import aggregation, blinding
 from repro_torch.core import party_group as pg
@@ -98,9 +111,8 @@ from repro_torch.core.party_engine import (stack_trees, stack_views,
                                            unstack_tree)
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.layers import (apply_norm, embed, embed_grouped,
-                                       init_linear, init_mlp, init_norm,
-                                       linear, mlp)
+from repro_torch.models.layers import (apply_norm, init_linear, init_mlp,
+                                       init_norm, linear, mlp)
 from repro_torch.tree import empty_stack, stack_drawn, tree_map
 
 # the EasterLM federation's fixed ceremony seed, as in the reference
@@ -338,7 +350,7 @@ class EasterLM:
     # -- protocol pieces -----------------------------------------------------
     def local_embed(self, pparams, pcfg: ModelConfig, tokens, *, caches=None,
                     pos_offset=0, window_override=-1, training=False, **fe):
-        x = embed(pparams["backbone"]["embed"], tokens)
+        x = sharding.embed_rows(pparams["backbone"]["embed"]["table"], tokens)
         return self._embed_from(pparams, pcfg, x, caches=caches,
                                 pos_offset=pos_offset,
                                 window_override=window_override,
@@ -363,6 +375,10 @@ class EasterLM:
         ``rows``: only those passive rows (a MaskEngine)."""
         if seeds is None:
             return None
+        n = shape[0] if shape else 0
+        if sharding.rows_split():
+            # this rank's rows of the global step's masks: the same bits
+            shape = (sharding.global_rows(n),) + tuple(shape[1:])
         if self.easter.fresh_masks:
             r = round_idx
         elif isinstance(round_idx, torch.Tensor):
@@ -370,11 +386,13 @@ class EasterLM:
         else:
             r = 0
         if isinstance(seeds, blinding.MaskEngine):
-            return seeds.masks(shape, r, self.easter.mask_mode,
-                               device=self.device, rows=rows)
-        return blinding.all_party_masks(self.easter.num_passive, seeds, shape,
-                                        r, self.easter.mask_mode,
-                                        device=self.device)
+            masks = seeds.masks(shape, r, self.easter.mask_mode,
+                                device=self.device, rows=rows)
+        else:
+            masks = blinding.all_party_masks(self.easter.num_passive, seeds,
+                                             shape, r, self.easter.mask_mode,
+                                             device=self.device)
+        return sharding.local_rows(masks, 1)
 
     def decide_hidden(self, pparams, pcfg: ModelConfig, E):
         x = E
@@ -455,8 +473,13 @@ class EasterLM:
             if masks is not None:
                 masks = torch.where(keep, masks, 0)
         if masks is not None and self.easter.mask_mode in blinding.RING_MODES:
+            scale = None
+            if self.easter.mask_mode == "int8" and sharding.rows_split():
+                # max |E| over the global step's rows: every rank's rows
+                scale = blinding.ring_scale(sharding.batch_max(
+                    torch.max(torch.abs(E_all.detach()))), self.C, "int8")
             E = aggregation.aggregate_ring(E_all, masks,
-                                           self.easter.mask_mode)
+                                           self.easter.mask_mode, scale)
         else:
             E = aggregation.blind_and_aggregate(E_all, masks)
         return E_all, E
@@ -493,13 +516,15 @@ class EasterLM:
         frontend inputs every party takes (``audio_embed``,
         ``vision_embed``: the keys ending in ``_embed``; other keys are
         ignored, as in the reference)."""
+        params = sharding.step_view(params, math.prod(batch["tokens"].shape))
         if self._passive_group_ok():
             return self._loss_fn_grouped(params, batch, round_idx, seeds)
         tokens, labels, fe = self._batch(batch)
         Es, auxes = [], []
         for k, pcfg in enumerate(self.party_cfgs):
-            E_k, _, aux_k = self.local_embed(params["parties"][k], pcfg,
-                                             tokens, training=True, **fe)
+            with sharding.party_scope(k):
+                E_k, _, aux_k = self.local_embed(params["parties"][k], pcfg,
+                                                 tokens, training=True, **fe)
             Es.append(E_k)
             auxes.append(aux_k)
         E_all, E = self._aggregate(torch.stack(Es), round_idx, seeds)
@@ -508,10 +533,22 @@ class EasterLM:
         for k, pcfg in enumerate(self.party_cfgs):
             h_k = self.decide_hidden(params["parties"][k], pcfg, E_for[k])
             # fused head + CE: never materializes (B, S, V) logits
-            per.append(chunked_lm_head_xent(
-                h_k, params["parties"][k]["head"]["w"], labels))
+            per.append(self._xent(h_k, params["parties"][k]["head"]["w"],
+                                  labels))
         per = torch.stack(per)
         return torch.sum(per) + torch.sum(torch.stack(auxes)), per
+
+    @staticmethod
+    def _xent(h, head_w, labels):
+        """The fused head + cross-entropy's mean over the step's tokens:
+        under a plan that splits the rows, the sum over this rank's tokens,
+        summed over the ranks, over the global count (not a mean of the
+        ranks' means)."""
+        if not sharding.rows_split():
+            return chunked_lm_head_xent(h, head_w, labels)
+        n = sharding.global_rows(labels.shape[0]) * labels.shape[1]
+        return sharding.batch_sum(chunked_lm_head_xent(
+            h, head_w, labels, reduction="sum")) / n
 
     def _batch(self, batch):
         """(tokens, labels, frontend inputs) of a batch on the device."""
@@ -535,13 +572,16 @@ class EasterLM:
         pcfg_a, pcfg_p = self.party_cfgs[0], self.party_cfgs[1]
         E_a = aux_a = None
         if self._holds_active():
-            E_a, _, aux_a = self.local_embed(params["parties"][0], pcfg_a,
-                                             tokens, training=True, **fe)
+            with sharding.party_scope(0):
+                E_a, _, aux_a = self.local_embed(
+                    params["parties"][0], pcfg_a, tokens, training=True, **fe)
         sp = self._passive_stack(params)
-        x_p = embed_grouped(sp["backbone"]["embed"]["table"], tokens)
-        h_p, _, aux_p = transformer.apply_hidden(
-            sp["backbone"], x_p, pcfg_p, return_hidden=True, training=True,
-            group=True, **fe)
+        with sharding.party_scope(1, stacked=True):
+            x_p = sharding.embed_rows(sp["backbone"]["embed"]["table"],
+                                      tokens, group=True)
+            h_p, _, aux_p = transformer.apply_hidden(
+                sp["backbone"], x_p, pcfg_p, return_hidden=True,
+                training=True, group=True, **fe)
         E_p = vmap(linear)(sp["proj"], h_p)          # (K_own, B, S, d_e)
         E = self._held_aggregate(E_a, E_p, round_idx, seeds,
                                  share=True).to(E_p.dtype)
@@ -556,14 +596,14 @@ class EasterLM:
         hs = vmap(lambda p, e: self.decide_hidden(p, pcfg_p, e))(
             sp, view(E_p))
         per_p = pg.gather_rows(torch.stack(
-            [chunked_lm_head_xent(hs[i], sp["head"]["w"][i], labels)
+            [self._xent(hs[i], sp["head"]["w"][i], labels)
              for i in range(len(hs))]), grp)
         aux_p = pg.gather_rows(aux_p.reshape(-1), grp)
         per_a = None
         if E_a is not None:
             h_a = self.decide_hidden(params["parties"][0], pcfg_a, view(E_a))
-            per_a = chunked_lm_head_xent(
-                h_a, params["parties"][0]["head"]["w"], labels)
+            per_a = self._xent(h_a, params["parties"][0]["head"]["w"],
+                               labels)
         per_a = pg.from_rank(per_a, grp, 0, (), per_p.dtype)
         aux_a = pg.from_rank(aux_a, grp, 0, (), aux_p.dtype)
         per = torch.cat([per_a[None], per_p])
@@ -655,7 +695,15 @@ class EasterLM:
         gives each batch row its own position counter (continuous-batching
         decode slots, required whenever ``serve_step`` gets a vector
         pos). On the sharded engine a party another rank holds gets
-        ``{}``."""
+        ``{}``. Under a sharding plan ``batch`` is this rank's rows: the
+        step's caches as ``sharding.fresh_caches`` makes them."""
+        plan = sharding.current()
+        if plan is not None:
+            n = sharding.global_rows(batch)
+            return sharding.fresh_caches(
+                [transformer.init_cache(pcfg, n, cache_len, window_override,
+                                        per_lane, device="meta")
+                 for pcfg in self.party_cfgs], n, self.device)
         held = self._held()
         return [transformer.init_cache(pcfg, batch, cache_len,
                                        window_override, per_lane,
@@ -678,7 +726,8 @@ class EasterLM:
         per-lane); ``lane_mask`` (B,) zeroes finished lanes' uplink rows
         (see ``_aggregate``). ``fe_list``: per-party frontend inputs (an
         encoder-decoder's ``{"enc_kv": ...}`` from ``encoder_kv``)."""
-        fe_list = fe_list or [{}] * self.C
+        params = sharding.step_view(params, math.prod(tokens.shape))
+        fe_list = self._local_fe(fe_list or [{}] * self.C, tokens.shape[0])
         # an int position keeps the PRF round on the host (the dry run's
         # meta tensors hold no value to read it from)
         host_pos = pos if isinstance(pos, int) else None
@@ -690,25 +739,50 @@ class EasterLM:
             round_idx = blinding.serve_round(torch.as_tensor(
                 nonces, dtype=torch.int32, device=self.device), pos)
         if lane_mask is not None:
-            lane_mask = torch.as_tensor(lane_mask, device=self.device)
+            lane_mask = sharding.local_rows(
+                torch.as_tensor(lane_mask, device=self.device))
         po = pos[:, None] if pos.dim() == 1 else pos
         if self._passive_group_ok():
-            return self._serve_grouped(params, tokens, caches, po, seeds,
-                                       window_override, round_idx, lane_mask,
-                                       fe_list)
+            logits, new_caches = self._serve_grouped(
+                params, tokens, caches, po, seeds, window_override,
+                round_idx, lane_mask, fe_list)
+            return self._gathered(logits), new_caches
         Es, new_caches = [], []
         for k, pcfg in enumerate(self.party_cfgs):
-            E_k, nc, _ = self.local_embed(
-                params["parties"][k], pcfg, tokens, caches=caches[k],
-                pos_offset=po, window_override=window_override,
-                **fe_list[k])
+            with sharding.party_scope(k):
+                E_k, nc, _ = self.local_embed(
+                    params["parties"][k], pcfg, tokens, caches=caches[k],
+                    pos_offset=po, window_override=window_override,
+                    **fe_list[k])
             Es.append(E_k)
             new_caches.append(nc)
         E_all, E = self._aggregate(torch.stack(Es), round_idx, seeds,
                                    lane_mask)
         logits = self.decide(params["parties"][0], self.party_cfgs[0],
                              E.to(E_all.dtype))
-        return logits, new_caches
+        return self._gathered(logits), new_caches
+
+    @staticmethod
+    def _gathered(out):
+        """A served embedding or logits, this rank's rows under a plan ->
+        every rank's, on every rank (their spec is replicated)."""
+        return None if out is None else sharding.batch_gather(out)
+
+    @staticmethod
+    def _local_fe(fe_list, rows: int):
+        """The decode step's ``enc_kv`` given for the step's rows (its spec
+        is replicated) -> this rank's ``rows`` under a plan; an ``enc_kv``
+        of this rank's rows already (``encoder_kv`` under the plan) passes
+        as it is."""
+        n = sharding.global_rows(rows)
+        if n == rows:
+            return fe_list
+
+        def local(t):
+            return sharding.local_rows(t, 1) if t.shape[1] == n else t
+
+        return [{**fe, "enc_kv": tuple(local(t) for t in fe["enc_kv"])}
+                if "enc_kv" in fe else fe for fe in fe_list]
 
     def _passive_embed_grouped(self, params, tokens, caches, pos,
                                window_override, fe_list):
@@ -723,7 +797,9 @@ class EasterLM:
         rows = self._rows()
         sc = stack_trees([caches[1 + r] for r in rows])
         sfe = stack_views([fe_list[1 + r] for r in rows])
-        x = embed_grouped(sp["backbone"]["embed"]["table"], tokens)
+        with sharding.party_scope(1, stacked=True):
+            x = sharding.embed_rows(sp["backbone"]["embed"]["table"], tokens,
+                                    group=True)
 
         def one(p, c, x, fe):
             E_k, nc, _ = self._embed_from(p, pcfg_p, x, caches=c,
@@ -732,7 +808,9 @@ class EasterLM:
                                           **fe)
             return E_k, nc
 
-        return vmap(one)(sp, sc, x, sfe)
+        # inside the vmap a party's leaves are one party's: party 1's specs
+        with sharding.party_scope(1):
+            return vmap(one)(sp, sc, x, sfe)
 
     def _serve_grouped(self, params, tokens, caches, pos, seeds,
                        window_override, round_idx, lane_mask, fe_list, *,
@@ -746,10 +824,11 @@ class EasterLM:
         E_a = nc_a = None
         pcfg_a = self.party_cfgs[0]
         if self._holds_active():
-            E_a, nc_a, _ = self.local_embed(
-                params["parties"][0], pcfg_a, tokens, caches=caches[0],
-                pos_offset=pos, window_override=window_override,
-                **fe_list[0])
+            with sharding.party_scope(0):
+                E_a, nc_a, _ = self.local_embed(
+                    params["parties"][0], pcfg_a, tokens, caches=caches[0],
+                    pos_offset=pos, window_override=window_override,
+                    **fe_list[0])
         E_p, nc_p = self._passive_embed_grouped(params, tokens, caches, pos,
                                                 window_override, fe_list)
         out = self._held_aggregate(E_a, E_p, round_idx, seeds, lane_mask,
@@ -775,20 +854,23 @@ class EasterLM:
         patch embeddings of a vision model, the cross K/V of an
         encoder-decoder from ``encoder_kv``)."""
         r = blinding.PREFILL_DOMAIN + round_idx
-        fe_list = fe_list or [{}] * self.C
+        params = sharding.step_view(params, math.prod(tokens.shape))
+        fe_list = self._local_fe(fe_list or [{}] * self.C, tokens.shape[0])
         if self._passive_group_ok():
-            return self._serve_grouped(params, tokens, caches, 0, seeds,
-                                       window_override, r, None, fe_list,
-                                       decide=False)
+            E, new_caches = self._serve_grouped(
+                params, tokens, caches, 0, seeds, window_override, r, None,
+                fe_list, decide=False)
+            return self._gathered(E), new_caches
         Es, new_caches = [], []
         for k, pcfg in enumerate(self.party_cfgs):
-            E_k, nc, _ = self.local_embed(
-                params["parties"][k], pcfg, tokens, caches=caches[k],
-                window_override=window_override, **fe_list[k])
+            with sharding.party_scope(k):
+                E_k, nc, _ = self.local_embed(
+                    params["parties"][k], pcfg, tokens, caches=caches[k],
+                    window_override=window_override, **fe_list[k])
             Es.append(E_k)
             new_caches.append(nc)
         _, E = self._aggregate(torch.stack(Es), r, seeds)
-        return E, new_caches
+        return self._gathered(E), new_caches
 
     @torch.no_grad()
     def encoder_kv(self, params, audio_embed):
@@ -801,19 +883,22 @@ class EasterLM:
         n_layers, ...) tensor laid out layer-major
         (``transformer._encoder_kv(group=True)``)."""
         audio_embed = torch.as_tensor(audio_embed, device=self.device)
+        params = sharding.step_view(params, 0)
 
-        def one_kv(bp, pcfg, group=False):
-            enc = transformer.encode(bp, audio_embed, pcfg, group=group)
-            return transformer._encoder_kv(bp, enc, pcfg, group=group)
+        def one_kv(bp, pcfg, k, group=False):
+            with sharding.party_scope(k, stacked=group):
+                enc = transformer.encode(bp, audio_embed, pcfg, group=group)
+                return transformer._encoder_kv(bp, enc, pcfg, group=group)
 
         if not self._passive_group_ok():
-            return [{"enc_kv": one_kv(params["parties"][k]["backbone"], pcfg)}
+            return [{"enc_kv": one_kv(params["parties"][k]["backbone"], pcfg,
+                                      k)}
                     for k, pcfg in enumerate(self.party_cfgs)]
         active = ({"enc_kv": one_kv(params["parties"][0]["backbone"],
-                                    self.party_cfgs[0])}
+                                    self.party_cfgs[0], 0)}
                   if self._holds_active() else {})
         k_p, v_p = one_kv(self._passive_stack(params)["backbone"],
-                          self.party_cfgs[1], group=True)
+                          self.party_cfgs[1], 1, group=True)
         out = [active] + [{}] * self.easter.num_passive
         for i, r in enumerate(self._rows()):
             out[1 + r] = {"enc_kv": (k_p[i], v_p[i])}

@@ -39,8 +39,8 @@ def _chunk_xent_sum(hc: torch.Tensor, head_w: torch.Tensor,
 
 
 def chunked_lm_head_xent(h: torch.Tensor, head_w: torch.Tensor,
-                         labels: torch.Tensor, chunk: int = 512
-                         ) -> torch.Tensor:
+                         labels: torch.Tensor, chunk: int = 512,
+                         reduction: str = "mean") -> torch.Tensor:
     """Fused LM head + cross-entropy over sequence chunks: h (B, S, d),
     head_w (d, V), labels (B, S).
 
@@ -50,9 +50,13 @@ def chunked_lm_head_xent(h: torch.Tensor, head_w: torch.Tensor,
     the live working set is one chunk's (B, chunk, V). The plain
     cross-entropy where the chunk does not divide S or S <= chunk, as in
     the reference. Not for use under ``torch.func.vmap`` (a checkpoint
-    there fails in backward): a party group loops over its heads."""
+    there fails in backward): a party group loops over its heads.
+    ``reduction="sum"``: the sum over the tokens instead of the mean (a
+    sharding plan's share of the global mean)."""
     B, S, _ = h.shape
     if S % chunk or S <= chunk:
+        if reduction == "sum":
+            return softmax_xent(h @ head_w, labels) * (B * S)
         return softmax_xent(h @ head_w, labels)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for s0 in range(0, S, chunk):
@@ -60,7 +64,7 @@ def chunked_lm_head_xent(h: torch.Tensor, head_w: torch.Tensor,
             _chunk_xent_sum, h[:, s0:s0 + chunk], head_w,
             labels[:, s0:s0 + chunk], use_reentrant=False,
             preserve_rng_state=False)
-    return total / (B * S)
+    return total if reduction == "sum" else total / (B * S)
 
 
 LOSSES = {"ce": softmax_xent, "bce": binary_xent, "mse": mse, "lm": lm_xent}

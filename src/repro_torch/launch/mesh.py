@@ -1,5 +1,6 @@
-"""Starting the party group: the port's counterpart of
-``repro.launch.mesh``'s party mesh (``make_party_mesh``).
+"""Starting the party group and the FSDP plan's mesh: the port's
+counterpart of ``repro.launch.mesh`` (``make_party_mesh``,
+``make_debug_mesh``, ``make_production_mesh``, ``abstract_mesh``).
 
 ``make_party_group(n)`` takes the group the launcher started: torchrun's
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
@@ -17,15 +18,30 @@ starts the group:
 
 ``launcher_group`` and ``quiet_other_ranks`` are the launchers' shared
 handling of ``--engine sharded --party-devices N``.
+
+The FSDP plan (``repro_torch.sharding``) runs over a ``MeshGroup``: the
+world's ranks laid out row-major over named axes (``("data", "model")``,
+as ``jax.make_mesh`` lays out host devices), with one ``torch.distributed``
+sub-group for every tuple of axes, each made by every rank in the same
+order (a rank that skipped a group it is not in would leave the others
+waiting). Every byte the plan moves goes through its ``all_gather``,
+``reduce_scatter``, ``all_reduce`` and ``broadcast``, so a test can wrap
+them (``RecordingMesh``, which also stands in for the group on the meta
+device). ``make_debug_mesh`` starts a live one; ``make_production_mesh``
+and ``abstract_mesh`` return device-free ``AbstractMesh``es, whose rank 0
+the rules and the dry run see: the port cannot start the reference's 256
+or 512 ranks.
 """
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 import multiprocessing as mp
 import os
 import sys
 import traceback
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -103,6 +119,259 @@ def make_party_group(n: int | None = None, *,
 
 
 # ---------------------------------------------------------------------------
+# the FSDP plan's meshes
+# ---------------------------------------------------------------------------
+
+
+class AbstractMesh:
+    """Named axes and their sizes (``axis_names``, ``shape``: name ->
+    size), and one rank's coordinates on them (rank 0's by default): what
+    the sharding rules read, with no group behind it."""
+
+    def __init__(self, shape, names, rank: int = 0):
+        self.axis_names = tuple(names)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+        self.size = math.prod(self.shape.values())
+        self.rank = rank
+        self.coords = self._coords(rank)
+        self.device = torch.device("meta")
+
+    def _coords(self, rank: int) -> Dict[str, int]:
+        out = {}
+        for a in reversed(self.axis_names):
+            rank, out[a] = divmod(rank, self.shape[a])
+        return out
+
+    def _rank_of(self, coords: Dict[str, int]) -> int:
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + coords[a]
+        return r
+
+    def axes(self, axes) -> Tuple[str, ...]:
+        """``axes`` (a name or names) in mesh order; a tuple out of mesh
+        order has no group (its block order would not be the ranks')."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        order = [self.axis_names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(f"axes {axes} out of mesh order "
+                             f"{self.axis_names}")
+        return axes
+
+    def axis_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in self.axes(axes))
+
+    def coord(self, axes) -> int:
+        """This rank's index over ``axes`` (row-major, the first slowest):
+        its block of a dim that lies over them."""
+        i = 0
+        for a in self.axes(axes):
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def _collective(self, *_):
+        raise RuntimeError("an abstract mesh moves no data: wrap it in "
+                           "RecordingMesh")
+
+    all_gather = reduce_scatter = all_reduce = broadcast = _collective
+
+
+class MeshGroup(AbstractMesh):
+    """A live mesh over the world's ranks: this rank's coordinates, its
+    device and backend, and one sub-group per tuple of axes. Every
+    collective of the FSDP plan is one of the four methods below, each
+    over the sub-group of ``axes`` holding this rank, in block order.
+    Under gloo a CUDA tensor crosses through ordinary host memory
+    (``_staged``): gloo's own staging keeps its pinned buffers in the
+    caching host allocator, which at a model's width grows by gigabytes a
+    rank."""
+
+    def __init__(self, shape, names, device, backend: str):
+        super().__init__(shape, names, dist.get_rank())
+        if self.size != dist.get_world_size():
+            raise ValueError(f"a {self.shape} mesh over "
+                             f"{dist.get_world_size()} ranks")
+        self.device, self.backend = device, backend
+        self.groups: Dict[Tuple[str, ...], Any] = {}
+        names = self.axis_names
+        # every tuple of axes, each group made by every rank in one order
+        for n in range(1, len(names) + 1):
+            for axes in itertools.combinations(names, n):
+                if n == len(names):
+                    self.groups[axes] = None          # the world
+                    continue
+                rest = [a for a in names if a not in axes]
+                for fixed in itertools.product(
+                        *(range(self.shape[a]) for a in rest)):
+                    coords = dict(zip(rest, fixed))
+                    ranks = sorted(self._rank_of({**coords, **dict(
+                        zip(axes, idx))}) for idx in itertools.product(
+                        *(range(self.shape[a]) for a in axes)))
+                    g = dist.new_group(
+                        ranks, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+                    if self.rank in ranks:
+                        self.groups[axes] = g
+
+    def _staged(self, x: torch.Tensor) -> bool:
+        return self.backend == "gloo" and x.is_cuda
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        """Every block of ``x`` over ``axes``, concatenated along ``dim``."""
+        axes = self.axes(axes)
+        n = self.axis_size(axes)
+        if n == 1:
+            return x
+        if self._staged(x):
+            return self.all_gather(x.cpu(), axes, dim).to(x.device)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=self.groups[axes])
+        return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axes,
+                       dim: int = 0) -> torch.Tensor:
+        """``x`` summed over ``axes``; this rank's block along ``dim``."""
+        axes = self.axes(axes)
+        n = self.axis_size(axes)
+        if n == 1:
+            return x
+        if self._staged(x):
+            return self.reduce_scatter(x.cpu(), axes, dim).to(x.device)
+        ins = [c.contiguous() for c in x.chunk(n, dim)]
+        out = torch.empty_like(ins[0])
+        dist.reduce_scatter(out, ins, group=self.groups[axes])
+        return out
+
+    def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"
+                   ) -> torch.Tensor:
+        """``x`` reduced ("sum" or "max") over ``axes``, as a new tensor."""
+        axes = self.axes(axes)
+        if self.axis_size(axes) == 1:
+            return x
+        if self._staged(x):
+            return self.all_reduce(x.cpu(), axes, op).to(x.device)
+        ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=ops[op], group=self.groups[axes])
+        return y
+
+    def broadcast(self, x: torch.Tensor, axes, src: int) -> torch.Tensor:
+        """The ``x`` of the rank at index ``src`` over ``axes``, in place."""
+        axes = self.axes(axes)
+        if self.axis_size(axes) == 1:
+            return x
+        if self._staged(x):
+            return x.copy_(self.broadcast(x.cpu(), axes, src))
+        coords = dict(self.coords)
+        for a in reversed(axes):
+            src, coords[a] = divmod(src, self.shape[a])
+        dist.broadcast(x, self._rank_of(coords), group=self.groups[axes])
+        return x
+
+
+class RecordingMesh:
+    """A mesh whose collectives are recorded: bytes by kind, with the
+    reference's HLO convention (``launch/dryrun.py``): an all-gather its
+    gathered output, a reduce-scatter its output block, an all-reduce and
+    a broadcast their operand; ``count`` collectives. Over a live
+    ``MeshGroup`` each call runs; over an abstract mesh it returns an
+    empty tensor of the result's shape (meta tensors in the dry run)."""
+
+    KINDS = ("all-gather", "reduce-scatter", "all-reduce", "broadcast")
+
+    def __init__(self, mesh):
+        self.inner = mesh
+        self.bytes = {k: 0 for k in self.KINDS}
+        self.count = 0
+        self.calls: List[Tuple[str, Tuple[str, ...], Tuple[int, ...]]] = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _record(self, kind, axes, shape, dtype):
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        self.bytes[kind] += n
+        self.count += 1
+        self.calls.append((kind, tuple(axes), tuple(shape)))
+
+    def _live(self):
+        return isinstance(self.inner, MeshGroup)
+
+    def all_gather(self, x, axes, dim=0):
+        axes = self.inner.axes(axes)
+        n = self.inner.axis_size(axes)
+        if n == 1:
+            return x
+        shape = list(x.shape)
+        shape[dim] *= n
+        self._record("all-gather", axes, shape, x.dtype)
+        if self._live():
+            return self.inner.all_gather(x, axes, dim)
+        return x.new_empty(shape)
+
+    def reduce_scatter(self, x, axes, dim=0):
+        axes = self.inner.axes(axes)
+        n = self.inner.axis_size(axes)
+        if n == 1:
+            return x
+        shape = list(x.shape)
+        shape[dim] //= n
+        self._record("reduce-scatter", axes, shape, x.dtype)
+        if self._live():
+            return self.inner.reduce_scatter(x, axes, dim)
+        return x.new_empty(shape)
+
+    def all_reduce(self, x, axes, op="sum"):
+        axes = self.inner.axes(axes)
+        if self.inner.axis_size(axes) == 1:
+            return x
+        self._record("all-reduce", axes, x.shape, x.dtype)
+        if self._live():
+            return self.inner.all_reduce(x, axes, op)
+        return x.clone()
+
+    def broadcast(self, x, axes, src):
+        axes = self.inner.axes(axes)
+        if self.inner.axis_size(axes) == 1:
+            return x
+        self._record("broadcast", axes, x.shape, x.dtype)
+        if self._live():
+            return self.inner.broadcast(x, axes, src)
+        return x
+
+
+def make_debug_mesh(data: int = 2, model: int = 2, *,
+                    device=None) -> MeshGroup:
+    """A live ``(data, model)`` mesh over the world's ranks (data x model of
+    them), for CPU integration tests and one host's card: joins the group
+    the launcher started (torchrun's environment, or ``spawn_ranks``), by
+    ``party_backend``'s rule."""
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise RuntimeError(
+                "no group: start one process per rank with torchrun (or "
+                "mesh.spawn_ranks)")
+        init_group(int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]),
+                   device)
+    backend = dist.get_backend()
+    return MeshGroup((data, model), ("data", "model"),
+                     _rank_device(backend, device), backend)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production mesh, device-free: 16 x 16 ("data",
+    "model"), or 2 x 16 x 16 with "pod"."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return AbstractMesh(shape, axes)
+
+
+def abstract_mesh(shape, names) -> AbstractMesh:
+    """A device-free mesh for sharding-spec logic (rank 0's view)."""
+    return AbstractMesh(shape, names)
+
+
+# ---------------------------------------------------------------------------
 # the launchers' --engine sharded --party-devices N
 # ---------------------------------------------------------------------------
 
@@ -130,7 +399,9 @@ def quiet_other_ranks(group: Optional[PartyGroup]) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _rank_main(fn, rank, n, init_method, device, threads, args, conn):
+def _rank_main(fn, rank, n, init_method, device, threads, args_conn, conn):
+    args = args_conn.recv()
+    args_conn.close()
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(n),
                       LOCAL_RANK=str(rank))
     if threads:
@@ -152,34 +423,53 @@ def spawn_ranks(fn: Callable, n: int, *args, store_dir: str, device=None,
     in ``store_dir``, backend and devices by ``party_backend``) and return
     each rank's result, in rank order. ``fn`` must be importable by the
     children; inside it ``make_party_group`` joins the group. A rank that
-    raises fails the call with its traceback; one that does not answer
-    within ``timeout_s`` fails it too. ``threads`` > 0 sets each rank's
-    torch threads."""
+    raises fails the call, with every failed rank's traceback (the first
+    failure often shows on the others as a closed connection); one that
+    does not answer within ``timeout_s``, or dies without answering,
+    fails it too. ``threads`` > 0 sets each rank's torch threads."""
     ctx = mp.get_context("spawn")
     os.makedirs(store_dir, exist_ok=True)
     store = os.path.join(store_dir, "party_group_store")
     if os.path.exists(store):
         os.remove(store)
     init_method = "file://" + store
-    conns, procs = [], []
+    conns, procs, arg_conns = [], [], []
     for r in range(n):
         recv, send = ctx.Pipe(duplex=False)
+        arg_recv, arg_send = ctx.Pipe(duplex=False)
         p = ctx.Process(target=_rank_main, daemon=True,
-                        args=(fn, r, n, init_method, device, threads, args,
-                              send))
+                        args=(fn, r, n, init_method, device, threads,
+                              arg_recv, send))
         p.start()
         send.close()
+        arg_recv.close()
         procs.append(p)
         conns.append(recv)
+        arg_conns.append(arg_send)
+    # the arguments go once every rank has started: a start blocks until
+    # its child has read what it was handed, and a child reads past its
+    # target only after importing torch, so arguments larger than a pipe's
+    # buffer handed to start() would start the ranks one after another
+    for c in arg_conns:
+        c.send(args)
+        c.close()
     try:
-        out = []
+        out, failed = [], []
         for r, c in enumerate(conns):
             if not c.poll(timeout_s):
-                raise TimeoutError(f"rank {r} sent nothing in {timeout_s} s")
-            kind, val = c.recv()
+                failed.append(f"rank {r} sent nothing in {timeout_s} s")
+                break
+            try:
+                kind, val = c.recv()
+            except EOFError:
+                procs[r].join(timeout=30)
+                kind, val = "error", (f"exited without a result (exit code "
+                                      f"{procs[r].exitcode})")
             if kind == "error":
-                raise RuntimeError(f"rank {r} of {n} failed:\n{val}")
+                failed.append(f"rank {r} of {n} failed:\n{val}")
             out.append(val)
+        if failed:
+            raise RuntimeError("\n".join(failed))
         return out
     finally:
         for p in procs:

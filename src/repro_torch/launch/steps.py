@@ -9,10 +9,12 @@ and the step functions below run on them as they run on real tensors
 (the kernel dispatcher sends every non-CUDA tensor to the plain
 versions, which compute nothing on meta).
 
-``to_shardings``, ``use_fsdp`` and ``train_shardings`` /
-``serve_shardings`` / ``prefill_shardings`` belong to the FSDP plan
-(``repro.sharding``'s parameter, cache, batch and optimizer-state rules)
-and are not ported yet (ROADMAP.md queue 1).
+The sharding half: ``use_fsdp`` and ``train_shardings`` /
+``serve_shardings`` / ``prefill_shardings`` return the reference's (in,
+out) spec tuples (``repro_torch.sharding``'s rules), and ``shard_step``
+runs a built step under the plan of a mesh on this rank's blocks
+(``sharding.shard_tree`` cuts them): the counterpart of ``to_shardings``
++ ``jax.jit(in_shardings=, out_shardings=)``, which has none of its own.
 """
 from __future__ import annotations
 
@@ -20,12 +22,14 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import sharding as shard_rules
 from repro_torch.configs.base import EasterConfig, InputShape, ModelConfig
 from repro_torch.core import train_loop
 from repro_torch.core.easter_lm import EasterLM
 from repro_torch.models.layers import MetaGenerator
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.optim import make_optimizer
+from repro_torch.tree import tree_map
 
 
 def default_easter(cfg: ModelConfig, enabled: bool = True) -> EasterConfig:
@@ -163,3 +167,86 @@ def build_prefill_step(sys: EasterLM, shape: InputShape):
                            round_idx=round_idx)
 
     return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# sharding assembly
+# ---------------------------------------------------------------------------
+
+
+def use_fsdp(sys: EasterLM, kind: str = "train") -> bool:
+    """FSDP parameter sharding for actives too big to replicate over the
+    data axes: size-based for every step kind, as in the reference."""
+    return sys.cfg.param_count() > 1e10
+
+
+def train_shardings(sys: EasterLM, mesh, specs, params, opt_state,
+                    zero1: bool = False, layout: str = "tp"):
+    """(in specs, out specs) of ``build_train_step``'s step: params,
+    optimizer state (ZeRO-1 with ``zero1``), batch, step."""
+    P = shard_rules.P
+    fsdp = use_fsdp(sys)
+    pspec = shard_rules.param_specs(params, mesh, fsdp, layout)
+    ospec = shard_rules.opt_state_specs(opt_state, params, mesh, zero1=zero1,
+                                        fsdp=fsdp, layout=layout)
+    bspec = shard_rules.batch_specs(specs["batch"], mesh, layout)
+    return (pspec, ospec, bspec, P()), (pspec, ospec,
+                                        {"loss": P(), "per_party": P()})
+
+
+def serve_shardings(sys: EasterLM, mesh, specs, params,
+                    fsdp: Optional[bool] = None):
+    """(in specs, out specs) of ``build_serve_step``'s step: params, batch,
+    caches, position (and an encoder-decoder's ``fe_list``, replicated);
+    out: the logits (replicated) and the caches."""
+    P = shard_rules.P
+    if fsdp is None:
+        fsdp = use_fsdp(sys, "serve")
+    pspec = shard_rules.param_specs(params, mesh, fsdp)
+    B = specs["batch"]["tokens"].shape[0]
+    cspec = shard_rules.cache_specs(specs["caches"], mesh, B)
+    bspec = shard_rules.batch_specs(specs["batch"], mesh)
+    args = [pspec, bspec, cspec, P()]
+    if "fe_list" in specs:
+        args.append(tree_map(lambda l: P(), specs["fe_list"]))
+    return tuple(args), (P(), cspec)
+
+
+def prefill_shardings(sys: EasterLM, mesh, specs, params, out_caches,
+                      fsdp: Optional[bool] = None):
+    """(in specs, out specs) of ``build_prefill_step``'s step: params and
+    batch in, the embedding (replicated) and the new caches out."""
+    P = shard_rules.P
+    if fsdp is None:
+        fsdp = use_fsdp(sys, "prefill")
+    pspec = shard_rules.param_specs(params, mesh, fsdp)
+    bspec = shard_rules.batch_specs(specs["batch"], mesh)
+    B = specs["batch"]["tokens"].shape[0]
+    cspec = shard_rules.cache_specs(out_caches, mesh, B)
+    return (pspec, bspec), (P(), cspec)
+
+
+def shard_step(step, mesh, in_specs, out_specs, layout: str = "tp"):
+    """``step`` (a train, prefill or serve step above) run under the plan
+    of ``mesh`` (``sharding.ambient_mesh``), on and to this rank's blocks:
+    the arguments are the blocks ``sharding.shard_tree`` cuts by
+    ``in_specs`` (batch rows included), and the results come back as
+    ``out_specs`` says: parameters, optimizer state and caches as this
+    rank's blocks, updated in place; the loss, embedding and logits whole
+    on every rank. The train step's gradients are reduced over the batch
+    axes as its layers' leaves are materialised (``sharding.materialize``),
+    before its optimizer runs on the blocks (ZeRO-1)."""
+    pspec = in_specs[0]
+    bspec = next(s for s in in_specs if isinstance(s, dict) and "tokens" in s)
+    ospec = in_specs[1] if in_specs[1] is not bspec else None
+    cspec = next((s for s in in_specs if isinstance(s, list)), None)
+    split = bspec["tokens"][0] is not None
+    del out_specs       # the step writes its results in these layouts
+
+    def run(*args):
+        with shard_rules.ambient_mesh(mesh, layout, {
+                "params": pspec, "opt": ospec, "caches": cspec,
+                "split": split}):
+            return step(*args)
+
+    return run

@@ -25,6 +25,16 @@ gradients as the reference:
 One-hot encodings are comparisons against ``torch.arange(E)``
 (``F.one_hot`` checks its input's range, a data-dependent branch that
 vmap refuses), and ``cap`` is a Python int from the logical T.
+
+Under a sharding plan that splits the rows (``repro_torch.sharding``),
+each rank routes its own tokens with the statistics of the global call:
+the capacity from the global token count, each (token, k)'s slot after
+every token of lower ranks (an exclusive prefix of the per-expert counts
+over the batch axes), and the load-balance term from the global
+per-expert fractions and mean probabilities (a product of global means,
+not a mean of the ranks' products). A rank's buffer holds its own rows
+at their global slots, so every kept token sees the one-process expert
+output and every dropped one is dropped there too.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import _dense_init, init_mlp, mlp
 
@@ -81,11 +92,19 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     probs, gate_vals, expert_idx = route(p, xt, cfg)
 
     # load-balance aux loss (Switch-style)
-    me = torch.mean(probs, dim=0)                          # (E,)
-    ce = torch.mean((expert_idx[:, 0, None] == experts).float(), dim=0)
+    first = (expert_idx[:, 0, None] == experts).float()
+    split = sharding.rows_split()
+    if split:   # the global call's means: sums over the ranks / global T
+        T_all = sharding.global_rows(B) * S
+        me = sharding.batch_sum(torch.sum(probs, dim=0)) / T_all
+        ce = sharding.batch_sum(torch.sum(first, dim=0)) / T_all
+    else:
+        T_all = T
+        me = torch.mean(probs, dim=0)                      # (E,)
+        ce = torch.mean(first, dim=0)
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
 
-    cap = capacity(T, cfg, capacity_factor)
+    cap = capacity(T_all, cfg, capacity_factor)
 
     # position of each (token, k) assignment inside its expert's buffer:
     # a running count along (t, k) per expert, scanned along the last
@@ -94,6 +113,9 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     e_flat = expert_idx.reshape(T * K)
     hit = (experts[:, None] == e_flat).to(torch.int32)     # (E, T*K)
     pos = torch.cumsum(hit, dim=-1, dtype=torch.int32) - 1
+    if split:   # after every token of the ranks holding earlier rows
+        pos = pos + sharding.batch_prefix(
+            torch.sum(hit, dim=-1, dtype=torch.int32))[:, None]
     pos_in_e = torch.sum(pos * hit, dim=0)                 # (T*K,)
     keep = pos_in_e < cap
     slot = torch.where(keep, pos_in_e, cap)                # overflow slot

@@ -55,6 +55,7 @@ import torch
 from torch.func import vmap
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import griffin, moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -375,24 +376,43 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
             rep = vmap(lambda p_rep, x, x_rep, rep=rep:
                        rep(p_rep, x, None, x_rep)[::2],
                        in_dims=(0, 0, None if xattn is None else 0))
+
+        take = sharding.layer_taker(("segments", si), group)
+        xtake = (None if xattn is None
+                 else sharding.layer_taker(("xattn",), group))
+
+        def run(seg_params, x, xattn, r, layer=layer, rep=rep, take=take):
+            """Repeat r from the segment's stacked leaves: each layer's
+            leaves taken here (under a sharding plan, gathered here), so
+            that a checkpointed repeat gathers them again in its
+            recompute instead of saving them."""
+            p_rep = take(seg_params, r)
+            x_rep = None
+            if xattn is not None:
+                xp, k, v = xattn
+                sel = (lambda a: a[:, layer + r]) if group else \
+                    (lambda a: a[layer + r])
+                x_rep = (xtake(xp, layer + r), sel(k), sel(v))
+            if group:
+                return rep(p_rep, x, x_rep)
+            return rep(p_rep, x, None, x_rep)[::2]
+
         if remat:
-            rep = functools.partial(checkpoint, rep, use_reentrant=False,
+            run = functools.partial(checkpoint, run, use_reentrant=False,
                                     preserve_rng_state=False)
         per_rep = []
         for r in range(reps):
-            take = (lambda a: a[:, r]) if group else (lambda a: a[r])
-            p_rep = tree_map(take, seg_params)
-            x_rep = None
-            if xattn is not None:
-                x_rep = tree_map((lambda a: a[:, layer + r]) if group
-                                 else (lambda a: a[layer + r]), xattn)
             if seg_cache is not None:
-                x, new_c, a = rep(p_rep, x, tree_map(take, seg_cache), x_rep)
-                per_rep.append(new_c)
-            elif group:
-                x, a = rep(p_rep, x, x_rep)
+                x_rep = None
+                if xattn is not None:
+                    xp, k, v = xattn
+                    x_rep = (xtake(xp, layer + r), k[layer + r],
+                             v[layer + r])
+                x, new_c, a = rep(take(seg_params, r), x,
+                                  sharding.cache_in(seg_cache, si, r), x_rep)
+                per_rep.append(sharding.cache_out(new_c, si))
             else:
-                x, _, a = rep(p_rep, x, None, x_rep)
+                x, a = run(seg_params, x, xattn, r)
             aux_total = aux_total + a
         layer += reps * len(kinds)
         if seg_cache is not None:
@@ -418,10 +438,12 @@ def _apply_xattn(x_rep, x: torch.Tensor, cfg: ModelConfig,
     return x + linear(xp["attn"]["wo"], o.reshape(B, S, cfg.n_heads * hd))
 
 
-def _layer_stack(tree, n: int, group: bool):
-    """Layer l of (n, ...) leaves, or of (K, n, ...) leaves with ``group``."""
-    return [tree_map((lambda a: a[:, l]) if group else (lambda a: a[l]),
-                     tree) for l in range(n)]
+def _layer_stack(tree, path, n: int, group: bool):
+    """Layers 0..n-1 of (n, ...) leaves, or of (K, n, ...) leaves with
+    ``group``, one at a time (``sharding.layer_taker``: under a plan each is
+    gathered when the loop reaches it)."""
+    take = sharding.layer_taker(path, group)
+    return (take(tree, l) for l in range(n))
 
 
 def encode(params: Params, audio_embed: torch.Tensor, cfg: ModelConfig, *,
@@ -442,7 +464,8 @@ def encode(params: Params, audio_embed: torch.Tensor, cfg: ModelConfig, *,
     if group:
         block, norm = vmap(block), vmap(norm)
         x = x.expand((enc["norm"]["scale"].shape[0],) + tuple(x.shape))
-    for p in _layer_stack(enc["blocks"], cfg.n_encoder_layers, group):
+    for p in _layer_stack(enc["blocks"], ("encoder", "blocks"),
+                          cfg.n_encoder_layers, group):
         x = block(p, x)
     return norm(enc["norm"], x)
 
@@ -456,14 +479,12 @@ def _encoder_kv(params: Params, enc_out: torch.Tensor, cfg: ModelConfig, *,
     ``k[:, l]``, is one contiguous block."""
     shape = enc_out.shape[:-1] + (cfg.n_kv_heads, cfg.resolved_head_dim)
     lin = vmap(linear) if group else linear
-    layers = _layer_stack(params["xattn"]["attn"], cfg.n_layers, group)
-
-    def proj(name):
-        t = torch.stack([lin(p[name], enc_out).reshape(shape)
-                         for p in layers])
-        return t.transpose(0, 1) if group else t
-
-    return proj("wk"), proj("wv")
+    ks, vs = [], []
+    for p in _layer_stack(params["xattn"], ("xattn",), cfg.n_layers, group):
+        ks.append(lin(p["attn"]["wk"], enc_out).reshape(shape))
+        vs.append(lin(p["attn"]["wv"], enc_out).reshape(shape))
+    k, v = torch.stack(ks), torch.stack(vs)
+    return (k.transpose(0, 1), v.transpose(0, 1)) if group else (k, v)
 
 
 def apply_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,

@@ -15,6 +15,15 @@ reference's pure functions, ``update(grads, state, params)`` updates the
 parameter and state tensors IN PLACE (under ``torch.no_grad()``), leaf by
 leaf, and returns the same trees, so a training step allocates no second
 copy of the model or of the optimizer state (at most one leaf's worth).
+
+Under a sharding plan (``repro_torch.sharding.ambient_mesh`` with the
+step's parameter and optimizer-state specs) ``update`` runs on this rank's
+blocks (``_sharded_update``, ZeRO-1): where a state block is finer than
+its parameter's (a parameter replicated over the data axes, its state
+sharded over them, ``opt_state_specs(zero1=True)``) the rank updates its
+slice of the parameter and then all-gathers it over those axes; the
+clipping norm counts every element once (a leaf replicated over an axis
+only from that axis' coordinate 0) and sums over every rank.
 """
 from __future__ import annotations
 
@@ -22,7 +31,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 class Optimizer(NamedTuple):
@@ -36,19 +45,23 @@ def _tree_zeros(params, dtype=None):
                                                requires_grad=False), params)
 
 
-def global_norm(tree, norm_reduce=None) -> torch.Tensor:
+def global_norm(tree, norm_reduce=None, weights=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf. ``norm_reduce`` sums the
     squares over the ranks that hold the rest of the tree (the sharded
-    engine's parties)."""
+    engine's parties); ``weights`` (one 0/1 a leaf) drops the leaves this
+    rank does not count."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if weights is not None:
+        leaves = [x * w for x, w in zip(leaves, weights)]
     sq = torch.sum(torch.stack(leaves))
     if norm_reduce is not None:
         sq = norm_reduce(sq)
     return torch.sqrt(sq)
 
 
-def clip_by_global_norm(grads, max_norm: float, norm_reduce=None):
-    n = global_norm(grads, norm_reduce)
+def clip_by_global_norm(grads, max_norm: float, norm_reduce=None,
+                        weights=None):
+    n = global_norm(grads, norm_reduce, weights)
     scale = torch.clamp(max_norm / (n + 1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), n
 
@@ -82,39 +95,30 @@ def make_optimizer(name: str, lr: float, *, momentum: float = 0.9,
         def init(params):
             return {}
 
-        @torch.no_grad()
-        def update(grads, state, params):
-            grads = maybe_clip(grads)
+        def step(grads, state, params):
             _assign(lambda p, g: (p.float() - lr * apply_wd(g.float(), p)
                                   ).to(p.dtype), params, params, grads)
-            return params, state
 
     elif name in ("momentum", "sgdm"):
         def init(params):
             return {"m": _tree_zeros(params, state_dtype)}
 
-        @torch.no_grad()
-        def update(grads, state, params):
-            grads = maybe_clip(grads)
+        def step(grads, state, params):
             _assign(lambda m, g: momentum * m + g.to(state_dtype),
                     state["m"], state["m"], grads)
             _assign(lambda p, mm: (p.float() - lr * apply_wd(mm, p)
                                    ).to(p.dtype), params, params, state["m"])
-            return params, state
 
     elif name == "adagrad":
         def init(params):
             return {"s": _tree_zeros(params, state_dtype)}
 
-        @torch.no_grad()
-        def update(grads, state, params):
-            grads = maybe_clip(grads)
+        def step(grads, state, params):
             _assign(lambda s, g: s + torch.square(g.to(state_dtype)),
                     state["s"], state["s"], grads)
             _assign(lambda p, g, ss: (p.float() - lr * apply_wd(g.float(), p)
                                       / (torch.sqrt(ss) + eps)).to(p.dtype),
                     params, params, grads, state["s"])
-            return params, state
 
     elif name == "adam":
         def init(params):
@@ -123,9 +127,7 @@ def make_optimizer(name: str, lr: float, *, momentum: float = 0.9,
                     "v": _tree_zeros(params, state_dtype),
                     "t": torch.zeros((), dtype=torch.int32, device=device)}
 
-        @torch.no_grad()
-        def update(grads, state, params):
-            grads = maybe_clip(grads)
+        def step(grads, state, params):
             state["t"] += 1
             t = state["t"].float()
             _assign(lambda m, g: b1 * m + (1 - b1) * g.to(state_dtype),
@@ -136,18 +138,70 @@ def make_optimizer(name: str, lr: float, *, momentum: float = 0.9,
             bc2 = 1 - torch.pow(b2, t)
 
             def upd(p, mm, vv):
-                step = lr * (mm / bc1) / (torch.sqrt(vv / bc2) + eps)
+                delta = lr * (mm / bc1) / (torch.sqrt(vv / bc2) + eps)
                 if weight_decay:
-                    step = step + lr * weight_decay * p.to(state_dtype)
-                return (p.float() - step).to(p.dtype)
+                    delta = delta + lr * weight_decay * p.to(state_dtype)
+                return (p.float() - delta).to(p.dtype)
 
             _assign(upd, params, params, state["m"], state["v"])
-            return params, state
 
     else:
         raise ValueError(f"unknown optimizer {name!r}")
 
+    @torch.no_grad()
+    def update(grads, state, params):
+        from repro_torch import sharding
+        plan = sharding.current()
+        if plan is not None and plan.params is not None:
+            _sharded_update(step, grad_clip, plan, grads, state, params)
+            return params, state
+        step(maybe_clip(grads), state, params)
+        return params, state
+
     return Optimizer(init=init, update=update, name=name)
+
+
+def _sharded_update(step, grad_clip: float, plan, grads, state, params):
+    """ZeRO-1: ``step`` on this rank's blocks (module docstring). The
+    gradients arrive reduced over the batch axes (``sharding.materialize``'s
+    backward), in their parameters' blocks."""
+    from repro_torch import sharding
+    mesh = plan.mesh
+    pspecs = sharding.spec_leaves({"parties": plan.params["parties"]})
+    sspecs = pspecs
+    for k in ("m", "v", "s"):
+        if plan.opt and k in plan.opt:
+            sspecs = sharding.spec_leaves(plan.opt[k])
+            break
+    gs, ps = tree_leaves(grads), tree_leaves(params)
+    g_views, p_views, weights, widen = [], [], [], []
+    for g, p, psp, ssp in zip(gs, ps, pspecs, sspecs):
+        pe = sharding._entries(psp, p.dim())
+        se = sharding._entries(ssp, p.dim())
+        for i, (a, b) in enumerate(zip(pe, se)):
+            if a == b:
+                continue
+            if a is not None:
+                raise ValueError(f"a state block ({ssp}) coarser than its "
+                                 f"parameter's ({psp})")
+            g = sharding._block(g, b, i, mesh)
+            narrowed = sharding._block(p, b, i, mesh)
+            widen.append((p, narrowed, b, i))
+            p = narrowed
+        used = {a for e in se for a in sharding._axes(e)}
+        weights.append(float(all(mesh.coords[a] == 0
+                                 for a in mesh.axis_names if a not in used)))
+        g_views.append(g)
+        p_views.append(p)
+    if grad_clip > 0:
+        g_views, _ = clip_by_global_norm(
+            g_views, grad_clip,
+            lambda sq: mesh.all_reduce(sq.reshape(1), mesh.axis_names)[0],
+            weights)
+    step(tree_unflatten(grads, g_views), state,
+         tree_unflatten(params, p_views))
+    for p, narrowed, b, i in widen:
+        p.copy_(mesh.all_gather(narrowed, sharding._axes(b), i))
 
 
 # ---------------------------------------------------------------------------

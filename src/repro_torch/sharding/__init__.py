@@ -1,0 +1,1093 @@
+"""The FSDP plan over the ranks of a ``torch.distributed`` group: the
+port's counterpart of ``repro.sharding``.
+
+Two halves.
+
+**The rules** (``param_specs``, ``cache_specs``, ``batch_specs``,
+``opt_state_specs`` with ZeRO-1) are the reference's, line for line: each
+leaf of a tree gets a spec, a ``P`` with one entry per leading dim (None,
+an axis name, or a tuple of names), decided from its path's trailing
+names and its shape. ``tuple(P)`` equals ``tuple(PartitionSpec)`` of the
+reference for the same leaf (a tuple of one name is that name, as jax
+writes it). A mesh, for the rules, is only ``axis_names`` and ``shape``
+(a dict name -> size), so they run alike against an abstract 16 x 16
+mesh (``launch.mesh.abstract_mesh``) and a live 2 x 2 group
+(``launch.mesh.make_debug_mesh``). The port's EasterLM tree also holds
+``passive_stacked``, the K passive parties stacked (K, ...): its spec is
+party 1's spec with None in front for the party axis, never ``_add_fsdp``
+applied to the stacked shape (which could pick the party axis), so a
+stacked block's rows are the parties' own blocks.
+
+**The executor.** The reference declares the layout and lets GSPMD choose
+the compute. The port chooses both:
+
+  * every leaf (parameters, optimizer state, caches, batch rows) is stored
+    as its spec says: each rank holds its block only (``shard_tree``);
+  * a layer's leaves are materialised just before the layer runs
+    (``materialize``, an ``autograd.Function``): all-gathered over the
+    axes of each sharded dim, or, where the layer axis itself is sharded,
+    broadcast from the rank that holds the layer. Its backward sums the
+    cotangents over the axes the batch is split on (``batch_axes``; a
+    reduce-scatter, or an all-reduce where the leaf is replicated there)
+    and, over every other axis, returns the rank's own block of the
+    cotangent with no traffic, because compute is replicated there: the
+    invariant of ``core/party_group.gather_rows`` / ``enter_shard``;
+  * compute splits over the batch axes only. Under ``layout="zero3"``
+    those are all the axes: pure FSDP, nothing computed twice. Under
+    ``layout="tp"`` the model axis holds storage only: each layer's
+    model-sharded leaves are gathered before use and the layer runs whole
+    on every model rank. This is NOT tensor-parallel compute: Megatron
+    column/row-parallel attention and MLP, a vocab-parallel head and
+    expert-parallel MoE are ROADMAP.md queue 1 item H.
+
+Model code reaches the plan through ``ambient_mesh`` (the reference's, with
+the step's spec trees): ``layer_taker`` (a layer's leaves), ``cache_in`` /
+``cache_out`` (a layer's cache block: gathered to the compute layout, and
+this rank's block of the new cache written back), ``step_view`` (the
+leaves outside the layer stacks, materialised once a step), ``embed_rows``
+(token rows looked up where a vocabulary-split table's rows lie, where
+that moves less than gathering the table), and the batch statistics
+``batch_sum`` / ``batch_max`` / ``batch_prefix`` / ``batch_gather``. Outside ``ambient_mesh`` each is the identity (or the
+plain slice), so every path without a plan runs as before, just as the
+reference's ``constrain`` is a no-op without a mesh.
+
+The reference's ``constrain`` hints steer GSPMD; the port places tensors
+explicitly instead, at each of them:
+
+  * ``models/moe.py:84,94`` (the dispatch buffer and the combine over
+    "batch"): each rank dispatches its own tokens into its own buffer, at
+    the global slots (``batch_prefix``) under the global capacity;
+  * ``models/transformer.py:283`` (the residual stream over "batch"): the
+    stream is this rank's rows; nothing moves;
+  * ``core/easter_lm.py:243-260`` (the parties' embeddings and the
+    aggregate over "batch"): aggregation is row-wise, so each rank
+    aggregates its own rows, with the masks' rows of the global step and
+    the int8 scale from ``batch_max``.
+
+``shard_map_compat`` and ``use_mesh`` have no counterpart: the ranks are
+processes, and every step runs under ``ambient_mesh``.
+"""
+from __future__ import annotations
+
+import math
+from contextlib import contextmanager, nullcontext
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.party_group import (party_axis_size,  # noqa: F401
+                                          party_shardable)
+from repro_torch.tree import tree_map
+
+
+class P(tuple):
+    """A partition spec: one entry per leading dim, None (replicated), an
+    axis name or a tuple of names (the dim over their product, the first
+    name slowest). Like jax's, a tuple of one name is the name and an
+    empty tuple is None."""
+
+    def __new__(cls, *entries):
+        def canon(e):
+            if isinstance(e, (tuple, list)):
+                e = tuple(e)
+                return None if not e else (e[0] if len(e) == 1 else e)
+            return e
+        return tuple.__new__(cls, tuple(canon(e) for e in entries))
+
+    def __repr__(self):
+        return "P" + tuple.__repr__(self)
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _entries(spec, nd: int) -> list:
+    return list(spec) + [None] * (nd - len(spec))
+
+
+def _prod(xs) -> int:
+    return int(math.prod(xs))
+
+
+def _msize(mesh) -> int:
+    return mesh.shape["model"]
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def batch_axes(mesh, layout: str = "tp") -> Tuple[str, ...]:
+    """Axes the batch dim shards over. layout="zero3" absorbs the model
+    axis into the batch (pure data parallelism + fully-sharded params)."""
+    if layout == "zero3":
+        return tuple(mesh.axis_names)
+    return data_axes(mesh)
+
+
+def model_axis(mesh) -> str:
+    return "model"
+
+
+# ---------------------------------------------------------------------------
+# trees with their paths; spec trees (a P is a leaf, not a sequence)
+# ---------------------------------------------------------------------------
+
+
+def _map_with_path(fn, tree, names=()):
+    """``fn(path names, leaf)`` over a tree: dict keys by name, sequence
+    items as ``i<idx>`` (the reference's ``_path_names``)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, names + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, names + (f"i{i}",))
+                          for i, v in enumerate(tree))
+    return fn(names, tree)
+
+
+def zip_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over ``tree`` and the spec tree that mirrors it."""
+    if isinstance(tree, dict):
+        return {k: zip_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(zip_specs(fn, v, specs[i])
+                          for i, v in enumerate(tree))
+    return fn(tree, specs)
+
+
+def spec_leaves(specs) -> List[P]:
+    """A spec tree's specs in ``tree.tree_leaves`` order."""
+    if isinstance(specs, P):
+        return [specs]
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    if isinstance(specs, (list, tuple)):
+        return [s for t in specs for s in spec_leaves(t)]
+    return [specs]
+
+
+# ---------------------------------------------------------------------------
+# parameter rules
+# ---------------------------------------------------------------------------
+
+def _param_rule(path: Tuple[str, ...], leaf, mesh,
+                seq_axis: Optional[str] = None) -> P:
+    """Decide the spec for one param leaf from its path names."""
+    names = [p for p in path]
+    name = names[-1] if names else ""
+    parent = names[-2] if len(names) > 1 else ""
+    m = "model"
+    msize = _msize(mesh)
+
+    def fits(dim: int) -> bool:
+        return dim >= msize and dim % msize == 0
+
+    shape = leaf.shape
+    nd = leaf.ndim
+
+    def pad(rule: Tuple) -> P:
+        extra = nd - len(rule)
+        return P(*([None] * extra + list(rule)))
+
+    # --- embeddings / heads ---
+    if name == "table":
+        # vocab-sharded embedding (replicate vocab when it doesn't divide,
+        # e.g. whisper's 51865, and shard d_model instead if possible)
+        if fits(shape[-2]):
+            return pad((m, None))
+        return pad((None, m)) if fits(shape[-1]) else pad((None, None))
+    if parent == "head" and name == "w":
+        return pad((None, m)) if fits(shape[-1]) else pad((None, None))
+
+    # --- MoE ---
+    if name in ("w_gate", "w_up", "w_down"):
+        E = shape[-3]
+        if fits(E):
+            return pad((m, None, None))            # expert parallel
+        # tensor-parallel experts: shard the ff dim
+        return pad((None, None, m)) if name != "w_down" else pad((None, m, None))
+    if name == "router":
+        return pad((None, None))
+
+    # --- attention ---
+    if parent in ("wq", "wk", "wv") and name == "w":
+        return pad((None, m)) if fits(shape[-1]) else pad((None, None))
+    if parent in ("wq", "wk", "wv") and name == "b":
+        return pad((m,)) if fits(shape[-1]) else pad((None,))
+    if parent == "wo" and name == "w":
+        return pad((m, None)) if fits(shape[-2]) else pad((None, None))
+
+    # --- dense MLP ---
+    if parent in ("up", "gate") and name == "w":
+        return pad((None, m)) if fits(shape[-1]) else pad((None, None))
+    if parent == "down" and name == "w":
+        return pad((m, None)) if fits(shape[-2]) else pad((None, None))
+    if parent in ("up", "gate") and name == "b":
+        return pad((m,)) if fits(shape[-1]) else pad((None,))
+
+    # --- SSD (mamba2) ---
+    if name == "in_proj":                          # packed zxbcdt: replicate
+        return pad((None, None))
+    if name == "out_proj":
+        return pad((m, None)) if fits(shape[-2]) else pad((None, None))
+    if name in ("A_log", "D", "dt_bias"):
+        return pad((m,)) if fits(shape[-1]) else pad((None,))
+    if name in ("conv_w", "conv_b"):
+        return pad((None,) * nd)
+
+    # --- RG-LRU ---
+    if parent in ("in_x", "in_gate") and name == "w":
+        return pad((None, m)) if fits(shape[-1]) else pad((None, None))
+    if parent in ("w_r", "w_i") and name == "w":
+        return pad((None, m)) if fits(shape[-1]) else pad((None, None))
+    if parent in ("w_r", "w_i") and name == "b":
+        return pad((m,)) if fits(shape[-1]) else pad((None,))
+    if name == "lam":
+        return pad((m,)) if fits(shape[-1]) else pad((None,))
+    if parent == "out" and name == "w":
+        return pad((m, None)) if fits(shape[-2]) else pad((None, None))
+
+    # --- EASTER proj / decision head ---
+    if parent == "proj" and name == "w":
+        return pad((None, None))
+
+    # norms, scalars, everything else: replicate
+    return pad((None,) * nd)
+
+
+def _add_fsdp(spec: P, leaf, mesh, dax: Optional[Tuple] = None) -> P:
+    """FSDP overlay: shard one remaining replicated dim over the data axes.
+
+    Preference order: the scan-stack (layer) axis, then the largest
+    divisible dim. Only applied to leaves of at least 2^20 elements:
+    biases and norms stay replicated.
+    """
+    if leaf.numel() < 2 ** 20:
+        return spec
+    dax = dax or data_axes(mesh)
+    dsz = _prod(mesh.shape[a] for a in dax)
+    entries = _entries(spec, leaf.ndim)
+    order = list(range(leaf.ndim))
+    # try dims largest-first, but prefer the leading stack axis if divisible
+    order.sort(key=lambda i: -leaf.shape[i])
+    if entries[0] is None and leaf.shape[0] % dsz == 0 and leaf.ndim > 2:
+        order = [0] + [i for i in order if i != 0]
+    for i in order:
+        if entries[i] is None and leaf.shape[i] % dsz == 0 \
+                and leaf.shape[i] >= dsz:
+            entries[i] = dax
+            return P(*entries)
+    return spec
+
+
+def param_specs(params, mesh, fsdp: bool = False, layout: str = "tp"):
+    """Spec tree matching ``params``.
+
+    layout="tp" (default): the reference's 1D tensor-parallel layout over
+    "model" (+ optional FSDP overlay over "data"); the port stores it so
+    but computes each layer whole (module docstring). layout="zero3":
+    params fully sharded over ALL mesh axes (ZeRO-3 / pure FSDP), gathered
+    per layer at use. ``passive_stacked`` (the port's stacked passive
+    group) gets party 1's specs with None in front."""
+    def rule(path, leaf):
+        if layout == "zero3":
+            spec = P(*([None] * leaf.ndim))
+            return _add_fsdp(spec, leaf, mesh, dax=tuple(mesh.axis_names))
+        spec = _param_rule(path, leaf, mesh)
+        if fsdp:
+            spec = _add_fsdp(spec, leaf, mesh)
+        return spec
+
+    if isinstance(params, dict) and "passive_stacked" in params:
+        rest = {k: v for k, v in params.items() if k != "passive_stacked"}
+        out = _map_with_path(rule, rest)
+        out["passive_stacked"] = zip_specs(
+            lambda _, s: P(None, *s), params["passive_stacked"],
+            out["parties"][1])
+        return out
+    return _map_with_path(rule, params)
+
+
+# ---------------------------------------------------------------------------
+# cache rules
+# ---------------------------------------------------------------------------
+
+def _cache_rule(path: Tuple[str, ...], leaf, mesh, shard_seq: bool) -> P:
+    name = path[-1] if path else ""
+    nd = leaf.ndim
+    dax = data_axes(mesh)
+    dsz = _prod(mesh.shape[a] for a in dax)
+
+    def pad(rule):
+        return P(*([None] * (nd - len(rule)) + list(rule)))
+
+    if name in ("k", "v", "k_scale", "v_scale"):
+        # (B, T, Hkv, hd|1): batch over data if divisible (else seq over
+        # data), AND kv-heads over model if divisible (else seq over model)
+        B, T, H = leaf.shape[-4], leaf.shape[-3], leaf.shape[-2]
+        msz = _msize(mesh)
+        rule = [None, None, None, None]
+        if not shard_seq and B % dsz == 0 and B >= dsz:
+            rule[0] = dax
+        elif T % dsz == 0 and T >= dsz:
+            rule[1] = dax
+        if H % msz == 0 and H >= msz:
+            rule[2] = "model"
+        elif rule[1] is None and T % msz == 0 and T >= msz:
+            rule[1] = "model"
+        return pad(tuple(rule))
+    if name == "state" and nd >= 3:
+        # ssm state (B,H,P,N) / lru state (B,W): shard H / W over model
+        dim = leaf.shape[-3] if nd >= 4 else leaf.shape[-1]
+        if dim % _msize(mesh) == 0 and dim >= _msize(mesh):
+            return pad(("model", None, None)) if nd >= 4 else pad(("model",))
+        return pad((None,) * nd)
+    if name == "conv":
+        D = leaf.shape[-1]
+        if D % _msize(mesh) == 0:
+            return pad((None, "model"))
+        return pad((None,) * nd)
+    return pad((None,) * nd)
+
+
+def cache_specs(caches, mesh, batch: int):
+    dsz = _prod(mesh.shape[a] for a in data_axes(mesh))
+    shard_seq = batch < dsz
+    return _map_with_path(
+        lambda path, leaf: _cache_rule(path, leaf, mesh, shard_seq), caches)
+
+
+# ---------------------------------------------------------------------------
+# input / batch rules
+# ---------------------------------------------------------------------------
+
+def batch_specs(batch_tree, mesh, layout: str = "tp"):
+    dax = batch_axes(mesh, layout)
+    dsz = _prod(mesh.shape[a] for a in dax)
+
+    def rule(leaf):
+        B = leaf.shape[0]
+        if B % dsz == 0 and B >= dsz:
+            return P(dax, *([None] * (leaf.ndim - 1)))
+        return P(*([None] * leaf.ndim))
+
+    return tree_map(rule, batch_tree)
+
+
+# ---------------------------------------------------------------------------
+# optimizer-state rules (ZeRO-1 option)
+# ---------------------------------------------------------------------------
+
+def opt_state_specs(opt_state, params, mesh, zero1: bool = False,
+                    fsdp: bool = False, layout: str = "tp"):
+    """Specs of the optimizer state: m / v / s mirror the parameters'
+    (``{"parties": [...]}``, as ``opt.init`` builds them), with ZeRO-1
+    each further sharded over the data axes on its first divisible dim
+    where the parameter is not data-sharded already; scalars (adam's t)
+    replicated."""
+    if isinstance(params, dict) and "passive_stacked" in params:
+        params = {"parties": params["parties"]}
+    pspecs = param_specs(params, mesh, fsdp, layout)
+
+    def maybe_zero1(state_branch):
+        if not zero1:
+            return pspecs
+        dax = data_axes(mesh)
+        dsz = _prod(mesh.shape[a] for a in dax)
+
+        def z(leaf, sp: P):
+            specs = _entries(sp, leaf.ndim)
+            used = set()
+            for s in specs:
+                used |= set(_axes(s))
+            if used & set(dax):
+                return P(*specs)     # already data-sharded (fsdp overlay)
+            for i, (dim, s) in enumerate(zip(leaf.shape, specs)):
+                if s is None and dim % dsz == 0 and dim >= dsz:
+                    specs[i] = dax
+                    break
+            return P(*specs)
+
+        return zip_specs(z, state_branch, pspecs)
+
+    out = {}
+    if isinstance(opt_state, dict):
+        for k, v in opt_state.items():
+            if k in ("m", "v", "s"):
+                out[k] = maybe_zero1(v)
+            else:
+                out[k] = tree_map(lambda l: P(), v) if v is not None else v
+        return out
+    return tree_map(lambda l: P(), opt_state)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """A leaf's block shape under ``spec``: each dim divided by the size
+    of the axes it lies over."""
+    return tuple(n // mesh.axis_size(_axes(e))
+                 for n, e in zip(shape, _entries(spec, len(shape))))
+
+
+def _block(x: torch.Tensor, entry, dim: int, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``entry``'s axes (a
+    view)."""
+    axes = _axes(entry)
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return x
+    m = x.shape[dim] // n
+    return x.narrow(dim, mesh.coord(axes) * m, m)
+
+
+def _relayout(x: torch.Tensor, src, dst, mesh) -> torch.Tensor:
+    """``x`` stored as ``src`` -> the same tensor stored as ``dst``: dims
+    leaving an axis all-gathered over it, dims entering one sliced."""
+    s, d = _entries(src, x.dim()), _entries(dst, x.dim())
+    for i in range(x.dim()):
+        if s[i] == d[i]:
+            continue
+        if s[i] is not None:
+            x = mesh.all_gather(x, _axes(s[i]), i)
+        if d[i] is not None:
+            x = _block(x, d[i], i, mesh)
+    return x
+
+
+def relayout_tree(tree, src_specs, dst_specs, mesh):
+    """``_relayout`` leaf by leaf (no gradient); a leaf whose layout does
+    not change is returned as it is."""
+    def one(x, s, d):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return _relayout(x, s, d, mesh)
+    return _zip3(one, tree, src_specs, dst_specs)
+
+
+def _zip3(fn, tree, a, b):
+    if isinstance(tree, dict):
+        return {k: _zip3(fn, v, a[k], b[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip3(fn, v, a[i], b[i])
+                          for i, v in enumerate(tree))
+    return fn(tree, a, b)
+
+
+def local_block(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the whole leaf ``x`` under ``spec`` (a view)."""
+    return _relayout(x, (), spec, mesh)
+
+
+def shard_tree(tree, specs, mesh):
+    """This rank's blocks of a whole tree (the counterpart of
+    ``to_shardings`` + ``jit(in_shardings=)``): each leaf cut to its block
+    and copied, so the whole tensor can be freed. EasterLM's tree keeps
+    ``parties[1:]`` as row views of the ``passive_stacked`` block, so that
+    an update of one is an update of the other."""
+    def cut(x, s):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return local_block(x, s, mesh).clone()
+    if isinstance(tree, dict) and "passive_stacked" in tree:
+        from repro_torch.core.party_engine import unstack_tree
+        out = {k: (zip_specs(cut, v, specs[k]) if k != "parties" else None)
+               for k, v in tree.items()}
+        stacked = out["passive_stacked"]
+        K = len(tree["parties"]) - 1
+        out["parties"] = [zip_specs(cut, tree["parties"][0],
+                                    specs["parties"][0])] \
+            + unstack_tree(stacked, K)
+        return out
+    return zip_specs(cut, tree, specs)
+
+
+def init_opt_state(opt, params, pspecs, ospecs, mesh):
+    """``opt``'s state for this rank's parameter blocks ``params`` (an
+    EasterLM tree), as ``ospecs`` lays it out (ZeRO-1 cuts a state leaf
+    finer than its parameter's block): made from the blocks, never from
+    the whole parameters."""
+    state = opt.init({"parties": params["parties"]})
+    like = {"parties": pspecs["parties"]}
+    src = {k: (like if k in ("m", "v", "s") else
+               tree_map(lambda _: P(), v)) for k, v in state.items()}
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                    else t, relayout_tree(state, src, ospecs, mesh))
+
+
+def gather_tree(tree, specs, mesh):
+    """The whole tree as numpy on rank 0 (None on the other ranks): leaf by
+    leaf all-gathered (every rank must call this) and, on rank 0, copied
+    to the host before the next, for checks and ``checkpoint.save``."""
+    from repro_torch import checkpoint
+
+    def one(x, s):
+        if not isinstance(x, torch.Tensor):
+            return x
+        full = _relayout(x, s, (), mesh)
+        return checkpoint.params_to_numpy(full) if mesh.rank == 0 else None
+    out = zip_specs(one, tree, specs)
+    return out if mesh.rank == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# the ambient plan
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Plan:
+    """The step ``ambient_mesh`` runs: the mesh, the layout, the spec trees
+    of its parameters (``params``), optimizer state (``opt``) and caches
+    (``caches``, one per party), and whether the batch rows are split
+    over the batch axes (``split``; a batch too small to divide runs whole
+    on every rank, as the reference's ``batch_specs`` replicates it);
+    ``fresh``: the step's caches are new (``fresh_caches``), held in the
+    compute layout, so a prefill gathers no zeros."""
+    mesh: Any
+    layout: str = "tp"
+    params: Any = None
+    opt: Any = None
+    caches: Any = None
+    split: bool = True
+    fresh: bool = False
+    scopes: list = field(default_factory=list)
+    row_tables: set = field(default_factory=set)
+
+    @property
+    def row_axes(self) -> Tuple[str, ...]:
+        """The axes compute is split on: the batch axes when the rows are
+        split, else none."""
+        return batch_axes(self.mesh, self.layout) if self.split else ()
+
+    def rows(self) -> int:
+        return self.mesh.axis_size(self.row_axes)
+
+
+_PLANS: List[Plan] = []
+
+
+@contextmanager
+def ambient_mesh(mesh, layout: str = "tp", specs: Optional[dict] = None):
+    """Run model code under the plan of ``mesh``: ``specs`` holds the
+    step's spec trees ("params", "opt", "caches") and "split" (the batch
+    rows lie over the batch axes)."""
+    specs = dict(specs or {})
+    _PLANS.append(Plan(mesh, layout, specs.get("params"), specs.get("opt"),
+                       specs.get("caches"), specs.get("split", True)))
+    try:
+        yield mesh
+    finally:
+        _PLANS.pop()
+
+
+def current() -> Optional[Plan]:
+    return _PLANS[-1] if _PLANS else None
+
+
+def rows_split() -> bool:
+    """True where this rank's batch rows are a block of the step's."""
+    plan = current()
+    return plan is not None and plan.rows() > 1
+
+
+def global_rows(n: int) -> int:
+    """The step's batch rows from this rank's ``n``."""
+    plan = current()
+    return n if plan is None else n * plan.rows()
+
+
+def local_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This rank's rows (along ``dim``) of a tensor over the step's rows."""
+    plan = current()
+    if plan is None or not rows_split():
+        return x
+    return _block(x, plan.row_axes, dim, plan.mesh)
+
+
+@contextmanager
+def _scope(entry):
+    plan = current()
+    plan.scopes.append(entry)
+    try:
+        yield
+    finally:
+        plan.scopes.pop()
+
+
+def party_scope(k: int, stacked: bool = False):
+    """Model code inside runs party ``k``'s backbone (``stacked``: the
+    passive group's (K, ...) leaves); ``layer_taker`` and ``cache_in`` read its
+    specs. No-op without a plan."""
+    plan = current()
+    if plan is None:
+        return nullcontext()
+    tree = (plan.params["passive_stacked"] if stacked
+            else plan.params["parties"][k])
+    caches = None if plan.caches is None else plan.caches[k]
+    return _scope((tree["backbone"], caches))
+
+
+def _scoped(what: str):
+    plan = current()
+    if not plan.scopes:
+        raise RuntimeError(f"{what} under a sharding plan outside "
+                           f"party_scope: which party's specs is unknown")
+    return plan, plan.scopes[-1]
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def layer_taker(path: Tuple, group: bool = False):
+    """``take(stack, index)``: layer ``index`` of the layer stack at
+    ``path`` in the backbone (leaves (n, ...), or (K, n, ...) with
+    ``group``): the plain slice without a plan, else each leaf
+    materialised (``materialize``). The scope's specs and the plan are
+    bound here, so a checkpointed layer's recompute in the backward pass,
+    outside the scope, takes its layer alike."""
+    axis = 1 if group else 0
+    plan = current()
+    if plan is None:
+        return lambda tree, index: tree_map(
+            lambda a: a.select(axis, index), tree)
+    plan, (specs, _) = _scoped("a layer")
+    specs, mesh, bax = _at(specs, path), plan.mesh, plan.row_axes
+    return lambda tree, index: zip_specs(
+        lambda a, s: _Materialize.apply(a, mesh, P(*s), index, axis, bax),
+        tree, specs)
+
+
+def _compute_spec(nd: int, plan: Plan) -> P:
+    """A cache block's compute layout: its rows (dim 0) this rank's where
+    the batch is split, every other dim whole."""
+    if nd == 0 or not plan.split:
+        return P(*([None] * nd))
+    return P(plan.row_axes or None, *([None] * (nd - 1)))
+
+
+def cache_in(tree, si: int, index: int):
+    """Segment ``si``'s cache block for repeat ``index`` in the compute
+    layout (the plain slice without a plan)."""
+    plan = current()
+    if plan is None:
+        return tree_map(lambda a: a[index], tree)
+    plan, (_, cspecs) = _scoped("a cache")
+
+    def one(a, s):
+        x = a[index]
+        src = (_compute_spec(x.dim(), plan) if plan.fresh
+               else P(*_entries(s, a.dim())[1:]))
+        return _Relayout.apply(x, plan.mesh, src,
+                               _compute_spec(x.dim(), plan))
+    return zip_specs(one, tree, cspecs[si])
+
+
+def fresh_caches(full, batch: int, device):
+    """New (zero) caches under the plan from their whole-step shapes
+    ``full`` (meta tensors for ``batch`` rows): their specs
+    (``cache_specs``) join the plan, and they are made in the compute
+    layout (this rank's rows, every other dim whole), which ``cache_in``
+    reads as it is; ``cache_out`` writes this rank's blocks of the specs."""
+    plan = current()
+    plan.caches = cache_specs(full, plan.mesh, batch)
+    plan.fresh = True
+
+    def zeros(a, s):
+        spec = P(None, *_compute_spec(a.dim() - 1, plan))
+        return torch.zeros(local_shape(a.shape, spec, plan.mesh),
+                           dtype=a.dtype, device=device)
+    return zip_specs(zeros, full, plan.caches)
+
+
+def cache_out(tree, si: int):
+    """A repeat's new cache from the compute layout back to this rank's
+    block of segment ``si``'s spec (identity without a plan)."""
+    plan = current()
+    if plan is None:
+        return tree
+    plan, (_, cspecs) = _scoped("a cache")
+
+    def one(x, s):
+        s = _entries(s, x.dim() + 1)[1:]
+        return _Relayout.apply(x, plan.mesh, _compute_spec(x.dim(), plan),
+                               P(*s))
+    return zip_specs(one, tree, cspecs[si])
+
+
+# the backbone's layer stacks, materialised a layer at a time; every other
+# leaf of a party is materialised once a step (``step_view``)
+_LAYER_KEYS = ("segments", "xattn")
+
+
+def _once(tree, specs, mesh):
+    return zip_specs(lambda a, s: materialize(a, s, mesh), tree, specs)
+
+
+def _party_view(party, specs, plan, n_tokens):
+    mesh = plan.mesh
+    out = {}
+    for k, v in party.items():
+        if k != "backbone":
+            out[k] = _once(v, specs[k], mesh)
+            continue
+        bb = {}
+        for kk, vv in v.items():
+            if kk in _LAYER_KEYS:
+                bb[kk] = vv
+            elif kk == "embed" and _rows_cheaper(vv["table"], specs[k][kk][
+                    "table"], plan, n_tokens):
+                bb[kk] = vv
+                plan.row_tables.add(id(vv["table"]))
+            elif kk == "encoder":
+                bb[kk] = {"blocks": vv["blocks"],
+                          "norm": _once(vv["norm"], specs[k][kk]["norm"],
+                                        mesh)}
+            else:
+                bb[kk] = _once(vv, specs[k][kk], mesh)
+        out[k] = bb
+    return out
+
+
+def step_view(params, n_tokens: int):
+    """EasterLM's parameters as a step over this rank's ``n_tokens`` tokens
+    reads them: under a plan every leaf outside the layer stacks
+    materialised (once a step; the gradients reach the blocks through
+    ``materialize``), the layer stacks left as blocks for ``layer_taker``,
+    and a token table split over its vocabulary alone left as its block
+    for ``embed_rows`` where moving the step's token rows costs less than
+    gathering the table (``_rows_cheaper``); ``parties[1:]`` row views of
+    the materialised ``passive_stacked``. Unchanged without a plan."""
+    plan = current()
+    if plan is None:
+        return params
+    specs = plan.params
+    out = dict(params)
+    parties = list(params["parties"])
+    parties[0] = _party_view(parties[0], specs["parties"][0], plan,
+                             n_tokens)
+    if "passive_stacked" in params:
+        from repro_torch.core.party_engine import unstack_tree
+        out["passive_stacked"] = _party_view(
+            params["passive_stacked"], specs["passive_stacked"], plan,
+            n_tokens)
+        parties[1:] = unstack_tree(out["passive_stacked"], len(parties) - 1)
+    else:
+        parties[1:] = [_party_view(p, specs["parties"][k + 1], plan,
+                                   n_tokens)
+                       for k, p in enumerate(parties[1:])]
+    out["parties"] = parties
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the differentiable layout changes (legal under torch.func.vmap)
+# ---------------------------------------------------------------------------
+
+
+def _take(x, spec, index, axis, mesh):
+    """Entry ``index`` of the stack axis ``axis``: a slice where the axis
+    is whole, else a broadcast from the rank that holds it."""
+    e, rest = spec[axis], spec[:axis] + spec[axis + 1:]
+    if e is None:
+        return x.select(axis, index), rest
+    ax = _axes(e)
+    b, off = divmod(index, x.shape[axis])
+    if mesh.coord(ax) == b:
+        buf = x.select(axis, off).clone()
+    else:
+        buf = x.new_empty(x.shape[:axis] + x.shape[axis + 1:])
+    return mesh.broadcast(buf, ax, b), rest
+
+
+class _Materialize(torch.autograd.Function):
+    @staticmethod
+    def forward(local, mesh, spec, index, axis, bax):
+        spec = _entries(spec, local.dim())
+        x = local
+        if index is not None:
+            x, spec = _take(x, spec, index, axis, mesh)
+        x = _relayout(x, spec, (), mesh)
+        return x.view_as(x) if x is local else x
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        local, ctx.mesh, ctx.spec, ctx.index, ctx.axis, ctx.bax = inputs
+        ctx.shape, ctx.dtype = local.shape, local.dtype
+        ctx.device = local.device
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, bax = ctx.mesh, set(ctx.bax)
+        full = _entries(ctx.spec, len(ctx.shape))
+        spec = list(full)
+        if ctx.index is not None:
+            del spec[ctx.axis]
+        used = set()
+        for i, e in enumerate(spec):
+            if e is None:
+                continue
+            ax = _axes(e)
+            used |= set(ax)
+            if set(ax) <= bax:
+                g = mesh.reduce_scatter(g, ax, i)
+            elif not set(ax) & bax:
+                g = _block(g, e, i, mesh)
+            else:
+                raise NotImplementedError(f"a dim over {ax}, partly batch "
+                                          f"axes {sorted(bax)}")
+        rest = tuple(a for a in mesh.axis_names if a in bax and a not in used)
+        if rest:
+            g = mesh.all_reduce(g, rest)
+        if ctx.index is not None:
+            out = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+            e = full[ctx.axis]
+            b, off = divmod(ctx.index, ctx.shape[ctx.axis])
+            if e is None:
+                out.select(ctx.axis, ctx.index).copy_(g)
+            elif mesh.coord(_axes(e)) == b:
+                out.select(ctx.axis, off).copy_(g)
+            g = out
+        return g, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, local, mesh, spec, index, axis, bax):
+        bd = in_dims[0]
+        if bd is None:
+            return _Materialize.apply(local, mesh, spec, index, axis,
+                                      bax), None
+        x = local.movedim(bd, 0)
+        spec = (None,) + tuple(_entries(spec, local.dim() - 1))
+        return _Materialize.apply(x, mesh, spec, index, axis + 1, bax), 0
+
+
+def materialize(local: torch.Tensor, spec, mesh, index: Optional[int] = None,
+                axis: int = 0) -> torch.Tensor:
+    """The whole tensor from this rank's block ``local`` of a leaf stored as
+    ``spec`` (``index``: only entry ``index`` of the stack axis ``axis``).
+    Forward: all-gather each sharded dim; broadcast a stack entry from
+    the rank that holds it. Backward: the cotangent summed over the
+    current plan's batch axes (reduce-scatter or all-reduce), this rank's
+    block over the other axes (module docstring)."""
+    plan = current()
+    bax = () if plan is None else plan.row_axes
+    return _Materialize.apply(local, mesh, P(*spec), index, axis, bax)
+
+
+class _Relayout(torch.autograd.Function):
+    """A cache block's layout change (serving: no gradient)."""
+
+    @staticmethod
+    def forward(x, mesh, src, dst):
+        y = _relayout(x, src, dst, mesh)
+        return y.view_as(y) if y is x else y
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError("a cache's layout change has no gradient")
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, src, dst):
+        bd = in_dims[0]
+        if bd is None:
+            return _Relayout.apply(x, mesh, src, dst), None
+        nd = x.dim() - 1
+        return _Relayout.apply(x.movedim(bd, 0), mesh,
+                               P(None, *_entries(src, nd)),
+                               P(None, *_entries(dst, nd))), 0
+
+
+# ---------------------------------------------------------------------------
+# token embeddings from a table split over its vocabulary
+# ---------------------------------------------------------------------------
+
+
+def _rows_cheaper(table, spec, plan, n_tokens: int) -> bool:
+    """True when ``spec`` splits the table's vocabulary dim (-2) and no
+    other, and the step's token rows that ``embed_rows`` moves (this
+    rank's ``n_tokens`` times the ranks of the vocabulary's axes whose
+    tokens differ) are fewer than the vocabulary's rows, which gathering
+    the table moves. At 16 x 16 a train_4k step's million tokens outnumber
+    any vocabulary, and the table is gathered."""
+    e = _entries(spec, table.dim())
+    if e[-2] is None or any(x is not None for i, x in enumerate(e)
+                            if i != len(e) - 2):
+        return False
+    axes = _axes(e[-2])
+    n_g = plan.mesh.axis_size(tuple(a for a in axes if a in plan.row_axes))
+    return n_g * n_tokens < table.shape[-2] * plan.mesh.axis_size(axes)
+
+
+class _EmbedRows(torch.autograd.Function):
+    """Rows of a table (K, V / n, d) split over the vocabulary's axes A for
+    this rank's tokens (N,): the tokens of the ranks whose tokens differ
+    (G, the batch axes in A) gathered, each rank's own rows looked up
+    (zeros for another block's tokens), then summed over A (a
+    reduce-scatter over G, an all-reduce over the rest): one nonzero term
+    a row, so the rows are exact. The backward gathers the cotangents over
+    G, adds each into its token's row of this rank's block, and sums the
+    block over the batch axes the table is whole on."""
+
+    @staticmethod
+    def forward(table, tokens, mesh, axes, bax):
+        G = tuple(a for a in axes if a in bax)
+        R = tuple(a for a in axes if a not in bax)
+        toks = mesh.all_gather(tokens, G, 0) if G else tokens
+        n = table.shape[1]
+        local = toks.long() - mesh.coord(axes) * n
+        inside = (local >= 0) & (local < n)
+        idx = torch.where(inside, local, 0)
+        rows = torch.where(inside[None, :, None], table[:, idx], 0)
+        if G:
+            rows = mesh.reduce_scatter(rows, G, 1)
+        if R:
+            rows = mesh.all_reduce(rows, R)
+        return rows
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, tokens, ctx.mesh, ctx.axes, ctx.bax = inputs
+        ctx.shape = table.shape
+        ctx.save_for_backward(tokens)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        mesh, axes, bax = ctx.mesh, ctx.axes, ctx.bax
+        G = tuple(a for a in axes if a in bax)
+        toks = mesh.all_gather(tokens, G, 0) if G else tokens
+        g = mesh.all_gather(g.contiguous(), G, 1) if G else g
+        n = ctx.shape[1]
+        local = toks.long() - mesh.coord(axes) * n
+        inside = (local >= 0) & (local < n)
+        # another block's token adds an exact zero to row 0 (no data-
+        # dependent shapes: the dry run runs this on meta tensors)
+        grad = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        grad.index_add_(1, torch.where(inside, local, 0),
+                        torch.where(inside[None, :, None], g, 0))
+        rest = tuple(a for a in mesh.axis_names if a in bax and a not in axes)
+        if rest:
+            grad = mesh.all_reduce(grad, rest)
+        return grad, None, None, None, None
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
+               group: bool = False) -> torch.Tensor:
+    """Token embeddings (B, S, d), or (K, B, S, d) from K stacked tables
+    with ``group`` (``layers.embed`` / ``layers.embed_grouped``). Under a
+    plan whose ``step_view`` left the table a block of its vocabulary,
+    the rows are looked up where they lie (``_EmbedRows``) instead of
+    gathering the table."""
+    from repro_torch.models.layers import embed, embed_grouped
+    plan = current()
+    if plan is None or id(table) not in plan.row_tables:
+        return (embed_grouped(table, tokens) if group
+                else embed({"table": table}, tokens))
+    plan, (specs, _) = _scoped("a token table")
+    spec = specs["embed"]["table"]
+    axes = _axes(_entries(spec, table.dim())[-2])
+    t = table if group else table[None]
+    rows = _EmbedRows.apply(t, tokens.reshape(-1), plan.mesh, axes,
+                            plan.row_axes)
+    rows = rows.reshape((rows.shape[0],) + tuple(tokens.shape)
+                        + (rows.shape[-1],))
+    return rows if group else rows[0]
+
+
+# ---------------------------------------------------------------------------
+# statistics over the batch axes
+# ---------------------------------------------------------------------------
+
+
+class _BatchSum(torch.autograd.Function):
+    """Sum over the batch axes; the backward passes the (replicated)
+    cotangent through, so each rank's share of a replicated loss reaches
+    its own rows."""
+
+    @staticmethod
+    def forward(x, mesh, axes):
+        return mesh.all_reduce(x, axes, "sum")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes):
+        return _BatchSum.apply(x, mesh, axes), in_dims[0]
+
+
+class _BatchPrefix(torch.autograd.Function):
+    """The sum of ``x`` over the ranks of lower batch index (exclusive
+    prefix); no gradient."""
+
+    @staticmethod
+    def forward(x, mesh, axes):
+        parts = mesh.all_gather(x[None], axes, 0)
+        return torch.sum(parts[:mesh.coord(axes)], dim=0, dtype=x.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes):
+        return _BatchPrefix.apply(x, mesh, axes), in_dims[0]
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks the step's rows lie over (identity
+    without a plan); differentiable, legal under vmap."""
+    plan = current()
+    if plan is None or plan.rows() == 1:
+        return x
+    return _BatchSum.apply(x, plan.mesh, plan.row_axes)
+
+
+def batch_max(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (no gradient) maxed over the ranks the rows lie over."""
+    plan = current()
+    if plan is None or plan.rows() == 1:
+        return x
+    return plan.mesh.all_reduce(x.detach(), plan.row_axes, "max")
+
+
+def batch_prefix(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the ranks holding earlier rows (zeros without
+    a plan); legal under vmap."""
+    plan = current()
+    if plan is None or plan.rows() == 1:
+        return torch.zeros_like(x)
+    return _BatchPrefix.apply(x, plan.mesh, plan.row_axes)
+
+
+def batch_gather(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Every rank's rows (along ``dim``) in order: an output whose spec is
+    replicated (identity without a plan; no gradient)."""
+    plan = current()
+    if plan is None or plan.rows() == 1:
+        return x
+    return plan.mesh.all_gather(x, plan.row_axes, dim)

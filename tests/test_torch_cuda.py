@@ -1292,3 +1292,76 @@ def test_cuda_decode_attention_rounds_by_party_batch(cuda):
     assert not torch.equal(vec, loop)
     rel = float((vec - loop).abs().max() / loop.abs().max())
     assert rel < 2 ** -20, rel
+
+
+# ---------------------------------------------------------------------------
+# the FSDP plan's materialize: two ranks on one card over gloo
+# ---------------------------------------------------------------------------
+
+# (whole shape, spec, stack index): a leaf over "data", one replicated,
+# and a layer of a stack whose layer axis lies over "data"
+MATERIALIZE_CASES = (((6, 8), ("data", None), None),
+                     ((6, 8), (None, None), None),
+                     ((4, 6, 8), ("data", None, None), 3))
+
+
+def _materialize_inputs(shape, index):
+    """The whole leaf, and each rank's cotangent of the materialised
+    tensor (the ranks' batch rows differ, so their cotangents do)."""
+    g = torch.Generator().manual_seed(7)
+    w = torch.randn(shape, generator=g)
+    out = shape[1:] if index is not None else shape
+    return w, [torch.randn(out, generator=g) for _ in range(2)]
+
+
+def _materialize_on_card():
+    """Rank side: each MATERIALIZE_CASES leaf cut to this rank's block on
+    the card, materialised under a plan whose rows lie over "data", and
+    differentiated with this rank's cotangent; (rank, [(tensor, gradient
+    of the block)])."""
+    from repro_torch import sharding
+    from repro_torch.launch import mesh
+    m = mesh.make_debug_mesh(2, 1, device="cuda")
+    out = []
+    with sharding.ambient_mesh(m, "tp", {"split": True}):
+        for shape, spec, index in MATERIALIZE_CASES:
+            w, gs = _materialize_inputs(shape, index)
+            local = sharding.shard_tree(w.cuda(), sharding.P(*spec), m)
+            local.requires_grad_(True)
+            full = sharding.materialize(local, spec, m, index)
+            (grad,) = torch.autograd.grad(full, local, gs[m.rank].cuda())
+            out.append((full.detach().cpu(), grad.cpu()))
+    return m.rank, out
+
+
+@pytest.fixture(scope="module")
+def materialize_ranks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import mesh
+    return mesh.spawn_ranks(_materialize_on_card, 2,
+                            store_dir=str(tmp_path_factory.mktemp("mesh")),
+                            device="cuda")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("i", range(len(MATERIALIZE_CASES)))
+def test_cuda_materialize_over_two_ranks(cuda, materialize_ranks, i):
+    """``sharding.materialize`` over a 2-rank gloo group on cuda:0, bit for
+    bit against one process: the forward is the whole leaf (or its layer
+    ``index``, broadcast from the rank holding it), and each rank's
+    gradient is its block of the sum of both ranks' cotangents (the rows
+    differ between the ranks), zero outside the layer's slot."""
+    shape, spec, index = MATERIALIZE_CASES[i]
+    w, gs = _materialize_inputs(shape, index)
+    want_full = w if index is None else w[index]
+    total = gs[0] + gs[1]
+    for rank, out in materialize_ranks:
+        full, grad = out[i]
+        assert torch.equal(full, want_full)
+        want = total if index is None else torch.zeros(shape).index_copy_(
+            0, torch.tensor([index]), total[None])
+        if spec[0] == "data":
+            n = shape[0] // 2
+            want = want[rank * n:(rank + 1) * n]
+        assert torch.equal(grad, want), (rank, i)

@@ -319,6 +319,7 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.core.wire, repro_torch.launch.mesh, "
             "repro_torch.core.party_group, "
             "repro_torch.launch.steps, repro_torch.launch.dryrun, "
+            "repro_torch.sharding, "
             "repro_torch.data.pipeline; "
             "from repro_torch.configs.base import list_archs; list_archs(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
