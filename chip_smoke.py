@@ -245,7 +245,23 @@ Phases, each printing its own lines:
           63-token prefill and 4 greedy rounds against the CPU port
           (embeddings and logits at rtol 1e-4 / atol 1e-5, tokens
           identical on every rank); per rank 2 + 2 flash_attention_fwd
-          launches and 1 + 4 blind_agg_fwd.
+          launches and 1 + 4 blind_agg_fwd. (b) and (c) run the
+          tensor-parallel compute over "model" (heads, MLP columns and
+          rows, the vocabulary). (d) qwen2.5-3b at full width and depth
+          (36 layers, 16/2 heads of 128, three 9-layer proxies, 6.181e9
+          parameters, bfloat16, the card's generator seeded 0, drawn by
+          the ranks in turns) under prefill_shardings / serve_shardings:
+          4 lanes (2 a data rank) of 512-token prompts, then 16 greedy
+          rounds; per rank the resident parameter bytes, peak memory,
+          prefill ms and ms a round, and the collectives' bytes of the
+          prefill and of the last round by kind (a RecordingMesh over the
+          live mesh); asserted: finite logits, the model ranks of a data
+          rank holding the same logits bit for bit, the same tokens on
+          every rank, per rank 36 + 9 flash_attention_fwd and one
+          blind_agg_fwd a prefill, one blind_agg_fwd a round, and no
+          all-gather of a leaf the model axis splits in a round; the
+          tokens beside the one process's on the same weights (run by
+          the parent before the ranks work) printed, not asserted.
   gemma_cut  gemma3-4b at full width (d_model 2560, 8/4 heads of 256,
           gelu MLP of 10240, vocab 262,144) cut to one (5 local, 1 global)
           period: 6 active layers, 2 local per passive proxy, float32 with
@@ -322,7 +338,7 @@ top-k (float masks, fused masks, joint), qwen2.5-3b
 serving, recurrentgemma-9b serving, qwen2-1.5b training, its joint step,
 qwen2-moe-a2.7b serving, mamba2-2.7b serving, whisper-small serving,
 qwen2-vl-7b serving; in the sharded phase's ranks every round; in the
-fsdp phase's ranks (a), (b) and (c)) and read
+fsdp phase's ranks (a), (b), (c) and (d)) and read
 just after; every kernel
 must have launched on some path, and blind_agg_fwd's launches are printed
 by party-group count G, path by path. The second-to-last line is the JSON
@@ -399,6 +415,11 @@ FLASH_EMPTY_ROWS = ((1, 130, 50, 4, 2, 64, 32), (1, 400, 129, 16, 1, 256, 100))
 FLASH_PREFILL = ((1, 511), (1, 1023), (1, 2047), (3, 511), (3, 1023),
                  (3, 2047))
 FLASH_PREFILL_HEADS = (16, 2, 128)
+# one model rank's heads of qwen2.5-3b under the tensor-parallel compute
+# at m = 2 (the fsdp phase's (d)): 8 q heads over 1 kv head of 128, at the
+# 512-token prefill of the active party's 2 lanes and of the passive
+# group's 6 (3 parties x 2 lanes, folded into the batch axis)
+FLASH_TP_HEADS, FLASH_TP = (8, 1, 128), ((2, 512), (6, 512))
 # the recurrentgemma-9b serving slice: the same serving run on Griffin
 # parties (38 layers: 12 x (lru, lru, attn) + (lru, lru); three 9-layer
 # passive proxies), 16/1/256 heads with a local window of 2048; the depth
@@ -1929,28 +1950,31 @@ def phase_flash():
     # the serving paths' prefill shapes: the active party's (B = 1) and
     # the passive group's, folded into the batch axis (B = 3), at
     # qwen2.5-3b's, recurrentgemma-9b's, gemma3-4b's and qwen2-moe-a2.7b's
-    # heads and windows
-    for _, heads, window in FLASH_MODELS:
-        for B, S in FLASH_PREFILL:
-            for dt in (f32, bf16):
-                err, used, ok = _flash_prefill_case(B, S, dt, gen, heads,
-                                                    window)
-                worst[dt] = max(worst[dt], err)
-                tol = "atol 3e-5, rtol 1e-2" if dt == f32 else (
-                    "atol 3e-2, rtol 1e-2, and the bound ulp_bf16(exact) "
-                    "+ 2^-8 A(q, k, |v|) + 1e-5 of float32 attention on "
-                    "the same inputs")
-                log("flash", f"prefill shape ({B}, {S}, "
-                             f"{'/'.join(map(str, heads))}) causal"
-                             f"{f' window {window}' if window else ''} "
-                             f"{str(dt)[6:]}: max abs err {err:.3g} against "
-                             f"the plain version; {used:.3g} of the "
-                             f"bfloat16 bound from float32 attention at "
-                             f"worst; tolerance {tol}: "
-                             f"{'ok' if ok else 'FAILED'}")
-                if not ok:
-                    failed.append(((B, S, S, *heads, True, window, dt),
-                                   (err, used)))
+    # heads and windows; and a model rank's heads under the fsdp phase's
+    # tensor-parallel prefill
+    prefill_shapes = [(heads, window, B, S) for _, heads, window
+                      in FLASH_MODELS for B, S in FLASH_PREFILL] + [
+        (FLASH_TP_HEADS, 0, B, S) for B, S in FLASH_TP]
+    for heads, window, B, S in prefill_shapes:
+        for dt in (f32, bf16):
+            err, used, ok = _flash_prefill_case(B, S, dt, gen, heads,
+                                                window)
+            worst[dt] = max(worst[dt], err)
+            tol = "atol 3e-5, rtol 1e-2" if dt == f32 else (
+                "atol 3e-2, rtol 1e-2, and the bound ulp_bf16(exact) "
+                "+ 2^-8 A(q, k, |v|) + 1e-5 of float32 attention on "
+                "the same inputs")
+            log("flash", f"prefill shape ({B}, {S}, "
+                         f"{'/'.join(map(str, heads))}) causal"
+                         f"{f' window {window}' if window else ''} "
+                         f"{str(dt)[6:]}: max abs err {err:.3g} against "
+                         f"the plain version; {used:.3g} of the "
+                         f"bfloat16 bound from float32 attention at "
+                         f"worst; tolerance {tol}: "
+                         f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                failed.append(((B, S, S, *heads, True, window, dt),
+                               (err, used)))
     # the frontend families' shapes: whisper's non-causal encoder over
     # 1500 frames and its cross-attention (S = 3 and 1 against T = 1500),
     # qwen2-vl's causal prefills at 28/4 heads (a GQA group of 7)
@@ -1986,7 +2010,7 @@ def phase_flash():
         raise AssertionError(f"vmap over the kernel: err {vm_err}, "
                              f"{tfa.LAUNCHES['flash_attention_fwd'] - before}"
                              f" launches")
-    n_cases = (len(cases) + 2 * len(FLASH_MODELS) * len(FLASH_PREFILL)
+    n_cases = (len(cases) + 2 * len(prefill_shapes)
                + 2 * len(FLASH_FRONTEND))
     log("flash", f"{n_cases} cases within "
                  f"tolerance (atol 3e-5 float32 / 3e-2 bfloat16, rtol "
@@ -1999,7 +2023,8 @@ def phase_flash():
                  f"the prefill shapes (B, S) in {FLASH_PREFILL} at "
                  f"16/2/128 causal, 16/1/256 causal window {RG_WINDOW}, "
                  f"8/4/256 causal window {GEMMA_WINDOW} and 16/16/128 "
-                 f"causal x float32/bfloat16, the frontend families' "
+                 f"causal, a model rank's 8/1/128 causal at (B, S) in "
+                 f"{FLASH_TP} x float32/bfloat16, the frontend families' "
                  f"(B, S, T, heads, causal) in {FLASH_FRONTEND} x "
                  f"float32/bfloat16; worst "
                  f"float32 {worst[f32]:.3g}, bfloat16 {worst[bf16]:.3g}; "
@@ -3881,6 +3906,15 @@ FSDP_RANKS, FSDP_MESH, FSDP_STEPS, FSDP_TRAIN_LAYERS = 4, (2, 2), 2, 8
 FSDP_CUT_LAYERS, FSDP_CUT_BATCH, FSDP_CUT_SEQ, FSDP_LR = 2, 4, 128, 1e-3
 FSDP_SERVE_LAYERS, FSDP_SERVE_LANES = 2, 4
 FSDP_SERVE_PROMPT, FSDP_SERVE_ROUNDS = 64, 4
+# (d): qwen2.5-3b at full width and depth under the tensor-parallel
+# compute, 4 lanes (2 a data rank) of 512-token prompts, 16 greedy rounds
+FSDP_FULL_LANES, FSDP_FULL_PROMPT, FSDP_FULL_ROUNDS = 4, 512, 16
+# (d)'s round 0 is teacher-forced (it feeds the prompt's last token): its
+# logits are held to the one process's on the same weights within 2^-4 of
+# their largest magnitude (bfloat16 partials rounded before their sum over
+# the model ranks; 0.0282 of it measured on the H100, about 7 bfloat16
+# ulps; a wrong head, block or reduction moves them by the order of 1)
+FSDP_FULL_LOGIT_REL = 2.0 ** -4
 
 
 def _fsdp_batches(cfg):
@@ -3949,14 +3983,17 @@ def _fsdp_one_process(cfg, batches):
     return out
 
 
-def _fsdp_rank(batches, cut_batch, prompt, ref_dir, go, t_spawn):
+def _fsdp_rank(batches, cut_batch, prompt, prompt_full, ref_dir, go,
+               t_spawn):
     """One rank of the fsdp phase: started while the parent's one-process
-    run holds the card, it joins the group and waits for the file ``go``;
+    runs hold the card, it joins the group and waits for the file ``go``;
     then (a) qwen2-1.5b under zero3 + ZeRO-1, (b) its float32 cut's joint
     adam step under tp, its blocks held against the CPU port's step
     (``ref_dir``, written by the parent meanwhile), (c) qwen2.5-3b's
-    float32 cut served under serve_shardings; results for the parent,
-    numpy, with the seconds each part ended at (``marks``)."""
+    float32 cut served under serve_shardings, (d) qwen2.5-3b at full width
+    and depth served under the tensor-parallel compute
+    (``prompt_full``); results for the parent, numpy, with the seconds
+    each part ended at (``marks``)."""
     import torch
     from repro_torch import sharding
     from repro_torch.configs.base import EasterConfig
@@ -4050,10 +4087,38 @@ def _fsdp_rank(batches, cut_batch, prompt, ref_dir, go, t_spawn):
     mark("(c) served")
     log("fsdp", f"rank {m.rank}: (c) tokens {res['c']['tokens'].tolist()}; "
                 f"{res['marks']}")
+    del sys_
+    _free_card()
+    # (d) the full-width, full-depth path under the tensor-parallel compute
+    sys_ = _lm_system(_fsdp_full_cfg(), "cuda")
+    res["d"] = _fsdp_serve(sys_, m, prompt_full, FSDP_FULL_ROUNDS,
+                           detail=True)
+    mark("(d) served")
+    d = res["d"]
+    log("fsdp", f"rank {m.rank}: (d) prefill {d['prefill_ms']:.1f} ms, ms a "
+                f"round {[round(x, 1) for x in d['round_ms']]}, resident "
+                f"{d['resident'] / 1e9:.3f} GB, peak {d['peak'] / 1e9:.2f} "
+                f"GB; {res['marks']}")
     res["work_s"] = time.perf_counter() - t_go
     del sys_
     _free_card()
     return res
+
+
+def _fsdp_full_cfg():
+    from repro_torch.configs.base import get_config
+    return get_config(LM_ARCH)
+
+
+def _fsdp_full_one_process(prompt):
+    """(d)'s one process on the card: the same weights (the card's
+    generator seeded 0), prompt and greedy rounds."""
+    _free_card()
+    sys_ = _lm_system(_fsdp_full_cfg(), "cuda")
+    out = _fsdp_serve(sys_, None, prompt, FSDP_FULL_ROUNDS)
+    del sys_
+    _free_card()
+    return out
 
 
 def _gloo_rate(m):
@@ -4109,22 +4174,33 @@ def _fsdp_compare_blocks(lp, pspec, m, ref_dir):
     return {"max_abs": worst, "ok": ok}
 
 
-def _fsdp_serve(sys_, m, prompt):
-    """A FSDP_SERVE_LANES-lane prefill of ``prompt[:, :-1]`` into caches of
-    prompt + rounds slots, then FSDP_SERVE_ROUNDS greedy decode rounds from
-    its last token: (E, logits by round, tokens, launches), numpy. With a
+def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
+    """A len(prompt)-lane prefill of ``prompt[:, :-1]`` into caches of
+    prompt + rounds slots, then ``rounds`` greedy decode rounds from its
+    last token: (E, logits by round, tokens, launches), numpy. With a
     mesh ``m`` each step runs under the plan on this rank's blocks (the
     prefill's specs from prefill_shardings, the rounds' from
-    serve_shardings); without, in one process."""
+    serve_shardings; the ranks draw the weights in turns, each cutting its
+    blocks before the next draws); without, in one process. ``detail``
+    (the (d) path, under a mesh): instead of E and the logits, whether
+    every logit is finite and each round's logits' digest; the prefill's
+    and each round's ms, the launches of the prefill and of the rounds
+    apart, the collectives' bytes by kind of the prefill and of the last
+    round (a RecordingMesh over ``m``), that round's all-gathers of a
+    leaf the model axis splits, the resident parameter bytes and the
+    peak device memory."""
+    import hashlib
+    import numpy as np
     import torch
+    import torch.distributed as dist
     from repro_torch import sharding
     from repro_torch.configs.base import InputShape
-    from repro_torch.launch import steps
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import RecordingMesh
     dev = sys_.device
     gen = torch.Generator(device=dev.type).manual_seed(0)
-    params = sys_.init_params(gen)
     B, P = prompt.shape
-    T = P - 1 + FSDP_SERVE_ROUNDS
+    T = P - 1 + rounds
     seeds = sys_.mask_seeds()
     toks = torch.as_tensor(prompt, device=dev)
 
@@ -4135,34 +4211,99 @@ def _fsdp_serve(sys_, m, prompt):
 
     serve = steps.build_serve_step(sys_, InputShape("fsdp", T, B, "decode"))
     batch = {"tokens": toks[:, :-1]}
-    if m is not None:
+    out = {}
+    if m is None:
+        params = sys_.init_params(gen)
+        run_serve = lambda: serve
+    else:
+        meta = steps.abstract_params(_lm_system(sys_.cfg, "meta"))
         pre_in, pre_out = steps.prefill_shardings(
-            sys_, m, {"batch": batch}, params, _meta_caches(sys_, B, T))
+            sys_, m, {"batch": batch}, meta, _meta_caches(sys_, B, T))
         dec_in, dec_out = steps.serve_shardings(
             sys_, m, {"batch": {"tokens": toks[:, -1:]},
-                      "caches": _meta_caches(sys_, B, T)}, params)
-        params = sharding.shard_tree(params, pre_in[0], m)
-        _free_card()
+                      "caches": _meta_caches(sys_, B, T)}, meta)
+        torch.cuda.reset_peak_memory_stats()
+        for r in range(m.size):
+            if m.rank == r:
+                params = sharding.shard_tree(sys_.init_params(gen),
+                                             pre_in[0], m)
+                _free_card()
+            dist.barrier()
         batch = sharding.shard_tree(batch, pre_in[1], m)
-        prefill = steps.shard_step(prefill, m, pre_in, pre_out)
-        serve = steps.shard_step(serve, m, dec_in, dec_out)
+        rec = (lambda: RecordingMesh(m)) if detail else (lambda: m)
+        pre_mesh = rec()
+        prefill = steps.shard_step(prefill, pre_mesh, pre_in, pre_out)
+        meshes = []
+
+        def run_serve():
+            meshes.append(rec())
+            return steps.shard_step(serve, meshes[-1], dec_in, dec_out)
     rows = (lambda t: t) if m is None else \
         (lambda t: sharding.shard_tree({"tokens": t}, dec_in[1], m)["tokens"])
     if m is not None:           # the CPU run (a thread) leaves them alone
         _reset_lm_launches()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
     E, caches = prefill(params, batch)
-    tok, logits, out = toks[:, -1:], [], []
-    for i in range(FSDP_SERVE_ROUNDS):
-        lg, caches = serve(params, {"tokens": rows(tok)}, caches, P - 1 + i)
-        logits.append(lg.float().cpu().numpy())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    if detail:
+        out.update(prefill_launches=_lm_launches(),
+                   prefill_bytes=dict(pre_mesh.bytes))
+        _reset_lm_launches()
+    tok, logits, toks_out, ms = toks[:, -1:], [], [], []
+    finite, digests = True, []
+    for i in range(rounds):
+        step = run_serve()
+        t0 = time.perf_counter()
+        lg, caches = step(params, {"tokens": rows(tok)}, caches, P - 1 + i)
         tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
-        out.append(tok.cpu().numpy())
+        toks_out.append(tok.cpu().numpy())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if detail:
+            finite = finite and bool(torch.isfinite(lg).all())
+            digests.append(hashlib.sha256(
+                lg.float().cpu().numpy().tobytes()).hexdigest())
+            if i == 0:
+                out["first_logits"] = lg.float().cpu().numpy()
+        else:
+            logits.append(lg.float().cpu().numpy())
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = None if m is None else _lm_launches()
-    import numpy as np
-    return {"E": E.float().cpu().numpy(), "logits": np.stack(logits),
-            "tokens": np.concatenate(out, 1), "launches": launches}
+    out.update(tokens=np.concatenate(toks_out, 1), launches=launches,
+               round_ms=ms)
+    if not detail:
+        out.update(E=E.float().cpu().numpy(), logits=np.stack(logits))
+        return out
+    last = meshes[-1]
+    out.update(
+        round_launches=launches, finite=finite,
+        digests=digests, round_bytes=dict(last.bytes),
+        round_calls=len(last.calls),
+        round_weight_gathers=_split_leaf_gathers(last.calls, meta,
+                                                 dec_in[0]),
+        resident=dryrun.tree_bytes({"parties": params["parties"]}),
+        peak=torch.cuda.max_memory_allocated())
+    out["launches"] = _sum_launches([out["prefill_launches"], launches])
+    return out
+
+
+def _split_leaf_gathers(calls, params, pspec):
+    """The recorded all-gathers and broadcasts whose shape is that of a
+    parameter leaf the model axis splits, or of one layer (or one party's
+    layer) of it: under the tensor-parallel compute, none."""
+    from repro_torch import sharding
+    from repro_torch.tree import tree_leaves
+    split = [tuple(x.shape) for x, s in zip(
+        tree_leaves({"parties": params["parties"]}),
+        sharding.spec_leaves({"parties": pspec["parties"]}))
+        if "model" in tuple(s)]
+    shapes = {sh[i:] for sh in split for i in range(3)}
+    return [c for c in calls if c[0] in ("all-gather", "broadcast")
+            and c[2] in shapes]
 
 
 def _meta_caches(sys_, B, T):
@@ -4250,6 +4391,9 @@ def phase_fsdp():
     prompt = np.random.default_rng(2).integers(
         0, serve_cfg.vocab_size, (FSDP_SERVE_LANES, FSDP_SERVE_PROMPT),
         dtype=np.int32)
+    prompt_full = np.random.default_rng(3).integers(
+        0, serve_cfg.vocab_size, (FSDP_FULL_LANES, FSDP_FULL_PROMPT + 1),
+        dtype=np.int32)
     with concurrent.futures.ThreadPoolExecutor(2) as ex, \
             tempfile.TemporaryDirectory() as store:
         ref_dir, go = os.path.join(store, "b"), os.path.join(store, "go")
@@ -4257,11 +4401,12 @@ def phase_fsdp():
         # one torch thread a rank: the host's 8 cores among the 4 ranks
         # (whose host work is gloo's staging) and the CPU port's steps
         spawned = ex.submit(mesh.spawn_ranks, _fsdp_rank, FSDP_RANKS,
-                            batches, cut_batch, prompt, ref_dir, go,
-                            time.time(), store_dir=store, device="cuda",
+                            batches, cut_batch, prompt, prompt_full, ref_dir,
+                            go, time.time(), store_dir=store, device="cuda",
                             threads=1, timeout_s=600)
         cpu = ex.submit(_fsdp_cpu_refs, weights, cut_batch, prompt, ref_dir)
         one = _fsdp_one_process(cfg, batches)
+        one_d = _fsdp_full_one_process(prompt_full)
         pre_s = time.perf_counter() - t_phase
         open(go, "w").close()
         ranks = spawned.result()
@@ -4378,6 +4523,7 @@ def phase_fsdp():
                 f"rank {c['launches']}")
     if not all(ok for _, ok in c_errs.values()):
         failures.append("(c) the sharded serving differs from the CPU port's")
+    res["d"] = _fsdp_check_full(ranks, one_d, failures)
     res["seconds"] = time.perf_counter() - t_phase
     res["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4394,8 +4540,116 @@ def phase_fsdp():
     if failures:
         raise AssertionError("fsdp phase: " + "; ".join(failures))
     paths = [_sum_launches([r[k]["launches"] for r in ranks])
-             for k in ("a", "b", "c")]
+             for k in ("a", "b", "c", "d")]
     return paths, res
+
+
+def _fsdp_check_full(ranks, one, failures):
+    """(d)'s checks (failures appended) and its numbers: every rank's
+    logits finite, the model ranks of one data rank holding the same
+    logits bit for bit, the same greedy tokens on every rank; per rank 36
+    + 9 flash_attention_fwd and one blind_agg_fwd a prefill, one
+    blind_agg_fwd a round and no flash; no all-gather of a leaf the model
+    axis splits in a round; round 0's (teacher-forced) logits within
+    FSDP_FULL_LOGIT_REL of the largest of the one process's. The tokens
+    beside the one process's are printed, not asserted (bfloat16 partial
+    sums in another order may break a near tie)."""
+    import numpy as np
+    cfg = _fsdp_full_cfg()
+    attn = _layer_kinds(cfg)[0] + _layer_kinds(
+        _lm_system(cfg, "meta").party_cfgs[1])[0]
+    for r in ranks:
+        d, k = r["d"], f"(d) rank {r['rank']}"
+        if not d["finite"]:
+            failures.append(f"{k}: logits not finite")
+        want_p = {"flash_attention_fwd": attn, "blind_agg_fwd": 1}
+        want_r = {"flash_attention_fwd": 0,
+                  "blind_agg_fwd": FSDP_FULL_ROUNDS}
+        for what, got, want in (("prefill", d["prefill_launches"], want_p),
+                                ("rounds", d["round_launches"], want_r)):
+            if any(got[n] != v for n, v in want.items()):
+                failures.append(f"{k}: {what} launches {got}, want {want}")
+        if d["round_weight_gathers"]:
+            failures.append(f"{k}: a round all-gathered split leaves "
+                            f"{d['round_weight_gathers'][:3]}")
+        if not np.array_equal(d["tokens"], ranks[0]["d"]["tokens"]):
+            failures.append(f"{k}: greedy tokens differ from rank 0's")
+        for o in ranks:
+            if o["coords"]["data"] == r["coords"]["data"] \
+                    and o["d"]["digests"] != d["digests"]:
+                failures.append(f"{k}: logits differ from rank "
+                                f"{o['rank']}'s of the same data rank")
+    d0 = ranks[0]["d"]
+    same_one = bool(np.array_equal(d0["tokens"], one["tokens"]))
+    # where a lane's tokens first part from the one process's, the one
+    # process's top-1 minus top-2 logit there: the tie the partial sums'
+    # bfloat16 rounding broke
+    ties = {}
+    for lane in range(d0["tokens"].shape[0]):
+        diff = np.nonzero(d0["tokens"][lane] != one["tokens"][lane])[0]
+        if len(diff):
+            top = np.sort(one["logits"][diff[0], lane, -1])[-2:]
+            ties[lane] = (int(diff[0]), float(top[1] - top[0]))
+    first = one["logits"][0]
+    all_same = all(r["d"]["digests"] == d0["digests"] for r in ranks)
+    rel = float(np.abs(d0["first_logits"] - first).max()
+                / np.abs(first).max())
+    if not rel <= FSDP_FULL_LOGIT_REL:
+        failures.append(f"(d): round 0's logits {rel:.4g} of the largest "
+                        f"|logit| from the one process's, limit "
+                        f"{FSDP_FULL_LOGIT_REL}")
+    out = {"prefill_ms_by_rank": {r["rank"]: r["d"]["prefill_ms"]
+                                  for r in ranks},
+           "round_ms_by_rank": {r["rank"]: r["d"]["round_ms"] for r in ranks},
+           "resident_bytes_by_rank": {r["rank"]: r["d"]["resident"]
+                                      for r in ranks},
+           "peak_bytes_by_rank": {r["rank"]: r["d"]["peak"] for r in ranks},
+           "prefill_bytes_by_rank": {r["rank"]: r["d"]["prefill_bytes"]
+                                     for r in ranks},
+           "round_bytes_by_rank": {r["rank"]: r["d"]["round_bytes"]
+                                   for r in ranks},
+           "round_collectives": d0["round_calls"],
+           "tokens": d0["tokens"].tolist(),
+           "one_process_tokens": one["tokens"].tolist(),
+           "tokens_as_one_process": same_one,
+           "first_divergence_and_gap_by_lane": ties,
+           "round0_logits_max_abs_vs_one_process": float(
+               np.abs(d0["first_logits"] - first).max()),
+           "logits_max_abs": float(np.abs(first).max()),
+           "round0_logits_rel_vs_one_process": rel,
+           "one_process_prefill_ms": one["prefill_ms"],
+           "one_process_round_ms": one["round_ms"],
+           "logits_same_on_all_ranks": all_same,
+           "params": _fsdp_n_params(cfg)}
+    log("fsdp", f"(d) {cfg.name} at full width and depth ({cfg.n_layers} "
+                f"layers, three {_lm_system(cfg, 'meta').party_cfgs[1].n_layers}"
+                f"-layer proxies; {out['params']} parameters), bfloat16, "
+                f"under prefill_shardings / serve_shardings (tensor-parallel "
+                f"compute over model): {FSDP_FULL_LANES} lanes of "
+                f"{FSDP_FULL_PROMPT}-token prompts, then {FSDP_FULL_ROUNDS} "
+                f"greedy rounds; prefill ms by rank "
+                f"{ {k: round(v, 1) for k, v in out['prefill_ms_by_rank'].items()} }"
+                f"; median ms a round by rank "
+                f"{ {k: round(statistics.median(v), 1) for k, v in out['round_ms_by_rank'].items()} }"
+                f"; resident parameter GB by rank "
+                f"{ {k: round(v / 1e9, 3) for k, v in out['resident_bytes_by_rank'].items()} }"
+                f"; torch.cuda.max_memory_allocated GB by rank "
+                f"{ {k: round(v / 1e9, 2) for k, v in out['peak_bytes_by_rank'].items()} }"
+                f"; collectives' bytes a rank, prefill "
+                f"{d0['prefill_bytes']}, the last round {d0['round_bytes']} "
+                f"({d0['round_calls']} collectives); logits the same on "
+                f"every rank {all_same}; tokens identical on every rank "
+                f"{not any('tokens' in f for f in failures)}, as the one "
+                f"process's {same_one}: rank 0 {out['tokens']}, one process "
+                f"{out['one_process_tokens']}; first differing round and the "
+                f"one process's top-2 logit gap there, by lane {ties}; round "
+                f"0's logits max abs {out['round0_logits_max_abs_vs_one_process']:.4g}"
+                f" from the one process's (max |logit| "
+                f"{out['logits_max_abs']:.4g}: {rel:.4g} of it, limit "
+                f"{FSDP_FULL_LOGIT_REL}); the one process: prefill "
+                f"{one['prefill_ms']:.1f} ms, median ms a round "
+                f"{statistics.median(one['round_ms']):.1f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4682,7 +4936,8 @@ def main() -> int:
                     f"(rank 0's many-party float, int8 and joint rounds, "
                     f"every LM rank's serving) {sharded_paths}, FSDP plan "
                     f"(every rank's qwen2-1.5b zero3 steps, float32 cut's "
-                    f"joint step, qwen2.5-3b cut's serving) {fsdp_paths})")
+                    f"joint step, qwen2.5-3b cut's serving, qwen2.5-3b's "
+                    f"tensor-parallel serving) {fsdp_paths})")
     # blind_agg_fwd's launches by party groups, path by path: each path's
     # histogram counts every one of its forward launches
     names = ("Table II slice", "Table II joint", "many-party fused",
@@ -4695,7 +4950,8 @@ def main() -> int:
              "qwen2-vl-7b serving", "sharded many-party float",
              "sharded many-party int8", "sharded many-party joint",
              "sharded qwen2.5-3b serving", "fsdp qwen2-1.5b training",
-             "fsdp qwen2-1.5b cut joint step", "fsdp qwen2.5-3b cut serving")
+             "fsdp qwen2-1.5b cut joint step", "fsdp qwen2.5-3b cut serving",
+             "fsdp qwen2.5-3b tensor-parallel serving")
     groups = {n: p["fwd_groups"] for n, p in zip(names, paths)}
     log("launches", f"blind_agg_fwd launches by party groups G, path by "
                     f"path: {groups}")

@@ -395,15 +395,23 @@ class EasterLM:
         return sharding.local_rows(masks, 1)
 
     def decide_hidden(self, pparams, pcfg: ModelConfig, E):
+        """The decision stack (its MLPs over "model" under a plan's TP
+        compute, ``sharding.decision_tp``) and the final norm."""
+        tp = sharding.decision_tp()
         x = E
         for blk in pparams["decision"]:
             x = x + mlp(blk["mlp"], apply_norm(blk["ln"], x, pcfg.rms_eps),
-                        pcfg.act)
+                        pcfg.act, tp)
         return apply_norm(pparams["final_norm"], x, pcfg.rms_eps)
 
     def decide(self, pparams, pcfg: ModelConfig, E):
+        """Serving logits (B, S, vocab): under a vocabulary-parallel head
+        (``sharding.head_tp``) each rank's columns, all-gathered."""
         x = self.decide_hidden(pparams, pcfg, E)
-        return linear(pparams["head"], x)              # (B, S, vocab)
+        logits = linear(pparams["head"], x)            # (B, S, vocab)
+        tp = sharding.head_tp()
+        return logits if tp is None else sharding.model_gather(
+            logits, tp.mesh, -1)
 
     def _passive_group_ok(self) -> bool:
         """True when parties 1..K are structurally identical (they are by
@@ -543,12 +551,13 @@ class EasterLM:
         """The fused head + cross-entropy's mean over the step's tokens:
         under a plan that splits the rows, the sum over this rank's tokens,
         summed over the ranks, over the global count (not a mean of the
-        ranks' means)."""
+        ranks' means); vocabulary-parallel under ``sharding.head_tp``."""
+        tp = sharding.head_tp()
         if not sharding.rows_split():
-            return chunked_lm_head_xent(h, head_w, labels)
+            return chunked_lm_head_xent(h, head_w, labels, tp=tp)
         n = sharding.global_rows(labels.shape[0]) * labels.shape[1]
         return sharding.batch_sum(chunked_lm_head_xent(
-            h, head_w, labels, reduction="sum")) / n
+            h, head_w, labels, reduction="sum", tp=tp)) / n
 
     def _batch(self, batch):
         """(tokens, labels, frontend inputs) of a batch on the device."""
@@ -703,7 +712,8 @@ class EasterLM:
             return sharding.fresh_caches(
                 [transformer.init_cache(pcfg, n, cache_len, window_override,
                                         per_lane, device="meta")
-                 for pcfg in self.party_cfgs], n, self.device)
+                 for pcfg in self.party_cfgs], n, self.device,
+                self.party_cfgs)
         held = self._held()
         return [transformer.init_cache(pcfg, batch, cache_len,
                                        window_override, per_lane,

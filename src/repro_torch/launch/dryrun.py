@@ -30,7 +30,10 @@ options (``--zero1``, ``--layout {tp,zero3}``, ``--serve-fsdp``), as rank
 0's meta blocks (``sharding.shard_tree``), and the report adds their bytes
 ("per_rank") and ``collective_bytes``, the bytes the step's collectives
 move, counted by a ``launch.mesh.RecordingMesh`` that stands in for the
-group with the reference's HLO convention. ``run_one`` without a mesh
+group with the reference's HLO convention, and "tp_layers", the layers
+taken under the tensor-parallel compute by their attention's split
+(``sharding.TP.attn``; "whole" where the heads do not divide the model
+axis and the attention is gathered). ``run_one`` without a mesh
 runs the whole step in one process, as before. A failed combination is
 printed with its traceback and counted; the run exits 1 if any failed.
 """
@@ -210,7 +213,15 @@ def _on_mesh(sys_, shape, mesh, fn, args, specs, caches, zero1, layout,
                   "cache_bytes": (0 if out_caches is None
                                   else tree_bytes(out_caches))})
     step_layout = layout if shape.kind == "train" else "tp"
-    return steps_mod.shard_step(fn, mesh, in_sh, out_sh, step_layout), local
+
+    def counted(*args):
+        out = fn(*args)
+        # the layers taken under the tensor-parallel compute, by their
+        # attention's split ("whole": gathered, its heads not aligned)
+        result["tp_layers"] = dict(sharding.current().tp_blocks)
+        return out
+    return (steps_mod.shard_step(counted, mesh, in_sh, out_sh, step_layout),
+            local)
 
 
 def main(argv=None) -> int:
@@ -261,6 +272,7 @@ def main(argv=None) -> int:
                       f"{pr['opt_state_bytes'] / 2**30:.3f}GiB caches="
                       f"{pr['cache_bytes'] / 2**30:.3f}GiB coll="
                       f"{cb['total']:.3e}B ({cb['count']} collectives) "
+                      f"tp_layers={json.dumps(r.get('tp_layers', {}))} "
                       f"outputs={json.dumps(r['outputs'])} "
                       f"({r['seconds']:.2f}s)", flush=True)
     print(f"{failures} failed")

@@ -20,6 +20,15 @@ included.
 Cache writes are out of place (``torch.where`` against a one-hot slot
 mask), so a step returns new caches as the reference's functional update
 does, and the same code runs under ``torch.func.vmap``.
+
+Under a sharding plan's tensor-parallel compute (``tp``, a
+``sharding.TP``) ``self_attention`` and ``mlp`` run on this rank's
+"model" block of their leaves: column-parallel
+q/k/v and up/gate, row-parallel wo and down, the stream entered and the
+partial sums reduced by Megatron's operators; the decode over a cache
+split by T merges each rank's partial softmax (``_t_split_decode``).
+Without a plan they run the same code on one rank holding every block
+(``sharding.WHOLE``: the operators are the identity).
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import sharding
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -338,11 +349,87 @@ def _cache_positions(T: int, idx, window: int) -> torch.Tensor:
     return torch.where(slots <= cur, slots, -1)
 
 
+def _decode_write(cache, k, v, slot, dtype):
+    """A decode step's new cache with k / v (B, 1, H, hd) written at
+    ``slot`` (quantized where the cache is), and the K / V it attends
+    over in ``dtype``."""
+    idx = cache["idx"]
+    if "k_scale" in cache:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        new_cache = {"k": _write(cache["k"], kq, slot),
+                     "k_scale": _write(cache["k_scale"], ks, slot),
+                     "v": _write(cache["v"], vq, slot),
+                     "v_scale": _write(cache["v_scale"], vs, slot),
+                     "idx": idx + 1}
+        return (new_cache,
+                dequantize_kv(new_cache["k"], new_cache["k_scale"], dtype),
+                dequantize_kv(new_cache["v"], new_cache["v_scale"], dtype))
+    ck = _write(cache["k"], k, slot)
+    cv = _write(cache["v"], v, slot)
+    return {"k": ck, "v": cv, "idx": idx + 1}, ck, cv
+
+
+def _prefill_cache(cache, k, v, S: int, window: int):
+    """A prefill's new cache: the (last T of the) prompt's K / V from slot
+    0, a window's ring laid out so that slot s holds position p, p % T ==
+    s."""
+    T = cache["k"].shape[1]
+    quant = "k_scale" in cache
+    filled = torch.full_like(cache["idx"], S)
+    if window > 0 and S >= T:
+        kw = torch.roll(k[:, -T:], S % T, dims=1)
+        vw = torch.roll(v[:, -T:], S % T, dims=1)
+        if quant:
+            kq, ks = quantize_kv(kw)
+            vq, vs = quantize_kv(vw)
+            return {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs,
+                    "idx": filled}
+        return {"k": kw.to(cache["k"].dtype), "v": vw.to(cache["v"].dtype),
+                "idx": filled}
+    eff = min(T, S)
+    if quant:
+        kq, ks = quantize_kv(k[:, -eff:])
+        vq, vs = quantize_kv(v[:, -eff:])
+        return {"k": _write(cache["k"], kq, 0),
+                "k_scale": _write(cache["k_scale"], ks, 0),
+                "v": _write(cache["v"], vq, 0),
+                "v_scale": _write(cache["v_scale"], vs, 0),
+                "idx": filled}
+    return {"k": _write(cache["k"], k[:, -eff:], 0),
+            "v": _write(cache["v"], v[:, -eff:], 0), "idx": filled}
+
+
+def _decode_slot(idx, T: int, window: int):
+    if window > 0:
+        return torch.remainder(idx, T).to(torch.int32)
+    return torch.clamp(idx, max=T - 1).to(torch.int32)
+
+
+def _decode_mask(T: int, idx, window: int):
+    """(T,) or (B, T) bool: the cache slots a decode step at ``idx``
+    attends to."""
+    kv_pos_abs = _cache_positions(T, idx, window)  # (T,) | (B,T)
+    iexp = idx[:, None] if idx.dim() == 1 else idx
+    mask = (kv_pos_abs >= 0) & (kv_pos_abs <= iexp)
+    if window > 0:
+        mask = mask & (kv_pos_abs > iexp - window)
+    return mask
+
+
+def _masked_logits(q, ck, mask, head_dim: int):
+    """Decode logits (B, Hkv, G, 1, T) in float32, masked slots NEG_INF."""
+    logits = _gqa_logits(q * (1.0 / math.sqrt(head_dim)), ck)
+    mb = (mask[:, None, None, None, :] if mask.dim() == 2
+          else mask[None, None, None, None, :])
+    return torch.where(mb, logits, NEG_INF)
+
+
 def self_attention(params: dict, x: torch.Tensor, *, n_heads: int,
                    n_kv_heads: int, head_dim: int, causal: bool = True,
                    window: int = 0, cos=None, sin=None,
                    cache: Optional[dict] = None, mode: str = "auto",
-                   q_chunk: int = 1024, training: bool = False):
+                   q_chunk: int = 1024, training: bool = False, tp=None):
     """Self-attention layer (projections + rope + attend + out-proj).
 
     cache: {"k","v": (B, T_cache, Hkv, hd), "idx": 0-d or (B,) int32} —
@@ -353,91 +440,97 @@ def self_attention(params: dict, x: torch.Tensor, *, n_heads: int,
     the) prompt's K/V from slot 0. ``mode`` ("auto" | "chunked") and
     ``q_chunk`` choose the CPU path of prompt attention (``_attend``);
     ``training`` takes that path on every device (the flash kernel has no
-    backward). Returns (out, new_cache)."""
+    backward).
+
+    ``tp`` (``sharding.TP`` whose ``attn`` is "heads" or "kv"; None:
+    ``sharding.WHOLE``, one rank holding the whole layer) computes on
+    this rank's "model" block (Megatron): x is the normed stream (this
+    rank's S block when ``tp.seq``), entered whole (``tp.enter``); q by
+    this rank's columns of wq, Hq / m heads; under "heads" its Hkv / m kv
+    heads from its columns of wk / wv, under "kv" every kv head, its
+    columns' products all-gathered (``gather_cols``: the cache holds them
+    all), and attention with the one head this rank's q heads read. A
+    K/V cache block holds this rank's heads, or (``tp.kv_t``) its T block
+    of every head: the prefill writes its block, a decode step writes the
+    slot where it lies and merges the ranks' partial softmax over their T
+    blocks (``_t_split_decode``). The output is this rank's rows of wo,
+    reduced into the stream (``tp.exit``); a wo bias, unsplit, added
+    once, after the reduction. Returns (out, new_cache)."""
+    tp = tp if tp is not None else sharding.WHOLE
+    x = tp.enter(x)
     B, S, _ = x.shape
-    q = linear(params["wq"], x).reshape(B, S, n_heads, head_dim)
-    k = linear(params["wk"], x).reshape(B, S, n_kv_heads, head_dim)
-    v = linear(params["wv"], x).reshape(B, S, n_kv_heads, head_dim)
+    m, c = tp.m, tp.coord
+    hq = n_heads // m
+    q = linear(params["wq"], x).reshape(B, S, hq, head_dim)
+    k, v = linear(params["wk"], x), linear(params["wv"], x)
+    hk = n_kv_heads // m
+    if tp.attn == "kv":
+        k, v = sharding.gather_cols(k, tp.mesh), sharding.gather_cols(
+            v, tp.mesh)
+        hk = n_kv_heads
+    k = k.reshape(B, S, hk, head_dim)
+    v = v.reshape(B, S, hk, head_dim)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    own = (slice(c * n_kv_heads // m, c * n_kv_heads // m + 1)
+           if tp.attn == "kv" else slice(None))
 
     new_cache = None
-    if cache is not None:
-        T = cache["k"].shape[1]
+    if cache is not None and S == 1:
+        Tl = cache["k"].shape[1]
+        T = Tl * m if tp.kv_t else Tl
         idx = cache["idx"]
-        per_lane = idx.dim() == 1
-        quant = "k_scale" in cache
-        if S == 1:
-            if window > 0:
-                slot = torch.remainder(idx, T).to(torch.int32)
-            else:
-                slot = torch.clamp(idx, max=T - 1).to(torch.int32)
-            if quant:
-                kq, ks = quantize_kv(k)
-                vq, vs = quantize_kv(v)
-                new_cache = {"k": _write(cache["k"], kq, slot),
-                             "k_scale": _write(cache["k_scale"], ks, slot),
-                             "v": _write(cache["v"], vq, slot),
-                             "v_scale": _write(cache["v_scale"], vs, slot),
-                             "idx": idx + 1}
-                ck = dequantize_kv(new_cache["k"], new_cache["k_scale"],
-                                   x.dtype)
-                cv = dequantize_kv(new_cache["v"], new_cache["v_scale"],
-                                   x.dtype)
-            else:
-                ck = _write(cache["k"], k, slot)
-                cv = _write(cache["v"], v, slot)
-                new_cache = {"k": ck, "v": cv, "idx": idx + 1}
-            kv_pos_abs = _cache_positions(T, idx, window)  # (T,) | (B,T)
-            iexp = idx[:, None] if per_lane else idx
-            valid = kv_pos_abs >= 0
-            scale = 1.0 / math.sqrt(head_dim)
-            logits = _gqa_logits(q * scale, ck)  # (B,Hkv,G,1,T)
-            mask = valid & (kv_pos_abs <= iexp)
-            if window > 0:
-                mask = mask & (kv_pos_abs > iexp - window)
-            mb = (mask[:, None, None, None, :] if per_lane
-                  else mask[None, None, None, None, :])
-            logits = torch.where(mb, logits, NEG_INF)
-            probs = torch.softmax(logits, dim=-1)
-            attn = _gqa_out(probs, cv).to(x.dtype)
-        else:  # prefill: write the (last T of the) prefix
-            filled = torch.full_like(idx, S)
-            if window > 0 and S >= T:
-                # ring-buffer layout: slot s holds position p, p % T == s
-                kw = torch.roll(k[:, -T:], S % T, dims=1)
-                vw = torch.roll(v[:, -T:], S % T, dims=1)
-                if quant:
-                    kq, ks = quantize_kv(kw)
-                    vq, vs = quantize_kv(vw)
-                    new_cache = {"k": kq, "k_scale": ks, "v": vq,
-                                 "v_scale": vs, "idx": filled}
-                else:
-                    new_cache = {"k": kw.to(cache["k"].dtype),
-                                 "v": vw.to(cache["v"].dtype),
-                                 "idx": filled}
-            else:
-                eff = min(T, S)
-                if quant:
-                    kq, ks = quantize_kv(k[:, -eff:])
-                    vq, vs = quantize_kv(v[:, -eff:])
-                    new_cache = {"k": _write(cache["k"], kq, 0),
-                                 "k_scale": _write(cache["k_scale"], ks, 0),
-                                 "v": _write(cache["v"], vq, 0),
-                                 "v_scale": _write(cache["v_scale"], vs, 0),
-                                 "idx": filled}
-                else:
-                    new_cache = {"k": _write(cache["k"], k[:, -eff:], 0),
-                                 "v": _write(cache["v"], v[:, -eff:], 0),
-                                 "idx": filled}
-            attn = _attend(q, k, v, causal, window, mode, q_chunk,
-                           training)
+        slot = _decode_slot(idx, T, window)
+        lo = c * Tl if tp.kv_t else 0
+        new_cache, ck, cv = _decode_write(cache, k, v, slot - lo, x.dtype)
+        mask = _decode_mask(T, idx, window)
+        if tp.kv_t:
+            attn = _t_split_decode(q, ck, cv, mask.narrow(-1, lo, Tl),
+                                   head_dim, tp)
+        else:
+            logits = _masked_logits(q, ck[:, :, own], mask, head_dim)
+            attn = _gqa_out(torch.softmax(logits, dim=-1), cv[:, :, own])
+        attn = attn.to(x.dtype)
     else:
-        attn = _attend(q, k, v, causal, window, mode, q_chunk, training)
-
-    out = linear(params["wo"], attn.reshape(B, S, n_heads * head_dim))
+        if cache is not None:
+            if tp.kv_t:     # this rank's T block of every kv head
+                Tl = cache["k"].shape[1]
+                full = {n: (t if n == "idx" else t.new_zeros(
+                    (t.shape[0], Tl * m) + tuple(t.shape[2:])))
+                    for n, t in cache.items()}
+                new_cache = {n: (t if n == "idx" else t.narrow(1, c * Tl, Tl))
+                             for n, t in _prefill_cache(full, k, v, S,
+                                                        window).items()}
+            else:       # the (last T of the) prompt from slot 0
+                new_cache = _prefill_cache(cache, k, v, S, window)
+        attn = _attend(q, k[:, :, own], v[:, :, own], causal, window, mode,
+                       q_chunk, training)
+    out = tp.exit(attn.reshape(B, S, hq * head_dim) @ params["wo"]["w"])
+    if "b" in params["wo"]:
+        out = out + tp.rep(params["wo"]["b"])
     return out, new_cache
+
+
+def _t_split_decode(q, ck, cv, mask, head_dim: int, tp):
+    """One decode step's attention over a cache whose T lies over "model":
+    this rank's q heads (B, 1, Hq / m, hd) gathered to every head, each
+    rank's partial softmax over its T block (ck / cv (B, Tl, Hkv, hd),
+    ``mask`` its slots), merged by log-sum-exp over the ranks (a max, then
+    one sum of the unnormalised outputs and their weights); this rank's
+    heads of the result, float32."""
+    hq = q.shape[2]
+    qa = sharding.model_gather(q, tp.mesh, -2)           # (B, 1, Hq, hd)
+    logits = _masked_logits(qa, ck, mask, head_dim)      # (B,Hkv,G,1,Tl)
+    mx = sharding.model_max(torch.amax(logits, dim=-1, keepdim=True),
+                            tp.mesh)
+    p = torch.exp(logits - mx)
+    o = _gqa_out(p, cv)                                  # (B, 1, Hq, hd)
+    B, Hkv, G, S, _ = p.shape
+    w = torch.sum(p, dim=-1).permute(0, 3, 1, 2).reshape(B, S, Hkv * G, 1)
+    ow = sharding.reduce_from_model(torch.cat([o, w], dim=-1), tp.mesh)
+    out = ow[..., :-1] / ow[..., -1:]
+    return out[:, :, tp.coord * hq:(tp.coord + 1) * hq]
 
 
 def _attend(q, k, v, causal, window, mode, q_chunk, training=False):
@@ -486,9 +579,16 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str,
     return p
 
 
-def mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
+    """The MLP on this rank's "model" block under ``tp`` (``sharding.TP``;
+    None: ``sharding.WHOLE``, the whole MLP): up / gate by columns on the
+    entered stream, down by rows reduced into it, an unsplit down bias
+    added once, after the reduction."""
+    tp = tp if tp is not None else sharding.WHOLE
+    x = tp.enter(x)
     if act == "silu":
         h = F.silu(linear(p["gate"], x)) * linear(p["up"], x)
     else:
         h = F.gelu(linear(p["up"], x), approximate="tanh")
-    return linear(p["down"], h)
+    out = tp.exit(h @ p["down"]["w"])
+    return out + tp.rep(p["down"]["b"]) if "b" in p["down"] else out

@@ -162,37 +162,66 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
 
 def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
                 cos, sin, cache: Optional[dict], window_override: int = -1,
-                causal: bool = True, training: bool = False):
+                causal: bool = True, training: bool = False, tp=None):
     """Returns (x, new_cache, aux). An "xattn" block applies as "attn"
-    (its cross-attention leaves are unused), as in the reference."""
+    (its cross-attention leaves are unused), as in the reference.
+
+    ``tp`` (``sharding.TP``, under a plan's tensor-parallel compute): the
+    dense attention (``tp.attn`` "heads" / "kv") and MLP (``tp.mlp``) on
+    this rank's "model" block, Megatron's, their norms on the stream as
+    it lies (this rank's S block where ``tp.seq``); every other sub-block
+    (the MoE FFN, the SSD and RG-LRU mixers, an attention whose split
+    would cut a head, an MLP whose width does not divide) gathered and
+    run whole (``tp.whole``). Without it every sub-block runs whole."""
     _check_kind(kind)
+    tp = tp if tp is not None else sharding.WHOLE
+    eps = cfg.rms_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    norm = lambda name, x: apply_norm(tp.rep(p[name]), x, eps)
+
+    def ffn(x):
+        if kind == "moe":
+            def whole(x):
+                h, a = moe_mod.moe_ffn(p["moe"], apply_norm(p["ln2"], x, eps),
+                                       cfg.moe, cfg.act)
+                return x + h, a
+            return tp.whole(x, whole)
+        if tp.mlp:
+            return x + mlp(p["mlp"], norm("ln2", x), cfg.act, tp), aux
+        return tp.whole(x, lambda x: (x + mlp(
+            p["mlp"], apply_norm(p["ln2"], x, eps), cfg.act), aux))
+
     if kind == "ssm":
-        h, new_cache = ssm_mod.ssm_block(
-            p["ssm"], apply_norm(p["ln1"], x, cfg.rms_eps), cfg.ssm, cache,
-            cfg.rms_eps)
-        return x + h, new_cache, aux
+        def whole(x):
+            h, c = ssm_mod.ssm_block(p["ssm"], apply_norm(p["ln1"], x, eps),
+                                     cfg.ssm, cache, eps)
+            return x + h, c
+        x, new_cache = tp.whole(x, whole)
+        return x, new_cache, aux
     if kind == "lru":
-        h, new_cache = griffin.recurrent_block(
-            p["rec"], apply_norm(p["ln1"], x, cfg.rms_eps), cache, training)
-        x = x + h
-        x = x + mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.rms_eps), cfg.act)
+        def whole(x):
+            h, c = griffin.recurrent_block(
+                p["rec"], apply_norm(p["ln1"], x, eps), cache, training)
+            return x + h, c
+        x, new_cache = tp.whole(x, whole)
+        x, _ = ffn(x)
         return x, new_cache, aux
     window = (_layer_window(cfg, kind) if window_override < 0
               else window_override)
-    h, new_cache = self_attention(
-        p["attn"], apply_norm(p["ln1"], x, cfg.rms_eps),
-        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, causal=causal, window=window,
-        cos=cos, sin=sin, cache=cache, training=training)
-    x = x + h
-    if kind == "moe":
-        h, aux = moe_mod.moe_ffn(p["moe"], apply_norm(p["ln2"], x,
-                                                      cfg.rms_eps),
-                                 cfg.moe, cfg.act)
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.resolved_head_dim, causal=causal, window=window,
+              cos=cos, sin=sin, cache=cache, training=training)
+    if tp.attn != "whole":
+        h, new_cache = self_attention(p["attn"], norm("ln1", x), tp=tp, **kw)
+        x = x + h
     else:
-        h = mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.rms_eps), cfg.act)
-    return x + h, new_cache, aux
+        def whole(x):
+            h, c = self_attention(p["attn"], apply_norm(p["ln1"], x, eps),
+                                  **kw)
+            return x + h, c
+        x, new_cache = tp.whole(x, whole)
+    x, aux = ffn(x)
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +377,11 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
     remat = _remat(cfg, training)
     aux_total = torch.zeros((x.shape[0],) if group else (),
                             dtype=torch.float32, device=x.device)
+    # under a plan's layout "tp", the dense blocks compute over "model":
+    # the stream between layers is this rank's S block where S divides
+    tp = sharding.stack_tp(cfg, x.shape[-2])
+    if tp is not None and tp.seq:
+        x = sharding.split_seq(x, tp.mesh)
     new_caches = []
     layer = 0
     for si, (kinds, reps) in enumerate(stack_plan(cfg)):
@@ -355,8 +389,13 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
         seg_cache = caches[si] if caches is not None else None
         if xattn is not None and len(kinds) != 1:
             raise ValueError("cross-attention needs a pattern of length 1")
+        # each block's split, bound here (a recompute in the backward runs
+        # outside the plan's scopes)
+        tps = {f"p{i}": (sharding.block_tp(tp, si, f"p{i}")
+                         if seg_cache is not None else tp)
+               for i in range(len(kinds))}
 
-        def rep(p_rep, x, c_rep=None, x_rep=None, kinds=kinds):
+        def rep(p_rep, x, c_rep=None, x_rep=None, kinds=kinds, tps=tps):
             """One repeat of the segment's pattern: (x, new_caches, aux)."""
             aux, new_c = None, {}
             for i, kind in enumerate(kinds):
@@ -364,12 +403,14 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
                 x, nc, a = apply_block(
                     p_rep[f"p{i}"], x, cfg=cfg, kind=kind, cos=cos, sin=sin,
                     cache=blk_cache, window_override=window_override,
-                    training=training)
+                    training=training, tp=tps[f"p{i}"])
                 if nc is not None:
                     new_c[f"p{i}"] = nc
                 aux = a if aux is None else aux + a
                 if x_rep is not None:
-                    x = _apply_xattn(x_rep, x, cfg, training)
+                    x = _apply_xattn(x_rep, x, cfg, training) if tp is None \
+                        else tp.whole(x, lambda x: (_apply_xattn(
+                            x_rep, x, cfg, training),))[0]
             return x, new_c, aux
 
         if group:   # (x, aux) of every party at once
@@ -377,7 +418,7 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
                        rep(p_rep, x, None, x_rep)[::2],
                        in_dims=(0, 0, None if xattn is None else 0))
 
-        take = sharding.layer_taker(("segments", si), group)
+        take = sharding.layer_taker(("segments", si), group, tp)
         xtake = (None if xattn is None
                  else sharding.layer_taker(("xattn",), group))
 
@@ -398,6 +439,10 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
             return rep(p_rep, x, None, x_rep)[::2]
 
         if remat:
+            # under TP the recompute in the backward issues the repeat's
+            # collectives (its leaves' gathers, the stream's all-gathers
+            # and reduce-scatters) again, in the forward's order: every
+            # rank recomputes the same repeats in the same order
             run = functools.partial(checkpoint, run, use_reentrant=False,
                                     preserve_rng_state=False)
         per_rep = []
@@ -409,8 +454,9 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
                     x_rep = (xtake(xp, layer + r), k[layer + r],
                              v[layer + r])
                 x, new_c, a = rep(take(seg_params, r), x,
-                                  sharding.cache_in(seg_cache, si, r), x_rep)
-                per_rep.append(sharding.cache_out(new_c, si))
+                                  sharding.cache_in(seg_cache, si, r, tp),
+                                  x_rep)
+                per_rep.append(sharding.cache_out(new_c, si, tp))
             else:
                 x, a = run(seg_params, x, xattn, r)
             aux_total = aux_total + a
@@ -422,6 +468,8 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
                 for key in per_rep[0]})
         else:
             new_caches.append(None)
+    if tp is not None and tp.seq:
+        x = sharding.join_seq(x, tp.mesh)
     return x, (new_caches if caches is not None else None), aux_total
 
 

@@ -30,23 +30,57 @@ the compute. The port chooses both:
     cotangents over the axes the batch is split on (``batch_axes``; a
     reduce-scatter, or an all-reduce where the leaf is replicated there)
     and, over every other axis, returns the rank's own block of the
-    cotangent with no traffic, because compute is replicated there: the
-    invariant of ``core/party_group.gather_rows`` / ``enter_shard``;
-  * compute splits over the batch axes only. Under ``layout="zero3"``
-    those are all the axes: pure FSDP, nothing computed twice. Under
-    ``layout="tp"`` the model axis holds storage only: each layer's
-    model-sharded leaves are gathered before use and the layer runs whole
-    on every model rank. This is NOT tensor-parallel compute: Megatron
-    column/row-parallel attention and MLP, a vocab-parallel head and
-    expert-parallel MoE are ROADMAP.md queue 1 item H.
+    cotangent with no traffic, because compute is replicated there (or,
+    for a leaf kept as its "model" block, computed on that block alone):
+    the invariant of ``core/party_group.gather_rows`` / ``enter_shard``;
+  * compute splits over the batch axes, and under ``layout="tp"`` also
+    over "model" where the block allows (``stack_tp``; a mesh whose model
+    axis has one rank computes as before). Under ``layout="zero3"`` the
+    batch axes are all the axes: pure FSDP, nothing computed twice.
+
+Tensor-parallel compute under ``"tp"`` (Megatron's, with its
+sequence-parallel stream; the operators ``copy_to_model``,
+``reduce_from_model``, ``gather_seq``, ``scatter_seq``, ``split_seq`` and
+``join_seq`` are ``_ModelComm``, legal under ``torch.func.vmap``):
+
+  * the dense attention (``models/layers.self_attention``): q/k/v by
+    columns on the rank's heads, wo by rows. Where the heads divide the
+    model axis each rank takes its q and kv heads; where ``Hkv < m`` and
+    ``m % Hkv == 0`` it takes its q heads and computes every kv head
+    (its columns of ``wk`` / ``wv``, the products all-gathered: the
+    cache holds them all) but attends with the one its heads read; otherwise the column split cuts inside
+    a head and the layer's attention is gathered and runs whole
+    (``Plan.tp_blocks`` counts each choice). A K/V cache block keeps
+    its "model" entry: heads, or T where the heads do not divide, whose
+    decode merges each rank's partial softmax over its T block (two
+    all-reduces);
+  * the dense MLP (``layers.mlp``) and EASTER's decision MLPs: up / gate
+    by columns, down by rows;
+  * the residual stream between a party's layers is this rank's S block
+    where S divides the model axis (norms on the block, ``gather_seq``
+    before the column products, ``scatter_seq`` after the row products),
+    else whole (``copy_to_model`` / ``reduce_from_model``); whole at the
+    stack's ends;
+  * the token tables by vocabulary (``embed_rows``, always under TP), the
+    head by vocabulary columns: the cross-entropy's log-sum-exp and label
+    logit are reduced over "model" (``core/losses.py``), the served logits
+    all-gathered.
+
+Still gathered and run whole on every model rank (in a sequence-parallel
+stream: ``join_seq``, the block, ``split_seq``), ROADMAP.md queue 1 item
+H: the MoE FFN (expert parallelism), the SSD and RG-LRU blocks, the
+encoder and the cross-attention.
 
 Model code reaches the plan through ``ambient_mesh`` (the reference's, with
-the step's spec trees): ``layer_taker`` (a layer's leaves), ``cache_in`` /
-``cache_out`` (a layer's cache block: gathered to the compute layout, and
-this rank's block of the new cache written back), ``step_view`` (the
-leaves outside the layer stacks, materialised once a step), ``embed_rows``
-(token rows looked up where a vocabulary-split table's rows lie, where
-that moves less than gathering the table), and the batch statistics
+the step's spec trees): ``stack_tp`` / ``block_tp`` (a party stack's
+tensor-parallel compute, ``TP``), ``layer_taker`` (a layer's leaves),
+``cache_in`` / ``cache_out`` (a layer's cache block: gathered to the
+compute layout, and this rank's block of the new cache written back),
+``step_view`` (the leaves outside the layer stacks, materialised once a
+step), ``embed_rows`` (token rows looked up where a vocabulary-split
+table's rows lie: always under TP, else where that moves less than
+gathering the table), ``decision_tp`` / ``head_tp``, and the batch
+statistics
 ``batch_sum`` / ``batch_max`` / ``batch_prefix`` / ``batch_gather``. Outside ``ambient_mesh`` each is the identity (or the
 plain slice), so every path without a plan runs as before, just as the
 reference's ``constrain`` is a no-op without a mesh.
@@ -69,6 +103,7 @@ processes, and every step runs under ``ambient_mesh``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
@@ -139,8 +174,11 @@ def model_axis(mesh) -> str:
 
 
 def _map_with_path(fn, tree, names=()):
-    """``fn(path names, leaf)`` over a tree: dict keys by name, sequence
-    items as ``i<idx>`` (the reference's ``_path_names``)."""
+    """``fn(path names, leaf)`` over a tree (or a spec tree, whose ``P``s
+    are leaves): dict keys by name, sequence items as ``i<idx>`` (the
+    reference's ``_path_names``)."""
+    if isinstance(tree, P):
+        return fn(names, tree)
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, v, names + (str(k),))
                 for k, v in tree.items()}
@@ -152,12 +190,18 @@ def _map_with_path(fn, tree, names=()):
 
 def zip_specs(fn, tree, specs):
     """``fn(leaf, spec)`` over ``tree`` and the spec tree that mirrors it."""
+    return _zip_path(lambda _, a, s: fn(a, s), tree, specs)
+
+
+def _zip_path(fn, tree, specs, names=()):
+    """``fn(path names, leaf, spec)`` over ``tree`` and its spec tree."""
     if isinstance(tree, dict):
-        return {k: zip_specs(fn, v, specs[k]) for k, v in tree.items()}
+        return {k: _zip_path(fn, v, specs[k], names + (str(k),))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(zip_specs(fn, v, specs[i])
+        return type(tree)(_zip_path(fn, v, specs[i], names + (f"i{i}",))
                           for i, v in enumerate(tree))
-    return fn(tree, specs)
+    return fn(names, tree, specs)
 
 
 def spec_leaves(specs) -> List[P]:
@@ -290,7 +334,8 @@ def param_specs(params, mesh, fsdp: bool = False, layout: str = "tp"):
 
     layout="tp" (default): the reference's 1D tensor-parallel layout over
     "model" (+ optional FSDP overlay over "data"); the port stores it so
-    but computes each layer whole (module docstring). layout="zero3":
+    and computes the dense blocks, the decision MLPs, the embedding, head
+    and loss on each rank's "model" block (module docstring). layout="zero3":
     params fully sharded over ALL mesh axes (ZeRO-3 / pure FSDP), gathered
     per layer at use. ``passive_stacked`` (the port's stacked passive
     group) gets party 1's specs with None in front."""
@@ -551,7 +596,8 @@ class Plan:
     over the batch axes (``split``; a batch too small to divide runs whole
     on every rank, as the reference's ``batch_specs`` replicates it);
     ``fresh``: the step's caches are new (``fresh_caches``), held in the
-    compute layout, so a prefill gathers no zeros."""
+    compute layout, so a prefill gathers no zeros; ``tp_blocks``: how
+    the layers computed over "model" (``stack_tp``)."""
     mesh: Any
     layout: str = "tp"
     params: Any = None
@@ -560,7 +606,10 @@ class Plan:
     split: bool = True
     fresh: bool = False
     scopes: list = field(default_factory=list)
-    row_tables: set = field(default_factory=set)
+    row_tables: dict = field(default_factory=dict)
+    # layers taken under tensor-parallel compute, by their attention's
+    # split ("heads", "kv", "whole"), a recompute's takes counted again
+    tp_blocks: dict = field(default_factory=dict)
 
     @property
     def row_axes(self) -> Tuple[str, ...]:
@@ -650,13 +699,15 @@ def _at(tree, path):
     return tree
 
 
-def layer_taker(path: Tuple, group: bool = False):
+def layer_taker(path: Tuple, group: bool = False, tp: "Optional[TP]" = None):
     """``take(stack, index)``: layer ``index`` of the layer stack at
     ``path`` in the backbone (leaves (n, ...), or (K, n, ...) with
     ``group``): the plain slice without a plan, else each leaf
-    materialised (``materialize``). The scope's specs and the plan are
-    bound here, so a checkpointed layer's recompute in the backward pass,
-    outside the scope, takes its layer alike."""
+    materialised (``materialize``); with ``tp`` (``stack_tp``) the leaves
+    the layer computes on as their "model" blocks (``TP.consumes``) are
+    materialised over every other axis only. The scope's specs and the
+    plan are bound here, so a checkpointed layer's recompute in the
+    backward pass, outside the scope, takes its layer alike."""
     axis = 1 if group else 0
     plan = current()
     if plan is None:
@@ -664,66 +715,115 @@ def layer_taker(path: Tuple, group: bool = False):
             lambda a: a.select(axis, index), tree)
     plan, (specs, _) = _scoped("a layer")
     specs, mesh, bax = _at(specs, path), plan.mesh, plan.row_axes
-    return lambda tree, index: zip_specs(
-        lambda a, s: _Materialize.apply(a, mesh, P(*s), index, axis, bax),
-        tree, specs)
+    keeps = _map_with_path(lambda names, s: (s, MODEL if tp is not None
+                                             and tp.consumes(names) else ()),
+                           specs)
+
+    def take(tree, index):
+        if tp is not None:      # a segment's repeat: one layer a key
+            plan.tp_blocks[tp.attn] = plan.tp_blocks.get(tp.attn, 0) \
+                + len(tree)
+        return zip_specs(lambda a, sk: _Materialize.apply(
+            a, mesh, P(*sk[0]), index, axis, bax, sk[1]), tree, keeps)
+    return take
 
 
-def _compute_spec(nd: int, plan: Plan) -> P:
+_KV = ("k", "v", "k_scale", "v_scale")
+
+
+def _compute_spec(nd: int, plan: Plan, stored=None) -> P:
     """A cache block's compute layout: its rows (dim 0) this rank's where
-    the batch is split, every other dim whole."""
-    if nd == 0 or not plan.split:
-        return P(*([None] * nd))
-    return P(plan.row_axes or None, *([None] * (nd - 1)))
+    the batch is split, every other dim whole; with ``stored`` (a K/V
+    leaf's stored entries, under tensor-parallel attention) its "model"
+    entry kept (heads, or T: ``_cache_rule``)."""
+    out = [None] * nd
+    if nd and plan.split:
+        out[0] = plan.row_axes or None
+    if stored is not None:
+        for i in range(1, nd):
+            if stored[i] == "model":
+                out[i] = "model"
+    return P(*out)
 
 
-def cache_in(tree, si: int, index: int):
+def _kv_spec(names, s, nd, plan, keep: bool):
+    """The compute spec of a cache leaf stored as ``s`` (with its stack
+    dim, ``nd`` dims without): ``_compute_spec``, keeping the "model"
+    entry of a K/V leaf where ``keep``."""
+    stored = _entries(s, nd + 1)[1:]
+    return _compute_spec(nd, plan, stored if keep and names
+                         and names[-1] in _KV else None)
+
+
+def cache_in(tree, si: int, index: int, tp: "Optional[TP]" = None):
     """Segment ``si``'s cache block for repeat ``index`` in the compute
-    layout (the plain slice without a plan)."""
+    layout (the plain slice without a plan); with a tensor-parallel
+    attention (``tp.attn`` "heads" or "kv") a K/V block keeps its "model"
+    entry."""
     plan = current()
     if plan is None:
         return tree_map(lambda a: a[index], tree)
     plan, (_, cspecs) = _scoped("a cache")
+    keep = tp is not None and tp.attn != "whole"
 
-    def one(a, s):
+    def one(names, a, s):
         x = a[index]
-        src = (_compute_spec(x.dim(), plan) if plan.fresh
-               else P(*_entries(s, a.dim())[1:]))
-        return _Relayout.apply(x, plan.mesh, src,
-                               _compute_spec(x.dim(), plan))
-    return zip_specs(one, tree, cspecs[si])
+        dst = _kv_spec(names, s, x.dim(), plan, keep)
+        src = dst if plan.fresh else P(*_entries(s, a.dim())[1:])
+        return _Relayout.apply(x, plan.mesh, src, dst)
+    return _zip_path(one, tree, cspecs[si])
 
 
-def fresh_caches(full, batch: int, device):
+def fresh_caches(full, batch: int, device, cfgs=None):
     """New (zero) caches under the plan from their whole-step shapes
-    ``full`` (meta tensors for ``batch`` rows): their specs
-    (``cache_specs``) join the plan, and they are made in the compute
-    layout (this rank's rows, every other dim whole), which ``cache_in``
-    reads as it is; ``cache_out`` writes this rank's blocks of the specs."""
+    ``full`` (meta tensors for ``batch`` rows, one tree a party): their
+    specs (``cache_specs``) join the plan, and they are made in the
+    compute layout (this rank's rows, every other dim whole, a K/V
+    block's "model" entry kept for a party of ``cfgs`` whose attention
+    computes over "model"), which ``cache_in`` reads as it is;
+    ``cache_out`` writes this rank's blocks of the specs."""
     plan = current()
     plan.caches = cache_specs(full, plan.mesh, batch)
     plan.fresh = True
 
-    def zeros(a, s):
-        spec = P(None, *_compute_spec(a.dim() - 1, plan))
-        return torch.zeros(local_shape(a.shape, spec, plan.mesh),
-                           dtype=a.dtype, device=device)
-    return zip_specs(zeros, full, plan.caches)
+    def party(tree, specs, cfg):
+        tp = None if cfg is None else stack_tp(cfg, 1)
+        keep = tp is not None and tp.attn != "whole"
+
+        def zeros(names, a, s):
+            spec = P(None, *_kv_spec(names, s, a.dim() - 1, plan, keep))
+            return torch.zeros(local_shape(a.shape, spec, plan.mesh),
+                               dtype=a.dtype, device=device)
+        return _zip_path(zeros, tree, specs)
+    cfgs = cfgs or [None] * len(full)
+    return [party(t, s, c) for t, s, c in zip(full, plan.caches, cfgs)]
 
 
-def cache_out(tree, si: int):
+def cache_out(tree, si: int, tp: "Optional[TP]" = None):
     """A repeat's new cache from the compute layout back to this rank's
     block of segment ``si``'s spec (identity without a plan)."""
     plan = current()
     if plan is None:
         return tree
     plan, (_, cspecs) = _scoped("a cache")
+    keep = tp is not None and tp.attn != "whole"
 
-    def one(x, s):
-        s = _entries(s, x.dim() + 1)[1:]
-        return _Relayout.apply(x, plan.mesh, _compute_spec(x.dim(), plan),
-                               P(*s))
-    return zip_specs(one, tree, cspecs[si])
+    def one(names, x, s):
+        return _Relayout.apply(x, plan.mesh,
+                               _kv_spec(names, s, x.dim(), plan, keep),
+                               P(*_entries(s, x.dim() + 1)[1:]))
+    return _zip_path(one, tree, cspecs[si])
+
+
+def cache_split_t(si: int, key: str) -> bool:
+    """True where segment ``si``'s block ``key`` stores its K/V cache's T
+    over "model" (``_cache_rule``: the kv heads do not divide)."""
+    plan = current()
+    if plan is None or plan.caches is None:
+        return False
+    _, (_, cspecs) = _scoped("a cache")
+    k = cspecs[si].get(key, {}).get("k")
+    return k is not None and _entries(k, 5)[2] == "model"
 
 
 # the backbone's layer stacks, materialised a layer at a time; every other
@@ -731,31 +831,48 @@ def cache_out(tree, si: int):
 _LAYER_KEYS = ("segments", "xattn")
 
 
-def _once(tree, specs, mesh):
-    return zip_specs(lambda a, s: materialize(a, s, mesh), tree, specs)
+def _once(tree, specs, mesh, keep=()):
+    return zip_specs(lambda a, s: materialize(a, s, mesh, keep=keep), tree,
+                     specs)
 
 
 def _party_view(party, specs, plan, n_tokens):
     mesh = plan.mesh
+    tp = _tp_plan() is not None
     out = {}
     for k, v in party.items():
         if k != "backbone":
-            out[k] = _once(v, specs[k], mesh)
+            # under TP the decision MLPs and the head compute on their
+            # "model" blocks (``decision_tp``, ``head_tp``)
+            out[k] = _once(v, specs[k], mesh,
+                           MODEL if tp and k in ("decision", "head") else ())
             continue
         bb = {}
         for kk, vv in v.items():
+            sp = specs[k][kk]
             if kk in _LAYER_KEYS:
                 bb[kk] = vv
-            elif kk == "embed" and _rows_cheaper(vv["table"], specs[k][kk][
-                    "table"], plan, n_tokens):
+            elif kk == "embed" and tp and _entries(
+                    sp["table"], vv["table"].dim())[-2] == "model":
+                # the vocabulary-parallel embedding: the rows looked up
+                # where they lie, whatever the step's token count; a data
+                # overlay gathered first (whose backward then sums the
+                # batch axes, so the lookup's must not)
+                if _rows_cheaper(vv["table"], sp["table"], plan, 0):
+                    bb[kk] = vv
+                    plan.row_tables[id(vv["table"])] = plan.row_axes
+                else:
+                    bb[kk] = _once(vv, sp, mesh, MODEL)
+                    plan.row_tables[id(bb[kk]["table"])] = ()
+            elif kk == "embed" and _rows_cheaper(vv["table"], sp["table"],
+                                                 plan, n_tokens):
                 bb[kk] = vv
-                plan.row_tables.add(id(vv["table"]))
+                plan.row_tables[id(vv["table"])] = plan.row_axes
             elif kk == "encoder":
                 bb[kk] = {"blocks": vv["blocks"],
-                          "norm": _once(vv["norm"], specs[k][kk]["norm"],
-                                        mesh)}
+                          "norm": _once(vv["norm"], sp["norm"], mesh)}
             else:
-                bb[kk] = _once(vv, specs[k][kk], mesh)
+                bb[kk] = _once(vv, sp, mesh)
         out[k] = bb
     return out
 
@@ -813,17 +930,19 @@ def _take(x, spec, index, axis, mesh):
 
 class _Materialize(torch.autograd.Function):
     @staticmethod
-    def forward(local, mesh, spec, index, axis, bax):
+    def forward(local, mesh, spec, index, axis, bax, keep):
         spec = _entries(spec, local.dim())
         x = local
         if index is not None:
             x, spec = _take(x, spec, index, axis, mesh)
-        x = _relayout(x, spec, (), mesh)
+        x = _relayout(x, spec, [e if _kept(e, keep) else None
+                                for e in spec], mesh)
         return x.view_as(x) if x is local else x
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        local, ctx.mesh, ctx.spec, ctx.index, ctx.axis, ctx.bax = inputs
+        (local, ctx.mesh, ctx.spec, ctx.index, ctx.axis, ctx.bax,
+         ctx.keep) = inputs
         ctx.shape, ctx.dtype = local.shape, local.dtype
         ctx.device = local.device
 
@@ -836,7 +955,7 @@ class _Materialize(torch.autograd.Function):
             del spec[ctx.axis]
         used = set()
         for i, e in enumerate(spec):
-            if e is None:
+            if e is None or _kept(e, ctx.keep):
                 continue
             ax = _axes(e)
             used |= set(ax)
@@ -859,30 +978,39 @@ class _Materialize(torch.autograd.Function):
             elif mesh.coord(_axes(e)) == b:
                 out.select(ctx.axis, off).copy_(g)
             g = out
-        return g, None, None, None, None, None
+        return g, None, None, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, local, mesh, spec, index, axis, bax):
+    def vmap(info, in_dims, local, mesh, spec, index, axis, bax, keep):
         bd = in_dims[0]
         if bd is None:
             return _Materialize.apply(local, mesh, spec, index, axis,
-                                      bax), None
+                                      bax, keep), None
         x = local.movedim(bd, 0)
         spec = (None,) + tuple(_entries(spec, local.dim() - 1))
-        return _Materialize.apply(x, mesh, spec, index, axis + 1, bax), 0
+        return _Materialize.apply(x, mesh, spec, index, axis + 1, bax,
+                                  keep), 0
+
+
+def _kept(entry, keep) -> bool:
+    """True for a dim over axes that are all in ``keep`` (left a block)."""
+    return entry is not None and bool(keep) and set(_axes(entry)) <= set(keep)
 
 
 def materialize(local: torch.Tensor, spec, mesh, index: Optional[int] = None,
-                axis: int = 0) -> torch.Tensor:
+                axis: int = 0, keep=()) -> torch.Tensor:
     """The whole tensor from this rank's block ``local`` of a leaf stored as
-    ``spec`` (``index``: only entry ``index`` of the stack axis ``axis``).
-    Forward: all-gather each sharded dim; broadcast a stack entry from
-    the rank that holds it. Backward: the cotangent summed over the
-    current plan's batch axes (reduce-scatter or all-reduce), this rank's
-    block over the other axes (module docstring)."""
+    ``spec`` (``index``: only entry ``index`` of the stack axis ``axis``;
+    ``keep``: axes whose dims stay this rank's block, the tensor-parallel
+    compute's "model"). Forward: all-gather each sharded dim; broadcast a
+    stack entry from the rank that holds it. Backward: the cotangent
+    summed over the current plan's batch axes (reduce-scatter or
+    all-reduce), this rank's block over the other axes (module
+    docstring)."""
     plan = current()
     bax = () if plan is None else plan.row_axes
-    return _Materialize.apply(local, mesh, P(*spec), index, axis, bax)
+    return _Materialize.apply(local, mesh, P(*spec), index, axis, bax,
+                              tuple(keep))
 
 
 class _Relayout(torch.autograd.Function):
@@ -910,6 +1038,253 @@ class _Relayout(torch.autograd.Function):
         return _Relayout.apply(x.movedim(bd, 0), mesh,
                                P(None, *_entries(src, nd)),
                                P(None, *_entries(dst, nd))), 0
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel compute over "model" (layout "tp")
+# ---------------------------------------------------------------------------
+
+MODEL = ("model",)
+
+
+def _model_op(kind, x, mesh, dim: int):
+    if kind == "id":
+        return x
+    if kind in ("sum", "max"):
+        return mesh.all_reduce(x, MODEL, kind)
+    if kind == "gather":
+        return mesh.all_gather(x, MODEL, dim)
+    if kind == "scatter":
+        return mesh.reduce_scatter(x, MODEL, dim)
+    if kind == "split":
+        return _block(x, "model", dim, mesh).contiguous()
+    raise ValueError(f"model-axis op {kind!r}")
+
+
+class _ModelComm(torch.autograd.Function):
+    """One collective over "model" (``fwd``) whose backward is another
+    (``bwd``; None: no gradient): Megatron's operators below. ``dim`` is
+    negative, so that the vmap rule, which folds the party axis in front,
+    leaves it pointing at the same dim."""
+
+    @staticmethod
+    def forward(x, mesh, fwd, bwd, dim):
+        y = _model_op(fwd, x, mesh, dim)
+        return y.view_as(y) if y is x else y
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.mesh, _, ctx.bwd, ctx.dim = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.bwd is None:
+            raise RuntimeError("a serving collective has no gradient")
+        return _model_op(ctx.bwd, g, ctx.mesh, ctx.dim), None, None, None, \
+            None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, fwd, bwd, dim):
+        if in_dims[0] is None:
+            return _ModelComm.apply(x, mesh, fwd, bwd, dim), None
+        return _ModelComm.apply(x.movedim(in_dims[0], 0), mesh, fwd, bwd,
+                                dim), 0
+
+
+def copy_to_model(x, mesh):
+    """Identity; the backward all-reduces over "model" (before a
+    column-parallel product on a whole input)."""
+    return _ModelComm.apply(x, mesh, "id", "sum", -1)
+
+
+def reduce_from_model(x, mesh):
+    """All-reduce over "model"; identity backward (after a row-parallel
+    product)."""
+    return _ModelComm.apply(x, mesh, "sum", "id", -1)
+
+
+def gather_seq(x, mesh):
+    """The S blocks (dim -2) all-gathered over "model"; reduce-scatter
+    backward (before a column-parallel product on the sequence-parallel
+    stream)."""
+    return _ModelComm.apply(x, mesh, "gather", "scatter", -2)
+
+
+def scatter_seq(x, mesh):
+    """Reduce-scatter over "model" along S; all-gather backward (after a
+    row-parallel product, into the sequence-parallel stream)."""
+    return _ModelComm.apply(x, mesh, "scatter", "gather", -2)
+
+
+def split_seq(x, mesh):
+    """This rank's S block of a whole, replicated x; all-gather backward
+    (into the sequence-parallel stream from replicated compute)."""
+    return _ModelComm.apply(x, mesh, "split", "gather", -2)
+
+
+def join_seq(x, mesh):
+    """The S blocks all-gathered; the backward keeps this rank's block of
+    the replicated cotangent (out of the stream into replicated
+    compute)."""
+    return _ModelComm.apply(x, mesh, "gather", "split", -2)
+
+
+def gather_cols(x, mesh):
+    """A column-parallel product's columns (dim -1) all-gathered over
+    "model"; reduce-scatter backward (the kv heads that every rank's
+    cache holds, from each rank's columns of wk / wv)."""
+    return _ModelComm.apply(x, mesh, "gather", "scatter", -1)
+
+
+def model_gather(x, mesh, dim: int):
+    """Serving: the "model" blocks of ``x`` along ``dim`` (negative)
+    all-gathered (no gradient)."""
+    return _ModelComm.apply(x, mesh, "gather", None, dim)
+
+
+def model_max(x, mesh):
+    """Serving: ``x`` maxed over "model" (no gradient)."""
+    return _ModelComm.apply(x, mesh, "max", None, -1)
+
+
+@dataclass(frozen=True)
+class TP:
+    """How a party's layer stack computes over "model" (``stack_tp``):
+    ``attn`` "heads" (each rank its q and kv heads), "kv" (its q heads
+    and the one kv head they read; every kv head gathered from the ranks'
+    columns for the cache) or "whole" (gathered); ``mlp``: the dense MLPs split (up / gate by
+    columns, down by rows); ``seq``: the residual stream is this rank's S
+    block; ``kv_t``: the block's K/V cache lies over "model" by T.
+    ``TP(None)`` (``WHOLE``) is one rank holding every block: m = 1 and
+    the operators the identity."""
+    mesh: Any
+    attn: str = "whole"
+    mlp: bool = False
+    seq: bool = False
+    kv_t: bool = False
+
+    @property
+    def m(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape["model"]
+
+    @property
+    def coord(self) -> int:
+        return 0 if self.mesh is None else self.mesh.coord(MODEL)
+
+    def consumes(self, names) -> bool:
+        """True for a layer leaf (its path names) computed on as its
+        "model" block."""
+        if len(names) < 3:
+            return False
+        grand, parent = names[-3], names[-2]
+        if grand == "attn" and self.attn != "whole":
+            return parent in ("wq", "wk", "wv", "wo")
+        return grand == "mlp" and self.mlp and parent in ("up", "gate",
+                                                          "down")
+
+    def enter(self, x):
+        """The stream before a column-parallel product."""
+        if self.mesh is None:
+            return x
+        return (gather_seq if self.seq else copy_to_model)(x, self.mesh)
+
+    def exit(self, y):
+        """A row-parallel product's partial sums into the stream."""
+        if self.mesh is None:
+            return y
+        return (scatter_seq if self.seq else reduce_from_model)(y, self.mesh)
+
+    def rep(self, tree):
+        """Replicated leaves (a norm, an unsplit bias) as they apply to the
+        stream: on an S block their cotangents are partial sums, so they
+        go through ``copy_to_model``."""
+        if not self.seq:
+            return tree
+        return tree_map(lambda a: copy_to_model(a, self.mesh), tree)
+
+    def whole(self, x, fn):
+        """``fn(x) -> (x', *rest)`` for a block still gathered: on the
+        whole sequence (``join_seq``), this rank's S block of x' kept
+        (``split_seq``); compute and cotangents are replicated inside."""
+        if not self.seq:
+            return fn(x)
+        y, *rest = fn(join_seq(x, self.mesh))
+        return (split_seq(y, self.mesh), *rest)
+
+
+# a layer computed whole on one rank: no split over "model", nothing moved
+WHOLE = TP(None)
+
+
+def _tp_plan() -> Optional[Plan]:
+    """The current plan where it computes over "model": layout "tp", the
+    parameters' specs known and a model axis of more than one rank."""
+    plan = current()
+    if plan is None or plan.layout != "tp" or plan.params is None:
+        return None
+    return plan if plan.mesh.shape.get("model", 1) > 1 else None
+
+
+def attn_mode(n_heads: int, n_kv_heads: int, head_dim: int, m: int) -> str:
+    """The attention's split over ``m`` model ranks (``TP.attn``): "kv"
+    also needs the kv columns (Hkv * hd) to divide, as the rule splits
+    them."""
+    if n_heads % m == 0 and n_kv_heads % m == 0:
+        return "heads"
+    if n_heads % m == 0 and n_kv_heads < m and m % n_kv_heads == 0 \
+            and n_kv_heads * head_dim % m == 0:
+        return "kv"
+    return "whole"
+
+
+def stack_tp(cfg, S: int) -> Optional[TP]:
+    """The tensor-parallel compute of ``cfg``'s layer stack over a stream
+    of S positions under the current plan, or None (no plan, layout
+    zero3, one model rank, or no block to split: an SSD stack). The
+    stream is sequence-parallel where S divides the model axis (the
+    reference's ``constrain`` rule, S >= m and S % m == 0)."""
+    plan = _tp_plan()
+    if plan is None:
+        return None
+    m = plan.mesh.shape["model"]
+    attn = ("whole" if cfg.family == "ssm"
+            else attn_mode(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                           m))
+    mlp = (cfg.family not in ("moe", "ssm") and cfg.d_ff >= m
+           and cfg.d_ff % m == 0)
+    if attn == "whole" and not mlp:
+        return None
+    return TP(plan.mesh, attn, mlp, seq=S >= m and S % m == 0)
+
+
+def block_tp(tp: Optional[TP], si: int, key: str) -> Optional[TP]:
+    """``tp`` for segment ``si``'s block ``key`` over this step's caches:
+    ``kv_t`` where its K/V cache lies over "model" by T."""
+    if tp is None or tp.attn != "kv" or not cache_split_t(si, key):
+        return tp
+    return dataclasses.replace(tp, kv_t=True)
+
+
+def decision_tp() -> Optional[TP]:
+    """The decision MLPs' split (``TP(mlp=True)``, whole stream) where the
+    plan stores their up / gate / down by "model", else None."""
+    plan = _tp_plan()
+    if plan is None:
+        return None
+    dec = plan.params["parties"][0]["decision"]
+    up = dec[0]["mlp"]["up"]["w"] if dec else ()
+    return (TP(plan.mesh, mlp=True) if _entries(up, 2)[-1] == "model"
+            else None)
+
+
+def head_tp() -> Optional[TP]:
+    """The vocabulary-parallel head (its columns this rank's block), or
+    None."""
+    plan = _tp_plan()
+    if plan is None:
+        return None
+    spec = plan.params["parties"][0]["head"]["w"]
+    return TP(plan.mesh) if _entries(spec, 2)[-1] == "model" else None
 
 
 # ---------------------------------------------------------------------------
@@ -1003,7 +1378,7 @@ def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
     axes = _axes(_entries(spec, table.dim())[-2])
     t = table if group else table[None]
     rows = _EmbedRows.apply(t, tokens.reshape(-1), plan.mesh, axes,
-                            plan.row_axes)
+                            plan.row_tables[id(table)])
     rows = rows.reshape((rows.shape[0],) + tuple(tokens.shape)
                         + (rows.shape[-1],))
     return rows if group else rows[0]

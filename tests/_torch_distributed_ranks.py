@@ -1,5 +1,6 @@
-"""The rank side of tests/test_torch_distributed.py: the FSDP plan's train
-and serve steps on a 2 x 2 (data x model) gloo mesh on the CPU, every case
+"""The rank side of tests/test_torch_distributed.py: the FSDP plan's train,
+prefill and serve steps on a 2 x 2 (data x model) gloo mesh on the CPU
+(and one serve step on a 4 x 1 mesh of the same ranks), every case
 inside one spawned 4-rank group. Imports no JAX (the ranks are separate
 processes); rank 0 returns numpy, the other ranks their block checks."""
 import dataclasses
@@ -38,8 +39,30 @@ TRAIN_CASES = (
     ("zero3-adam-zero1", "qwen2.5-3b", {"vocab_size": 4096, "d_ff": 2048,
                                         "remat": "full"},
      "adam", "zero3", True),
+    # tensor-parallel attention's other two choices at m = 2: one kv head
+    # that both model ranks' q heads read, and 3 q heads, whose column
+    # split cuts inside a head, so the attention is gathered (the MLP is
+    # still split)
+    ("qwen2.5-3b-kv1", "qwen2.5-3b", {"n_kv_heads": 1}, "sgd", "tp", False),
+    ("qwen2.5-3b-h3", "qwen2.5-3b", {"n_heads": 3, "n_kv_heads": 1}, "sgd",
+     "tp", False),
 )
 SERVE_POS = 3
+# (name, config changes, mesh, lanes, blinded) of the decode rounds: on
+# the 2 x 2 mesh (the heads split over "model"), blinded and unblinded (no
+# mask seeds: the uplink ships raw, so whatever differs from one process
+# is the tensor-parallel compute's alone); on 4 x 1 (data x model) over
+# the same ranks, whose compute splits over the batch only, at 8 lanes (2
+# a rank, as the 2 x 2 mesh's data ranks hold: a one-row product takes
+# another CPU GEMM path than the one process's, whose bits differ); one
+# kv head, whose cache lies over "model" by T (the partial softmax merged
+# over the ranks)
+SERVE_CASES = (
+    ("serve", {}, (2, 2), B, True),
+    ("serve-raw", {}, (2, 2), B, False),
+    ("serve-4x1", {}, (4, 1), 2 * B, True),
+    ("serve-t-split", {"n_kv_heads": 1}, (2, 2), B, True),
+)
 
 
 def config(arch, changes):
@@ -68,10 +91,10 @@ def train_batch(cfg, seed=1):
             for k in ("tokens", "labels")}
 
 
-def serve_inputs(cfg, seed=3):
+def serve_inputs(cfg, seed=3, lanes=B):
     rng = np.random.default_rng(seed)
     return {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (B, 1), dtype=np.int32))}
+        0, cfg.vocab_size, (lanes, 1), dtype=np.int32))}
 
 
 def _check_blocks(local, full_shapes, specs, mesh):
@@ -127,16 +150,26 @@ def train_case(mesh, cfg, opt_name, layout, zero1, mask_mode="float"):
     return out
 
 
-def serve_case(mesh, cfg):
+def serve_step(sys_, lanes, blinded=True):
+    """The decode round: ``steps.build_serve_step``'s, or unblinded (no
+    mask seeds, the uplink raw)."""
+    if blinded:
+        return steps.build_serve_step(sys_, InputShape("d", S, lanes,
+                                                       "decode"))
+    return lambda params, batch, caches, pos: sys_.serve_step(
+        params, batch["tokens"], caches, pos, None)
+
+
+def serve_case(mesh, cfg, lanes=B, blinded=True):
     """One decode round (the reference's serve test: batch 4, cache 16,
-    position 3) under ``serve_shardings``: rank 0 gets the logits and the
-    caches gathered."""
+    position 3; ``lanes`` lanes) under ``serve_shardings``: rank 0 gets
+    the logits and the caches gathered; every rank the bytes its
+    collectives moved."""
     sys_ = system(cfg)
     params = sys_.init_params(torch.Generator().manual_seed(2))
-    shape = InputShape("d", S, B, "decode")
-    serve = steps.build_serve_step(sys_, shape)
-    batch = serve_inputs(cfg)
-    caches = sys_.init_caches(B, S)
+    serve = serve_step(sys_, lanes, blinded)
+    batch = serve_inputs(cfg, lanes=lanes)
+    caches = sys_.init_caches(lanes, S)
     specs = {"batch": batch, "caches": caches, "pos": SERVE_POS}
     in_sh, out_sh = steps.serve_shardings(sys_, mesh, specs, params)
     pspec, bspec, cspec, _ = in_sh
@@ -144,23 +177,70 @@ def serve_case(mesh, cfg):
     lp = sharding.shard_tree(params, pspec, mesh)
     lb = sharding.shard_tree(batch, bspec, mesh)
     lc = sharding.shard_tree(caches, cspec, mesh)
-    run = steps.shard_step(serve, mesh, in_sh, out_sh)
+    rec = mesh_mod.RecordingMesh(mesh)
+    run = steps.shard_step(serve, rec, in_sh, out_sh)
     logits, lc = run(lp, lb, lc, SERVE_POS)
     bad = _check_blocks(lc, shapes, cspec, mesh)
     got = sharding.gather_tree(lc, cspec, mesh)
-    out = {"bad_blocks": bad}
+    out = {"bad_blocks": bad, "bytes": dict(rec.bytes),
+           "t_split": sum(_entries_t(s) for s in sharding.spec_leaves(cspec))}
     if mesh.rank == 0:
         out.update(logits=logits.numpy(), caches=got)
     return out
 
 
+def _entries_t(spec) -> bool:
+    """True for a K/V cache spec (reps, B, T, H, hd) whose T lies over
+    "model"."""
+    return len(spec) == 5 and spec[2] == "model"
+
+
+def prefill_inputs(cfg, seed=4):
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32))}
+
+
+def meta_caches(sys_, b, t):
+    from repro_torch.models import transformer
+    return [transformer.init_cache(c, b, t, device="meta")
+            for c in sys_.party_cfgs]
+
+
+def prefill_case(mesh, cfg):
+    """A (4, 16) prefill under ``prefill_shardings``: S divides the model
+    axis, so the stream between layers is sequence-parallel. Rank 0 gets
+    E and the caches gathered; every rank the bytes by kind."""
+    sys_ = system(cfg)
+    params = sys_.init_params(torch.Generator().manual_seed(2))
+    prefill = steps.build_prefill_step(sys_, InputShape("p", S, B,
+                                                        "prefill"))
+    batch = prefill_inputs(cfg)
+    in_sh, out_sh = steps.prefill_shardings(
+        sys_, mesh, {"batch": batch}, params, meta_caches(sys_, B, S))
+    lp = sharding.shard_tree(params, in_sh[0], mesh)
+    lb = sharding.shard_tree(batch, in_sh[1], mesh)
+    rec = mesh_mod.RecordingMesh(mesh)
+    E, lc = steps.shard_step(prefill, rec, in_sh, out_sh)(lp, lb)
+    got = sharding.gather_tree(lc, out_sh[1], mesh)
+    out = {"bytes": dict(rec.bytes)}
+    if mesh.rank == 0:
+        out.update(E=E.numpy(), caches=got)
+    return out
+
+
 def run_cases():
-    """Every case on this rank of the 2 x 2 mesh."""
+    """Every case on this rank of the 2 x 2 mesh (and the 4 x 1 one)."""
     mesh = mesh_mod.make_debug_mesh(2, 2, device="cpu")
+    meshes = {(2, 2): mesh, (4, 1): mesh_mod.make_debug_mesh(4, 1,
+                                                             device="cpu")}
     out = {"rank": mesh.rank, "coords": dict(mesh.coords)}
     for name, arch, changes, opt_name, layout, zero1 in TRAIN_CASES:
         out[name] = train_case(mesh, config(arch, changes), opt_name,
                                layout, zero1,
                                changes.get("mask_mode", "float"))
-    out["serve"] = serve_case(mesh, config("qwen2.5-3b", {}))
+    for name, changes, shape, lanes, blinded in SERVE_CASES:
+        out[name] = serve_case(meshes[shape], config("qwen2.5-3b", changes),
+                               lanes, blinded)
+    out["prefill"] = prefill_case(mesh, config("qwen2.5-3b", {}))
     return out

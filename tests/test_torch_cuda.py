@@ -1365,3 +1365,86 @@ def test_cuda_materialize_over_two_ranks(cuda, materialize_ranks, i):
             n = shape[0] // 2
             want = want[rank * n:(rank + 1) * n]
         assert torch.equal(grad, want), (rank, i)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel compute over "model"
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [2, 6])
+def test_cuda_flash_on_a_model_ranks_heads(cuda, B, dtype):
+    """A 512-token prefill on one model rank's heads of qwen2.5-3b at m =
+    2 (8 q heads over 1 kv head of 128): 2 lanes of the active party, 6
+    of the passive group folded into the batch axis; the sweep's tolerance
+    and, in bfloat16, the kernel's bound."""
+    dt = _TDT[dtype]
+    q, k, v = _flash_inputs(B, 512, 512, 8, 1, 128, dt, cuda, B)
+    before = tfa.LAUNCHES["flash_attention_fwd"]
+    out = tfa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_fwd"] == before + 1
+    _flash_close(out, ref.reference_attention(q, k, v), dt)
+    if dt == torch.bfloat16:
+        assert _bf16_bound_used(out, q, k, v) <= 1
+
+
+# (lanes, T, q heads, kv heads, hd, each lane's position)
+T_SPLIT_CASE = (3, 1024, 16, 1, 128, (700, 1023, 5))
+
+
+def _t_split_inputs():
+    """q (B, 1, Hq, hd), the whole cache k / v (B, T, Hkv, hd) and its
+    slots' mask (B, T): each lane sees positions up to its own."""
+    B, T, Hq, Hkv, hd, pos = T_SPLIT_CASE
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(s, generator=g) for s in (
+        (B, 1, Hq, hd), (B, T, Hkv, hd), (B, T, Hkv, hd)))
+    mask = torch.arange(T)[None] <= torch.tensor(pos)[:, None]
+    return q, k, v, mask
+
+
+def _t_split_on_card():
+    """Rank side: this model rank's T block of the cache and its q heads,
+    merged over a 2-rank gloo group on cuda:0 (``layers._t_split_decode``);
+    (rank, this rank's heads of the output)."""
+    from repro_torch import sharding
+    from repro_torch.launch import mesh
+    from repro_torch.models import layers
+    m = mesh.make_debug_mesh(1, 2, device="cuda")
+    tp = sharding.TP(m, attn="kv", kv_t=True)
+    q, k, v, mask = (t.cuda() for t in _t_split_inputs())
+    hq, Tl = q.shape[2] // 2, k.shape[1] // 2
+    c = m.coord(("model",))
+    blk = lambda t, d, n: t.narrow(d, c * n, n)
+    out = layers._t_split_decode(blk(q, 2, hq), blk(k, 1, Tl), blk(v, 1, Tl),
+                                 blk(mask, 1, Tl), q.shape[-1], tp)
+    return m.rank, out.cpu()
+
+
+@pytest.fixture(scope="module")
+def t_split_ranks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import mesh
+    return mesh.spawn_ranks(_t_split_on_card, 2,
+                            store_dir=str(tmp_path_factory.mktemp("mesh")),
+                            device="cuda")
+
+
+@pytest.mark.requires_cuda
+def test_cuda_t_split_decode_matches_a_whole_cache(cuda, t_split_ranks):
+    """One decode step over a cache whose T lies over 2 model ranks on the
+    card (each rank's partial softmax over its T block, merged by a max
+    and a sum all-reduce) against the whole cache's softmax attention on
+    the card, float32 (TF32 off): within rtol 1e-5 / atol 1e-6. A lane at
+    position 5 sees no slot of rank 1's block."""
+    from repro_torch.models import layers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask = (t.cuda() for t in _t_split_inputs())
+    logits = layers._masked_logits(q, k, mask, q.shape[-1])
+    want = layers._gqa_out(torch.softmax(logits, dim=-1), v).cpu()
+    got = torch.cat([out for _, out in sorted(t_split_ranks)], dim=2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

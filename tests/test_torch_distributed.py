@@ -1,5 +1,6 @@
 """The FSDP plan (``repro_torch.sharding``, ``launch.steps.shard_step``) on
-a 2 x 2 (data x model) gloo mesh on the CPU, held against the port's
+a 2 x 2 (data x model) gloo mesh on the CPU, with its tensor-parallel
+compute over "model" under layout "tp", held against the port's
 one-process steps and the reference's single-device steps: the
 counterpart of tests/test_distributed.py.
 
@@ -10,25 +11,36 @@ port's one-process steps and the reference's jitted ones on the same
 weights (the port's, seed 0, handed over as numpy) and batches.
 
   * train steps: qwen2.5-3b, qwen3-moe-235b-a22b and mamba2-2.7b (the
-    reference test's three: sgd, lr 1e-2, batch (4, 16), layout "tp"),
+    reference test's three: sgd, lr 1e-2, batch (4, 16), layout "tp":
+    S = 16 divides the model axis, so the stream is sequence-parallel),
     qwen2.5-3b on the int8 wire (the round scale a max over the ranks),
     qwen3-moe at capacity factor 0.25, where the one-process step drops
     tokens (so the global capacity, the slots after the lower ranks'
-    tokens and the global load-balance statistics are held), and adam +
+    tokens and the global load-balance statistics are held), adam +
     ZeRO-1 under "zero3" on qwen2.5-3b widened to vocab 4096 / d_ff 2048
-    (at smoke size no leaf reaches _add_fsdp's 2^20-element floor);
-  * the serve step (one decode round at batch 4, cache 16, position 3,
-    under ``serve_shardings``);
+    (at smoke size no leaf reaches _add_fsdp's 2^20-element floor), and
+    qwen2.5-3b with one kv head (both model ranks' q heads read it) and
+    with 3 q heads (the split would cut a head: the attention gathered);
+  * decode rounds (batch 4, cache 16, position 3, under
+    ``serve_shardings``): on the 2 x 2 mesh, blinded and unblinded, on a
+    4 x 1 mesh of the same ranks (compute over the batch only), and with
+    one kv head, whose cache lies over "model" by T; a (4, 16) prefill,
+    sequence-parallel;
   * on every rank, every leaf's block has the shape its spec gives the
     whole leaf, before and after the step, and the passive parties stay
-    views of the stacked group's block.
+    views of the stacked group's block;
+  * the recording mesh's collectives of a prefill and of a decode round
+    (the meta device, an abstract 2 x 2 mesh): activations only, their
+    bytes by formula.
 
 Tolerances. Against the port's one-process step: the losses rtol 1e-6
 (7e-8 relative measured: the global mean sums the ranks' token sums in
 another order), the sgd cases' updated parameters atol 1e-7 / rtol 1e-6
-(1.5e-8 measured), the decode logits and caches bit for bit. Against the
-reference: tests/test_torch_lm.py's rtol 1e-4 / atol 1e-5 for losses,
-parameters, logits and caches. The adam case's first update is
+(1.5e-8 measured); the 4 x 1 decode's logits and caches bit for bit; the
+tensor-parallel decode and prefill as ``_close_tp`` and
+``_close_tp_caches`` say. Against
+the reference: tests/test_torch_lm.py's rtol 1e-4 / atol 1e-5 for
+losses, parameters, E, logits and caches. The adam case's first update is
 lr * g / (|g| + eps), about lr * sign(g), so where the clipped gradient
 is under 1e-4 its sign, and the update, may differ by up to 2 lr: held
 at the tolerance above where |g| >= 1e-4 and within 2 lr + 1e-5 elsewhere,
@@ -90,10 +102,13 @@ def spawned(tmp_path_factory):
     # the reference's compiles, a few at once (XLA compiles without the GIL)
     with concurrent.futures.ThreadPoolExecutor(3) as refs:
         jobs = [refs.submit(_reference, name) for name in CASES]
-        jobs.append(refs.submit(_reference_serve))
+        jobs += [refs.submit(_reference_serve, name) for name in SERVES]
+        jobs.append(refs.submit(_reference_prefill))
         for name in CASES:
             _one_process(name)
-        _one_process_serve()
+        for name in SERVES:
+            _one_process_serve(name)
+        _one_process_prefill()
         for j in jobs:
             j.result()
     yield fut.result()
@@ -159,33 +174,69 @@ def _reference(name):
             jax.tree.map(np.asarray, new))
 
 
+SERVES = {c[0]: c for c in ranks.SERVE_CASES}
+
+
 @functools.lru_cache(maxsize=None)
-def _one_process_serve():
-    cfg = ranks.config("qwen2.5-3b", {})
+def _one_process_serve(name):
+    _, changes, _, lanes, blinded = SERVES[name]
+    cfg = ranks.config("qwen2.5-3b", changes)
     sys_ = ranks.system(cfg)
     params = sys_.init_params(torch.Generator().manual_seed(2))
-    serve = steps.build_serve_step(sys_, ranks.InputShape(
-        "d", ranks.S, ranks.B, "decode"))
-    logits, caches = serve(params, ranks.serve_inputs(cfg),
-                           sys_.init_caches(ranks.B, ranks.S),
+    serve = ranks.serve_step(sys_, lanes, blinded)
+    logits, caches = serve(params, ranks.serve_inputs(cfg, lanes=lanes),
+                           sys_.init_caches(lanes, ranks.S),
                            ranks.SERVE_POS)
     return logits.numpy(), _np(caches)
 
 
-@functools.lru_cache(maxsize=None)
-def _reference_serve():
-    cfg = ranks.config("qwen2.5-3b", {})
+def _weights(cfg):
     sys_ = ranks.system(cfg)
-    tree = sys_.export_params(sys_.init_params(
+    return sys_.export_params(sys_.init_params(
         torch.Generator().manual_seed(2)))
-    js = _ref_system("qwen2.5-3b", {})
-    serve = jsteps.build_serve_step(js, JInputShape("d", ranks.S, ranks.B,
-                                                    "decode"))
-    batch = {"tokens": jnp.asarray(ranks.serve_inputs(cfg)["tokens"].numpy())}
-    logits, caches = _jit(serve, jax.tree.map(jnp.asarray, tree), batch,
-                          js.init_caches(ranks.B, ranks.S),
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_serve(name):
+    _, changes, _, lanes, blinded = SERVES[name]
+    cfg = ranks.config("qwen2.5-3b", changes)
+    js = _ref_system("qwen2.5-3b", changes)
+    if blinded:
+        serve = jsteps.build_serve_step(js, JInputShape("d", ranks.S, lanes,
+                                                        "decode"))
+    else:
+        def serve(params, batch, caches, pos):
+            return js.serve_step(params, batch["tokens"], caches, pos, None)
+    batch = {"tokens": jnp.asarray(ranks.serve_inputs(
+        cfg, lanes=lanes)["tokens"].numpy())}
+    logits, caches = _jit(serve, jax.tree.map(jnp.asarray, _weights(cfg)),
+                          batch, js.init_caches(lanes, ranks.S),
                           jnp.asarray(ranks.SERVE_POS, jnp.int32))
     return np.asarray(logits), jax.tree.map(np.asarray, caches)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_process_prefill():
+    cfg = ranks.config("qwen2.5-3b", {})
+    sys_ = ranks.system(cfg)
+    prefill = steps.build_prefill_step(sys_, ranks.InputShape(
+        "p", ranks.S, ranks.B, "prefill"))
+    E, caches = prefill(sys_.init_params(torch.Generator().manual_seed(2)),
+                        ranks.prefill_inputs(cfg))
+    return E.numpy(), _np(caches)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_prefill():
+    cfg = ranks.config("qwen2.5-3b", {})
+    js = _ref_system("qwen2.5-3b", {})
+    prefill = jsteps.build_prefill_step(js, JInputShape(
+        "p", ranks.S, ranks.B, "prefill"))
+    batch = {"tokens": jnp.asarray(ranks.prefill_inputs(cfg)[
+        "tokens"].numpy())}
+    E, caches = _jit(prefill, jax.tree.map(jnp.asarray, _weights(cfg)),
+                     batch)
+    return np.asarray(E), jax.tree.map(np.asarray, caches)
 
 
 def _close(got, want, rtol, atol):
@@ -261,56 +312,183 @@ def test_zero3_case_shards_over_data():
     assert ospec["m"]["parties"][0]["final_norm"]["scale"] == ("data",)
 
 
-def test_sharded_serve_step_matches_single_device(spawned):
+def _close_tp(got, want, ulps=16):
+    """A tensor-parallel output against one process: rtol 1e-6 and an atol
+    of ``ulps`` float32 ulps (2^-23) of the leaf's largest magnitude. The
+    row-parallel products (wo, down) and the vocabulary's log-sum-exp add
+    their partials in another order than one process's GEMM, and every
+    later layer carries the difference; its error scales with the
+    magnitudes summed, not with the element, so an element near 0 fails
+    a plain atol 1e-7. Measured (2 x 2, smoke qwen2.5-3b): at most 8.2
+    ulps of the largest logit, 4.8 of E, and the same with the uplink
+    unblinded ("serve-raw": 2.62e-6 against 2.72e-6 blinded), so the
+    blinding adds nothing to it."""
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        np.testing.assert_allclose(
+            a, b, rtol=1e-6, atol=ulps * 2.0 ** -23 * np.abs(b).max())
+
+
+def _close_tp_caches(got, want):
+    """Tensor-parallel K/V caches (by party, by segment) against one
+    process: the stack's first layer bit for bit, as no row-parallel sum
+    lies before it (its k / v come from the rank's columns of wk / wv and
+    the vocabulary-parallel embedding, both exact), every later layer at
+    ``_close_tp`` with 8 ulps (measured: at most 4.9)."""
+    for party_got, party_want in zip(got, want):
+        for si, (seg_got, seg_want) in enumerate(zip(party_got, party_want)):
+            for a, b in zip(tree_leaves(seg_got), tree_leaves(seg_want)):
+                a, b = np.asarray(a), np.asarray(b)
+                if b.dtype.kind != "f":
+                    np.testing.assert_array_equal(a, b)
+                    continue
+                if si == 0:
+                    np.testing.assert_array_equal(a[0], b[0])
+                    a, b = a[1:], b[1:]
+                _close_tp(a, b, ulps=8)
+
+
+@pytest.mark.parametrize("name", list(SERVES))
+def test_sharded_serve_step_matches_single_device(spawned, name):
+    """On the 4 x 1 mesh (compute split over the batch only) the logits
+    and caches are the one process's bits; under "tp" on 2 x 2 they are
+    held by ``_close_tp`` and ``_close_tp_caches``, blinded or not. The
+    T-split case's cache lies over "model" by T, the others' do not."""
     for r in spawned:
-        assert r["serve"]["bad_blocks"] == []
-    got = spawned[0]["serve"]
-    logits, caches = _one_process_serve()
-    np.testing.assert_array_equal(got["logits"], logits)
-    for a, b in zip(tree_leaves(got["caches"]), tree_leaves(caches)):
-        np.testing.assert_array_equal(a, b)
-    r_logits, r_caches = _reference_serve()
+        assert r[name]["bad_blocks"] == []
+        assert bool(r[name]["t_split"]) == (name == "serve-t-split")
+    got = spawned[0][name]
+    logits, caches = _one_process_serve(name)
+    if SERVES[name][2][1] == 1:
+        np.testing.assert_array_equal(got["logits"], logits)
+        for a, b in zip(tree_leaves(got["caches"]), tree_leaves(caches)):
+            np.testing.assert_array_equal(a, b)
+    else:
+        _close_tp(got["logits"], logits)
+        _close_tp_caches(got["caches"], caches)
+    r_logits, r_caches = _reference_serve(name)
     np.testing.assert_allclose(got["logits"], r_logits, rtol=RTOL, atol=ATOL)
     _close(got["caches"], r_caches, RTOL, ATOL)
+
+
+def test_sharded_prefill_matches_single_device(spawned):
+    """A (4, 16) prefill: S divides the model axis, so the stream between
+    layers is sequence-parallel (reduce-scatters after the row-parallel
+    products); E (``_close_tp``) and the caches (``_close_tp_caches``)
+    against one process, and both against the reference."""
+    for r in spawned:
+        assert r["prefill"]["bytes"]["reduce-scatter"] > 0
+    got = spawned[0]["prefill"]
+    E, caches = _one_process_prefill()
+    _close_tp(got["E"], E)
+    _close_tp_caches(got["caches"], caches)
+    r_E, r_caches = _reference_prefill()
+    np.testing.assert_allclose(got["E"], r_E, rtol=RTOL, atol=ATOL)
+    _close(got["caches"], r_caches, RTOL, ATOL)
+
+
+def _recorded_step(kind, B, S, changes=None):
+    """A smoke qwen2.5-3b step (``kind`` "prefill" or "decode", B rows of
+    S) on the meta device as rank 0 of an abstract 2 x 2 mesh: (config,
+    system, the recording mesh, the output, the step's parameter
+    specs)."""
+    cfg = ranks.config("qwen2.5-3b", changes or {})
+    sys_ = steps.make_system(cfg, ranks.system(cfg).easter, device="meta")
+    params = steps.abstract_params(sys_)
+    shape = ranks.InputShape("s", S, B, kind)
+    specs = steps.input_specs(cfg, shape, sys_)
+    rec = mesh.RecordingMesh(mesh.abstract_mesh((2, 2), ("data", "model")))
+    if kind == "prefill":
+        step = steps.build_prefill_step(sys_, shape)
+        in_sh, out_sh = steps.prefill_shardings(
+            sys_, rec, specs, params, ranks.meta_caches(sys_, B, S))
+        args = [params, specs["batch"]]
+    else:
+        step = steps.build_serve_step(sys_, shape)
+        in_sh, out_sh = steps.serve_shardings(sys_, rec, specs, params)
+        args = [params, specs["batch"], specs["caches"], specs["pos"]]
+    local = [sharding.shard_tree(a, s, rec) if isinstance(s, (dict, list))
+             else a for a, s in zip(args, in_sh)]
+    out = steps.shard_step(step, rec, in_sh, out_sh)(*local)
+    return cfg, sys_, rec, out, in_sh[0]
+
+
+def _no_weight_gathered(rec, sys_, pspec):
+    """No all-gather or broadcast of the recording has the shape of a
+    leaf the model axis splits, or of one layer (or one party's layer) of
+    it: every moved tensor is an activation."""
+    params = steps.abstract_params(sys_)
+    split = [tuple(x.shape) for x, s in zip(
+        tree_leaves({"parties": params["parties"]}),
+        sharding.spec_leaves({"parties": pspec["parties"]}))
+        if "model" in tuple(s)]
+    shapes = {sh[i:] for sh in split for i in range(3)}
+    assert split
+    assert not [c for c in rec.calls if c[0] in ("all-gather", "broadcast")
+                and c[2] in shapes]
 
 
 def test_collective_bytes_of_a_prefill():
     """The recording mesh on a smoke prefill (the meta device, rank 0 of an
     abstract 2 x 2 mesh, one prompt row, which does not divide over
-    "data", so no embedding rows are gathered): its all-gathers move the
-    whole bytes of every sharded parameter leaf, once each, but the token
-    tables, whose prompt rows are looked up where they lie and summed over
-    the vocabulary's axis (one all-reduce of (parties, tokens, d_model));
-    nothing else moves."""
+    "data", of S = 16 positions, which divides over "model") under the
+    tensor-parallel compute: no parameter moves (the heads, the MLP's
+    columns and rows and the vocabulary stay each rank's block); the
+    token rows are summed over the vocabulary's axis (one all-reduce of
+    (parties, S, d_model)); each party's stream enters its S blocks once
+    (no traffic), and each of its layers' attention and MLP all-gathers
+    its block (1, S, d) and reduce-scatters back (1, S / 2, d); the
+    stream is all-gathered whole once at the stack's end; the passive
+    group's 3 parties move as one (3, ...) tensor. Nothing else moves."""
     from repro_torch.launch import dryrun
-    cfg = ranks.config("qwen2.5-3b", {})
-    sys_ = steps.make_system(cfg, ranks.system(cfg).easter, device="meta")
-    params = steps.abstract_params(sys_)
-    shape = ranks.InputShape("p", ranks.S, 1, "prefill")
-    specs = steps.input_specs(cfg, shape, sys_)
-    rec = mesh.RecordingMesh(mesh.abstract_mesh((2, 2), ("data", "model")))
-    prefill = steps.build_prefill_step(sys_, shape)
-    out_caches = prefill(params, specs["batch"])[1]
-    in_sh, out_sh = steps.prefill_shardings(sys_, rec, specs, params,
-                                            out_caches)
-    lp = sharding.shard_tree(params, in_sh[0], rec)
-    lb = sharding.shard_tree(specs["batch"], in_sh[1], rec)
-    E, _ = steps.shard_step(prefill, rec, in_sh, out_sh)(lp, lb)
+    cfg, sys_, rec, (E, _), pspec = _recorded_step("prefill", 1, ranks.S)
     assert tuple(E.shape) == (1, ranks.S, sys_.easter.d_embed)
-    tree = {"parties": params["parties"]}
-    leaves = list(zip(tree_leaves(tree), sharding.spec_leaves(
-        {"parties": in_sh[0]["parties"]})))
-    tables = {id(p["backbone"]["embed"]["table"]) for p in tree["parties"]}
-    assert all(s == ("model", None) for x, s in leaves if id(x) in tables)
-    want = sum(x.numel() * x.element_size() for x, s in leaves
-               if any(e is not None for e in s) and id(x) not in tables)
-    rows = sys_.C * ranks.S * cfg.d_model * 4
+    S, d, f32 = ranks.S, cfg.d_model, 4
+    n_act = sys_.party_cfgs[0].n_layers
+    n_pas = sys_.party_cfgs[1].n_layers
+    K = sys_.C - 1
+    row = S * d * f32                       # one party's (1, S, d)
+    rows = sys_.C * row
+    gathers = (2 * n_act + 1) * row + (2 * n_pas + 1) * K * row
+    scatters = (2 * n_act * row + 2 * n_pas * K * row) // 2
     coll = dryrun.collective_bytes(rec)
-    assert want > 0
-    assert coll["all-gather"] == want
     assert coll["all-reduce"] == rows
-    assert coll["total"] == want + rows
+    assert coll["all-gather"] == gathers
+    assert coll["reduce-scatter"] == scatters
+    assert coll["broadcast"] == 0
+    assert coll["total"] == rows + gathers + scatters
     assert coll["count"] == len(rec.calls)
+    _no_weight_gathered(rec, sys_, pspec)
+
+
+def test_collective_bytes_of_a_decode_round():
+    """A decode round (4 lanes, 2 a data rank, cache 16) as rank 0 of the
+    abstract 2 x 2 mesh: the embedding's all-reduce of (parties, 2,
+    d_model), two all-reduces of (2, 1, d_model) a dense layer (the
+    attention's and the MLP's row-parallel sums; the passive group's as
+    one (3, 2, 1, d_model)), the decision MLP's (2, 1, d_embed), and the
+    logits' all-gathers (over the vocabulary, then the data rows); no
+    weight moves."""
+    from repro_torch.launch import dryrun
+    B, T = 4, ranks.S
+    cfg, sys_, rec, (logits, _), pspec = _recorded_step("decode", B, T)
+    assert tuple(logits.shape) == (B, 1, cfg.vocab_size)
+    d, de, f32 = cfg.d_model, sys_.easter.d_embed, 4
+    b = B // 2
+    n_act = sys_.party_cfgs[0].n_layers
+    n_pas = sys_.party_cfgs[1].n_layers
+    K = sys_.C - 1
+    layers = 2 * (n_act + K * n_pas) * b * d * f32
+    embed = sys_.C * b * d * f32
+    decision = sys_.easter.decision_layers * b * de * f32
+    want_ar = layers + embed + decision
+    gathers = b * cfg.vocab_size * f32 + B * cfg.vocab_size * f32
+    coll = dryrun.collective_bytes(rec)
+    assert coll["all-reduce"] == want_ar
+    assert coll["all-gather"] == gathers
+    assert coll["reduce-scatter"] == 0 and coll["broadcast"] == 0
+    assert coll["total"] == want_ar + gathers
+    _no_weight_gathered(rec, sys_, pspec)
 
 
 def test_dryrun_runs_a_step_as_rank_0_of_16x16(tmp_path):
