@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phase baselines  # or wire
     python3 chip_smoke.py --phase sharded
     python3 chip_smoke.py --phase fsdp
+    python3 chip_smoke.py --phase split_depth
 
 Phases, each printing its own lines:
 
@@ -226,7 +227,7 @@ Phases, each printing its own lines:
           (data x model) MeshGroup. (a) qwen2-1.5b as train runs it (full
           width, bfloat16, remat per layer, adam 1e-3 clip 1.0, 4 x 2048
           tokens a step from lm_batch_iterator(seed=0), one row a rank)
-          but cut to 8 layers (three 2-layer proxies; gloo moves each
+          but cut to 6 layers (three 2-layer proxies; gloo moves each
           rank's gathers at under a GB/s, and the phase must stay within
           180 s) under layout zero3 with ZeRO-1, 2 steps, beside the same
           2 steps in one process on the card first: losses (every rank's the same, finite; step 0
@@ -249,8 +250,9 @@ Phases, each printing its own lines:
           tensor-parallel compute over "model" (heads, MLP columns and
           rows, the vocabulary). (d) qwen2.5-3b at full width and depth
           (36 layers, 16/2 heads of 128, three 9-layer proxies, 6.181e9
-          parameters, bfloat16, the card's generator seeded 0, drawn by
-          the ranks in turns) under prefill_shardings / serve_shardings:
+          parameters, bfloat16, the card's generator seeded 0, the ranks
+          drawing every leaf in turns, each keeping its blocks) under
+          prefill_shardings / serve_shardings:
           4 lanes (2 a data rank) of 512-token prompts, then 16 greedy
           rounds; per rank the resident parameter bytes, peak memory,
           prefill ms and ms a round, and the collectives' bytes of the
@@ -262,6 +264,30 @@ Phases, each printing its own lines:
           all-gather of a leaf the model axis splits in a round; the
           tokens beside the one process's on the same weights (run by
           the parent before the ranks work) printed, not asserted.
+          (e)-(g) the split MoE, SSD and RG-LRU stacks, served as (d)
+          (4 lanes of 512-token prompts, greedy rounds; each layer
+          stack's rows cut as they are drawn): (e) qwen2-moe-a2.7b at
+          full width and depth (24 layers, 16/16 heads of 128, 60
+          experts top-4, 15 a rank, 4 shared; three 6-layer MoE
+          proxies; 25.29e9 parameters) on a 1 x 4 (data x model) mesh
+          of the same ranks, 4 rounds; (f) mamba2-2.7b at full width
+          and depth (64 layers, 80 heads of 64, 40 a rank; 5.05e9) on
+          the 2 x 2 mesh, 4 rounds; (g) recurrentgemma-9b at full width
+          (the LRU's 4096 width, 1024 a rank; 4 q heads over the one kv
+          head of 256, its cache split by T) on 1 x 4, cut to 6 layers,
+          two whole (lru, lru, attn) repeats (FSDP_RG_LAYERS), 4
+          rounds; then
+          float32 cuts of (e) (6 layers) and (f) (16 layers) at full
+          width on the same meshes, one teacher-forced round. Each
+          prints and asserts as (d), with the prefill's
+          flash_attention_fwd and (g)'s rglru_scan_fwd launches
+          predicted from the stacks (every rglru_scan_fwd on the TMA
+          path at the rank's width), the collectives' bytes and count
+          by kind of the prefill and of the last round, and round 0's
+          logits against the one process's (the parent runs each before
+          the ranks work): the float32 cuts within FSDP_SPLIT_F32_REL,
+          (f) and (g) within their limits in FSDP_SPLIT, (e) printed
+          (bfloat16 rounding of the split sums grows with depth).
   gemma_cut  gemma3-4b at full width (d_model 2560, 8/4 heads of 256,
           gelu MLP of 10240, vocab 262,144) cut to one (5 local, 1 global)
           period: 6 active layers, 2 local per passive proxy, float32 with
@@ -325,7 +351,11 @@ whisper and vlm (the
 whisper-small and qwen2-vl-7b serving runs), frontend_cuts (whisper_cut
 and vlm_cut), cuts (gemma_cut, moe_cut, mamba_cut, whisper_cut and
 vlm_cut), train (the train phase), sharded (the lm depth cut, for its
-CPU outputs, then the sharded phase), fsdp (the fsdp phase), agg (the
+CPU outputs, then the sharded phase), fsdp (the fsdp phase),
+split_depth (the fsdp phase's split MoE and SSD paths at depth cuts in
+float32 and bfloat16, round 0's logits against one process's, beside
+the one process in bfloat16 against itself in float32: bfloat16's own
+error at that depth; FSDP_SPLIT), agg (the
 blind_agg_fwd / blind_agg_bwd timing and the launch floor; --save and
 --compare as for prng, the backward's outputs required to be bit for bit
 the other checkout's), flash, rglru (the rglru timing) or prng (the prng
@@ -338,7 +368,7 @@ top-k (float masks, fused masks, joint), qwen2.5-3b
 serving, recurrentgemma-9b serving, qwen2-1.5b training, its joint step,
 qwen2-moe-a2.7b serving, mamba2-2.7b serving, whisper-small serving,
 qwen2-vl-7b serving; in the sharded phase's ranks every round; in the
-fsdp phase's ranks (a), (b), (c) and (d)) and read
+fsdp phase's ranks (a) to (g)) and read
 just after; every kernel
 must have launched on some path, and blind_agg_fwd's launches are printed
 by party-group count G, path by path. The second-to-last line is the JSON
@@ -420,6 +450,13 @@ FLASH_PREFILL_HEADS = (16, 2, 128)
 # 512-token prefill of the active party's 2 lanes and of the passive
 # group's 6 (3 parties x 2 lanes, folded into the batch axis)
 FLASH_TP_HEADS, FLASH_TP = (8, 1, 128), ((2, 512), (6, 512))
+# a model rank's heads at m = 4 (the fsdp phase's (e) and (g)): qwen2-moe's
+# 4/4 of 128 and recurrentgemma's 4 q heads over its one kv head of 256,
+# windowed at 2048, at the 512-token prefill of the active party's 4 lanes
+# and of the passive group's 12 (3 parties x 4 lanes, folded into the
+# batch axis: on a 1 x 4 mesh a rank holds every lane)
+FLASH_TP_SPLIT = (((4, 4, 128), 0), ((4, 1, 256), 2048))
+FLASH_TP_SPLIT_BS = ((4, 512), (12, 512))
 # the recurrentgemma-9b serving slice: the same serving run on Griffin
 # parties (38 layers: 12 x (lru, lru, attn) + (lru, lru); three 9-layer
 # passive proxies), 16/1/256 heads with a local window of 2048; the depth
@@ -502,6 +539,13 @@ RGLRU_SERVE = tuple((B, L, 4096) for B in (1, 3) for L in (511, 1023, 2047))
 # widths whose rows are not a multiple of 16 bytes, and L = 0: the kernel
 # of one thread per column
 RGLRU_PER_COLUMN = ((2, 7, 101), (1, 1000, 102), (2, 0, 64))
+# the timing shapes (B, L, W), float32: the serving path's largest
+# prefills, and a model rank's width block of recurrentgemma-9b's under
+# the fsdp phase's (g) (512 tokens, 4096 / 4 wide: the active party's 4
+# lanes and the passive group's 12, 3 parties x 4 lanes); each must take
+# the TMA path
+RGLRU_TIMING = ((1, 2047, 4096), (3, 2047, 4096), (4, 512, 1024),
+                (12, 512, 1024))
 
 
 def log(phase: str, msg: str) -> None:
@@ -1951,10 +1995,12 @@ def phase_flash():
     # the passive group's, folded into the batch axis (B = 3), at
     # qwen2.5-3b's, recurrentgemma-9b's, gemma3-4b's and qwen2-moe-a2.7b's
     # heads and windows; and a model rank's heads under the fsdp phase's
-    # tensor-parallel prefill
+    # tensor-parallel prefills (at m = 2 and m = 4)
     prefill_shapes = [(heads, window, B, S) for _, heads, window
                       in FLASH_MODELS for B, S in FLASH_PREFILL] + [
-        (FLASH_TP_HEADS, 0, B, S) for B, S in FLASH_TP]
+        (FLASH_TP_HEADS, 0, B, S) for B, S in FLASH_TP] + [
+        (heads, window, B, S) for heads, window in FLASH_TP_SPLIT
+        for B, S in FLASH_TP_SPLIT_BS]
     for heads, window, B, S in prefill_shapes:
         for dt in (f32, bf16):
             err, used, ok = _flash_prefill_case(B, S, dt, gen, heads,
@@ -2024,7 +2070,10 @@ def phase_flash():
                  f"16/2/128 causal, 16/1/256 causal window {RG_WINDOW}, "
                  f"8/4/256 causal window {GEMMA_WINDOW} and 16/16/128 "
                  f"causal, a model rank's 8/1/128 causal at (B, S) in "
-                 f"{FLASH_TP} x float32/bfloat16, the frontend families' "
+                 f"{FLASH_TP} and its (heads, window) in {FLASH_TP_SPLIT} "
+                 f"at (B, S) in {FLASH_TP_SPLIT_BS} x float32/bfloat16, the "
+                 f"frontend "
+                 f"families' "
                  f"(B, S, T, heads, causal) in {FLASH_FRONTEND} x "
                  f"float32/bfloat16; worst "
                  f"float32 {worst[f32]:.3g}, bfloat16 {worst[bf16]:.3g}; "
@@ -2138,8 +2187,7 @@ def phase_timing_rglru():
     from repro_torch.kernels import rg_lru as trg
     gen = torch.Generator(device="cuda").manual_seed(13)
     out = {}
-    for B in (1, 3):
-        L, W = 2047, 4096
+    for B, L, W in RGLRU_TIMING:
         a, b, h0 = _rglru_inputs(B, L, W, torch.float32, gen)
         kern = lambda: trg.rglru_scan_fwd(a, b, h0)
         plain = lambda: ref.reference_rglru(a, b, h0)
@@ -2156,11 +2204,13 @@ def phase_timing_rglru():
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = ops_ / FP32_FLOPS * 1e3
         bound = max(byte_ms, op_ms)
-        out[B] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+        key = B if W == 4096 else f"{B}x{L}x{W}"
+        out[key] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                   "bound_ms": bound,
                   "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                   "bytes": nbytes, "ops": ops_,
                   "gb_per_s": nbytes / (min(k1, k2) * 1e-3) / 1e9,
+                  "path": trg.kernel_path(a, b),
                   "not_bit_identical": diff}
         log("timing", f"rglru_scan_fwd ({B}, {L}, {W}) float32: kernel "
                       f"{k1:.4f}/{k2:.4f} ms, plain (host clock) "
@@ -2168,12 +2218,16 @@ def phase_timing_rglru():
                       f"B at 3.35 TB/s, data-sheet peak; bound by bytes; "
                       f"{ops_} FP32 operations {op_ms:.5f} ms), kernel at "
                       f"{min(k1, k2) / bound:.2f}x it "
-                      f"({out[B]['gb_per_s']:.0f} GB/s); {diff} elements "
+                      f"({out[key]['gb_per_s']:.0f} GB/s, the "
+                      f"{out[key]['path']} path); {diff} elements "
                       f"not bit for bit the plain version's; no single "
                       f"PyTorch call computes it (library_ms null)")
         if diff:
             raise AssertionError(f"rglru_scan_fwd at ({B}, {L}, {W}): {diff} "
                                  f"elements differ from the plain version")
+        if out[key]["path"] != "tma":
+            raise AssertionError(f"rglru_scan_fwd at ({B}, {L}, {W}): the "
+                                 f"{out[key]['path']} path, not the TMA one")
     return out
 
 
@@ -3900,9 +3954,9 @@ def phase_sharded(cut_cpu=None):
 # (a)'s steps: at full depth 3 took 62 + 41 + 41 s a rank over gloo and 2
 # took 73 + 48 (H100 80GB HBM3 at 700 W; PERF.md), past the phase's 180
 # s with (b) and (c); at 14 layers the phase fit, but the whole script
-# took ~1,010 s of the 1000 asked; so 2 steps at 8 layers (three 2-layer
-# proxies; the width whole)
-FSDP_RANKS, FSDP_MESH, FSDP_STEPS, FSDP_TRAIN_LAYERS = 4, (2, 2), 2, 8
+# took ~1,010 s of the 1000 asked; so 2 steps at 8 layers; since (e)-(g)
+# joined the phase, 6 layers (three 2-layer proxies)
+FSDP_RANKS, FSDP_MESH, FSDP_STEPS, FSDP_TRAIN_LAYERS = 4, (2, 2), 2, 6
 FSDP_CUT_LAYERS, FSDP_CUT_BATCH, FSDP_CUT_SEQ, FSDP_LR = 2, 4, 128, 1e-3
 FSDP_SERVE_LAYERS, FSDP_SERVE_LANES = 2, 4
 FSDP_SERVE_PROMPT, FSDP_SERVE_ROUNDS = 64, 4
@@ -3915,6 +3969,35 @@ FSDP_FULL_LANES, FSDP_FULL_PROMPT, FSDP_FULL_ROUNDS = 4, 512, 16
 # the model ranks; 0.0282 of it measured on the H100, about 7 bfloat16
 # ulps; a wrong head, block or reduction moves them by the order of 1)
 FSDP_FULL_LOGIT_REL = 2.0 ** -4
+# (e)-(g): the split MoE, SSD and RG-LRU stacks at full width under the
+# tensor-parallel compute, served as (d): (key, arch, mesh (data, model),
+# active layers (None: full depth), greedy rounds, the active layers of a
+# float32 cut run beside it (None: none), the limit on round 0's logits
+# against the one process's, as a share of its largest |logit| (None:
+# printed)). (g) is cut to two whole (lru, lru, attn) repeats: at full
+# depth (38 layers) it took 45 s of the ranks' work and the phase 233 s
+# (H100 80GB HBM3, 700 W). Each runs 4 greedy rounds: a round moves the
+# same bytes and launches the same kernels as the last, and (e)'s and
+# (f)'s 16 took 40 s of the phase. In bfloat16 the round-0 logits part
+# from the one process's with depth, each rounding amplified layer by
+# layer (H100 80GB HBM3, 700 W; --phase split_depth): (f) 0.031 of the
+# largest |logit| at 16 layers and 0.0715 at 64, the size of the one
+# process's own bfloat16 error against its float32 run (0.031, 0.069):
+# (f) is held within 2^-3. (e) 0.023 at 2 layers, 0.123 at 6 (0.107 from
+# the float32 one process, whose own bfloat16 run is 0.028 from it: the
+# split rounds each rank's partial sum to bfloat16 and gloo sums them in
+# bfloat16) and 0.862 at 24, near the largest |logit| itself, where no
+# limit tells a fault from rounding: (e) is printed. Each of (e) and (f)
+# also runs a float32 cut at full width on the same mesh, held to the
+# one process within FSDP_SPLIT_F32_REL of the largest |logit|: 6 layers
+# for (e) and 16 for (f), layers past the first two checked against one
+# process
+FSDP_RG_LAYERS, FSDP_SPLIT_F32_REL, FSDP_SPLIT_ROUNDS = 6, 1e-4, 4
+FSDP_SPLIT = (("e", MOE_ARCH, (1, 4), None, FSDP_SPLIT_ROUNDS, 6, None),
+              ("f", MAMBA_ARCH, (2, 2), None, FSDP_SPLIT_ROUNDS, 16,
+               2.0 ** -3),
+              ("g", RG_ARCH, (1, 4), FSDP_RG_LAYERS, FSDP_SPLIT_ROUNDS, None,
+               FSDP_FULL_LOGIT_REL))
 
 
 def _fsdp_batches(cfg):
@@ -3983,8 +4066,8 @@ def _fsdp_one_process(cfg, batches):
     return out
 
 
-def _fsdp_rank(batches, cut_batch, prompt, prompt_full, ref_dir, go,
-               t_spawn):
+def _fsdp_rank(batches, cut_batch, prompt, prompt_full, prompts_split, ref_dir,
+               go, t_spawn):
     """One rank of the fsdp phase: started while the parent's one-process
     runs hold the card, it joins the group and waits for the file ``go``;
     then (a) qwen2-1.5b under zero3 + ZeRO-1, (b) its float32 cut's joint
@@ -3992,8 +4075,9 @@ def _fsdp_rank(batches, cut_batch, prompt, prompt_full, ref_dir, go,
     (``ref_dir``, written by the parent meanwhile), (c) qwen2.5-3b's
     float32 cut served under serve_shardings, (d) qwen2.5-3b at full width
     and depth served under the tensor-parallel compute
-    (``prompt_full``); results for the parent, numpy, with the seconds
-    each part ended at (``marks``)."""
+    (``prompt_full``), (e)-(g) the split MoE, SSD and RG-LRU stacks
+    (``FSDP_SPLIT``, ``prompts_split``); results for the parent, numpy,
+    with the seconds each part ended at (``marks``)."""
     import torch
     from repro_torch import sharding
     from repro_torch.configs.base import EasterConfig
@@ -4004,6 +4088,10 @@ def _fsdp_rank(batches, cut_batch, prompt, prompt_full, ref_dir, go,
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     m = mesh.make_debug_mesh(*FSDP_MESH, device="cuda")
+    # the other shapes of the same ranks, made by every rank in one order
+    meshes = {tuple(FSDP_MESH): m}
+    for shape in sorted({sh for _, _, sh, *_ in FSDP_SPLIT} - set(meshes)):
+        meshes[shape] = mesh.make_debug_mesh(*shape, device="cuda")
     torch.zeros((), device=m.device)            # this rank's CUDA context
     res = {"rank": m.rank, "coords": dict(m.coords), "backend": m.backend,
            "start_s": time.time() - t_spawn,
@@ -4099,10 +4187,105 @@ def _fsdp_rank(batches, cut_batch, prompt, prompt_full, ref_dir, go,
                 f"round {[round(x, 1) for x in d['round_ms']]}, resident "
                 f"{d['resident'] / 1e9:.3f} GB, peak {d['peak'] / 1e9:.2f} "
                 f"GB; {res['marks']}")
-    res["work_s"] = time.perf_counter() - t_go
     del sys_
     _free_card()
+    # (e)-(g) the split MoE, SSD and RG-LRU stacks, every rank drawing its
+    # blocks at once
+    for key, cfg_, shape, rounds in _fsdp_split_runs():
+        sys_ = _lm_system(cfg_, "cuda")
+        res[key] = r = _fsdp_serve(sys_, meshes[shape],
+                                   prompts_split[key[0]], rounds, detail=True)
+        mark(f"({key}) served")
+        log("fsdp", f"rank {m.rank}: ({key}) prefill {r['prefill_ms']:.1f} "
+                    f"ms, ms a round {[round(x, 1) for x in r['round_ms']]}, "
+                    f"resident {r['resident'] / 1e9:.3f} GB, peak "
+                    f"{r['peak'] / 1e9:.2f} GB; {res['marks']}")
+        del sys_
+        _free_card()
+    res["work_s"] = time.perf_counter() - t_go
     return res
+
+
+def _fsdp_split_cfg(arch, layers=None, dtype=None):
+    """``arch``'s config, cut to ``layers`` active layers and in ``dtype``
+    where given."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    kw = {k: v for k, v in (("n_layers", layers), ("dtype", dtype))
+          if v is not None}
+    return dataclasses.replace(cfg, **kw)
+
+
+def _fsdp_split_runs():
+    """(key, config, mesh, rounds) of every split-block run of the fsdp
+    phase: each FSDP_SPLIT path, then its float32 cut ("e32", "f32"), one
+    teacher-forced round."""
+    runs = [(key, _fsdp_split_cfg(arch, layers), shape, rounds)
+            for key, arch, shape, layers, rounds, *_ in FSDP_SPLIT]
+    return runs + [(key + "32", _fsdp_split_cfg(arch, cut, "float32"),
+                    shape, 1)
+                   for key, arch, shape, _, _, cut, _ in FSDP_SPLIT if cut]
+
+
+def _draw_blocks(sys_, gen, pspec, m, full):
+    """This rank's blocks of ``sys_.init_params(gen)`` (the one process's
+    bits: every leaf drawn from ``gen`` in the same order) without holding
+    the whole tree: each layer stack's rows cut to this rank's block as
+    they are drawn (``transformer.stack_drawn`` swapped for a cutting one
+    during the draw; a stack row's spec is the stacked leaf's without its
+    first entry, which no axis of more than one rank splits), the other
+    leaves (tables, norms, the decision MLPs) cut once it ends. ``full``:
+    the whole tree on the meta device. The draw holds this rank's blocks,
+    one drawn layer and every party's whole tables."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.core.party_engine import unstack_tree
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+    fsdp = steps.use_fsdp(sys_)
+    P, zip3 = sharding.P, sharding._zip3
+
+    def cutting(draw, n, empty=None):
+        out = None
+        for i in range(n):
+            tree = draw(i)
+            if out is None:
+                meta = tree_map(lambda a: torch.empty(
+                    (n,) + tuple(a.shape), dtype=a.dtype, device="meta"),
+                    tree)
+                specs = sharding.param_specs(meta, m, fsdp)
+                if any(s[0] is not None and m.axis_size(s[0]) > 1
+                       for s in sharding.spec_leaves(specs)):
+                    raise AssertionError("a layer stack split by its rows")
+                out = zip3(lambda a, mt, s: a.new_empty(sharding.local_shape(
+                    mt.shape, s, m)), tree, meta, specs)
+            zip3(lambda dst, src, s: dst[i].copy_(sharding.local_block(
+                src, P(*tuple(s)[1:]), m)), out, tree, specs)
+            del tree
+        return out
+
+    plain = transformer.stack_drawn
+    transformer.stack_drawn = cutting
+    try:
+        params = sys_.init_params(gen)
+    finally:
+        transformer.stack_drawn = plain
+
+    def cut(x, s, f):
+        want = sharding.local_shape(f.shape, s, m)
+        if tuple(x.shape) == want and want != tuple(f.shape):
+            return x                                     # cut as drawn
+        return sharding.local_block(x, s, m).clone()
+    out = {"passive_stacked": zip3(cut, params["passive_stacked"],
+                                   pspec["passive_stacked"],
+                                   full["passive_stacked"])}
+    K = len(params["parties"]) - 1
+    out["parties"] = [zip3(cut, params["parties"][0], pspec["parties"][0],
+                           full["parties"][0])] + unstack_tree(
+        out["passive_stacked"], K)
+    return out
 
 
 def _fsdp_full_cfg():
@@ -4110,15 +4293,32 @@ def _fsdp_full_cfg():
     return get_config(LM_ARCH)
 
 
-def _fsdp_full_one_process(prompt):
-    """(d)'s one process on the card: the same weights (the card's
-    generator seeded 0), prompt and greedy rounds."""
+def _fsdp_full_one_process(prompt, cfg=None, rounds=FSDP_FULL_ROUNDS):
+    """(d)'s (or ``cfg``'s: (e)-(g)) one process on the card: the same
+    weights (the card's generator seeded 0), prompt and greedy rounds."""
     _free_card()
-    sys_ = _lm_system(_fsdp_full_cfg(), "cuda")
-    out = _fsdp_serve(sys_, None, prompt, FSDP_FULL_ROUNDS)
+    sys_ = _lm_system(cfg or _fsdp_full_cfg(), "cuda")
+    out = _fsdp_serve(sys_, None, prompt, rounds)
     del sys_
     _free_card()
     return out
+
+
+def _fsdp_overlay_identity(cfg, shape):
+    """Where the data axis has one rank, use_fsdp's overlay (over 1e10
+    parameters) leaves every leaf's block as it is: the failures, none
+    expected."""
+    from repro_torch import sharding
+    from repro_torch.launch import mesh, steps
+    from repro_torch.tree import tree_leaves
+    params = steps.abstract_params(_lm_system(cfg, "meta"))
+    am = mesh.abstract_mesh(shape, ("data", "model"))
+    leaves = tree_leaves(params)
+    blocks = [[sharding.local_shape(x.shape, s, am) for x, s in zip(
+        leaves, sharding.spec_leaves(sharding.param_specs(params, am, f)))]
+        for f in (True, False)]
+    return [] if blocks[0] == blocks[1] else [
+        f"{cfg.name} on {shape}: the FSDP overlay changes a block"]
 
 
 def _gloo_rate(m):
@@ -4180,15 +4380,19 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
     last token: (E, logits by round, tokens, launches), numpy. With a
     mesh ``m`` each step runs under the plan on this rank's blocks (the
     prefill's specs from prefill_shardings, the rounds' from
-    serve_shardings; the ranks draw the weights in turns, each cutting its
-    blocks before the next draws); without, in one process. ``detail``
+    serve_shardings; the ranks draw the weights in turns, each keeping its
+    blocks only, ``_draw_blocks``: a rank's draw holds the whole tables
+    and a drawn layer beside its blocks, and four such at once overflow
+    the card at qwen2-moe-a2.7b's width); without, in one process.
+    ``detail``
     (the (d) path, under a mesh): instead of E and the logits, whether
     every logit is finite and each round's logits' digest; the prefill's
     and each round's ms, the launches of the prefill and of the rounds
     apart, the collectives' bytes by kind of the prefill and of the last
-    round (a RecordingMesh over ``m``), that round's all-gathers of a
-    leaf the model axis splits, the resident parameter bytes and the
-    peak device memory."""
+    round (a RecordingMesh over ``m``) and their counts by kind, that
+    round's all-gathers of a leaf the model axis splits, the
+    rglru_scan_fwd launches of the prefill by kernel path, the resident
+    parameter bytes and the peak device memory."""
     import hashlib
     import numpy as np
     import torch
@@ -4225,8 +4429,7 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
         torch.cuda.reset_peak_memory_stats()
         for r in range(m.size):
             if m.rank == r:
-                params = sharding.shard_tree(sys_.init_params(gen),
-                                             pre_in[0], m)
+                params = _draw_blocks(sys_, gen, pre_in[0], m, meta)
                 _free_card()
             dist.barrier()
         batch = sharding.shard_tree(batch, pre_in[1], m)
@@ -4250,8 +4453,11 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
         torch.cuda.synchronize()
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
     if detail:
+        from repro_torch.kernels import rg_lru as trg
         out.update(prefill_launches=_lm_launches(),
-                   prefill_bytes=dict(pre_mesh.bytes))
+                   prefill_rglru_paths=dict(trg.PATH_LAUNCHES),
+                   prefill_bytes=dict(pre_mesh.bytes),
+                   prefill_counts=_kind_counts(pre_mesh.calls))
         _reset_lm_launches()
     tok, logits, toks_out, ms = toks[:, -1:], [], [], []
     finite, digests = True, []
@@ -4282,12 +4488,20 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
     out.update(
         round_launches=launches, finite=finite,
         digests=digests, round_bytes=dict(last.bytes),
-        round_calls=len(last.calls),
+        round_calls=len(last.calls), round_counts=_kind_counts(last.calls),
         round_weight_gathers=_split_leaf_gathers(last.calls, meta,
                                                  dec_in[0]),
         resident=dryrun.tree_bytes({"parties": params["parties"]}),
         peak=torch.cuda.max_memory_allocated())
     out["launches"] = _sum_launches([out["prefill_launches"], launches])
+    return out
+
+
+def _kind_counts(calls):
+    """A recording's collectives counted by kind."""
+    out = {}
+    for c in calls:
+        out[c[0]] = out.get(c[0], 0) + 1
     return out
 
 
@@ -4394,6 +4608,10 @@ def phase_fsdp():
     prompt_full = np.random.default_rng(3).integers(
         0, serve_cfg.vocab_size, (FSDP_FULL_LANES, FSDP_FULL_PROMPT + 1),
         dtype=np.int32)
+    runs = _fsdp_split_runs()
+    prompts_split = {key: np.random.default_rng(3).integers(
+        0, c.vocab_size, (FSDP_FULL_LANES, FSDP_FULL_PROMPT + 1),
+        dtype=np.int32) for key, c, _, _ in runs if len(key) == 1}
     with concurrent.futures.ThreadPoolExecutor(2) as ex, \
             tempfile.TemporaryDirectory() as store:
         ref_dir, go = os.path.join(store, "b"), os.path.join(store, "go")
@@ -4401,12 +4619,16 @@ def phase_fsdp():
         # one torch thread a rank: the host's 8 cores among the 4 ranks
         # (whose host work is gloo's staging) and the CPU port's steps
         spawned = ex.submit(mesh.spawn_ranks, _fsdp_rank, FSDP_RANKS,
-                            batches, cut_batch, prompt, prompt_full, ref_dir,
-                            go, time.time(), store_dir=store, device="cuda",
-                            threads=1, timeout_s=600)
+                            batches, cut_batch, prompt, prompt_full,
+                            prompts_split, ref_dir, go, time.time(),
+                            store_dir=store, device="cuda", threads=1,
+                            timeout_s=900)
         cpu = ex.submit(_fsdp_cpu_refs, weights, cut_batch, prompt, ref_dir)
         one = _fsdp_one_process(cfg, batches)
         one_d = _fsdp_full_one_process(prompt_full)
+        one_split = {key: _fsdp_full_one_process(prompts_split[key[0]], c,
+                                                 rounds)
+                     for key, c, _, rounds in runs}
         pre_s = time.perf_counter() - t_phase
         open(go, "w").close()
         ranks = spawned.result()
@@ -4524,6 +4746,13 @@ def phase_fsdp():
     if not all(ok for _, ok in c_errs.values()):
         failures.append("(c) the sharded serving differs from the CPU port's")
     res["d"] = _fsdp_check_full(ranks, one_d, failures)
+    limits = {key: lim for key, *_, lim in FSDP_SPLIT}
+    for key, c, shape, _ in runs:
+        if shape[0] == 1 and len(key) == 1:
+            failures += _fsdp_overlay_identity(c, shape)
+        limit = FSDP_SPLIT_F32_REL if len(key) > 1 else limits[key]
+        res[key] = _fsdp_check_full(ranks, one_split[key], failures, key, c,
+                                    shape, limit)
     res["seconds"] = time.perf_counter() - t_phase
     res["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4540,46 +4769,153 @@ def phase_fsdp():
     if failures:
         raise AssertionError("fsdp phase: " + "; ".join(failures))
     paths = [_sum_launches([r[k]["launches"] for r in ranks])
-             for k in ("a", "b", "c", "d")]
+             for k in ("a", "b", "c", "d") + tuple(key for key, *_ in runs)]
     return paths, res
 
 
-def _fsdp_check_full(ranks, one, failures):
-    """(d)'s checks (failures appended) and its numbers: every rank's
-    logits finite, the model ranks of one data rank holding the same
-    logits bit for bit, the same greedy tokens on every rank; per rank 36
-    + 9 flash_attention_fwd and one blind_agg_fwd a prefill, one
-    blind_agg_fwd a round and no flash; no all-gather of a leaf the model
-    axis splits in a round; round 0's (teacher-forced) logits within
-    FSDP_FULL_LOGIT_REL of the largest of the one process's. The tokens
-    beside the one process's are printed, not asserted (bfloat16 partial
-    sums in another order may break a near tie)."""
+# --phase split_depth: (path, mesh, active layers, dtype) of the split MoE
+# and SSD runs whose round-0 logits it holds against one process's; and
+# (path, active layers) where only the one process runs, in both dtypes
+# (the float32 split does not fit four ranks on the card)
+SPLIT_DEPTH = (("e", (1, 4), 6, "float32"), ("e", (1, 4), 6, "bfloat16"),
+               ("f", (2, 2), 16, "float32"), ("f", (2, 2), 16, "bfloat16"))
+SPLIT_DEPTH_ONE = (("f", 64),)
+
+
+def _split_depth_cfgs():
+    arch = {key: a for key, a, *_ in FSDP_SPLIT}
+    return [_fsdp_split_cfg(arch[key], layers, dtype)
+            for key, _, layers, dtype in SPLIT_DEPTH]
+
+
+def _split_depth_rank(prompts):
+    """One rank of ``--phase split_depth``: each SPLIT_DEPTH run's prefill
+    and one teacher-forced round under the plan."""
+    import torch
+    from repro_torch.launch import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = mesh.make_debug_mesh(*FSDP_MESH, device="cuda")
+    meshes = {tuple(FSDP_MESH): m, (1, 4): mesh.make_debug_mesh(
+        1, 4, device="cuda")}
+    res = {"rank": m.rank, "coords": dict(m.coords)}
+    for (key, shape, _, _), cfg in zip(SPLIT_DEPTH, _split_depth_cfgs()):
+        sys_ = _lm_system(cfg, "cuda")
+        res[f"{key}{cfg.n_layers}{cfg.dtype}"] = _fsdp_serve(
+            sys_, meshes[shape], prompts[key], 1, detail=True)
+        del sys_
+        _free_card()
+    return res
+
+
+def phase_split_depth():
+    """The fsdp phase's split MoE ((e), 1 x 4) and SSD ((f), 2 x 2) paths
+    at full width cut in depth, in float32 and bfloat16: round 0's
+    (teacher-forced) logits of every rank against the one process's on
+    the same weights, as a share of its largest |logit|, by depth and
+    dtype (the one process first, then 4 ranks sharing the card); beside
+    them the witness of bfloat16's own error at that depth: the one
+    process in bfloat16 against the one process in float32 (the same
+    float32 draw, rounded), and the split in bfloat16 against the float32
+    one process; SPLIT_DEPTH_ONE's depths give the witness alone."""
+    import tempfile
     import numpy as np
-    cfg = _fsdp_full_cfg()
-    attn = _layer_kinds(cfg)[0] + _layer_kinds(
-        _lm_system(cfg, "meta").party_cfgs[1])[0]
+    from repro_torch.launch import mesh
+    cfgs = _split_depth_cfgs()
+    arch = {key: a for key, a, *_ in FSDP_SPLIT}
+    prompt = lambda cfg: np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (FSDP_FULL_LANES, FSDP_FULL_PROMPT + 1),
+        dtype=np.int32)
+    prompts = {key: prompt(cfg) for (key, *_), cfg in zip(SPLIT_DEPTH, cfgs)}
+    name = lambda key, cfg: f"{key}{cfg.n_layers}{cfg.dtype}"
+    first = {name(key, cfg): _fsdp_full_one_process(
+        prompts[key], cfg, 1)["logits"][0]
+        for (key, *_), cfg in zip(SPLIT_DEPTH, cfgs)}
+    for key, layers in SPLIT_DEPTH_ONE:
+        for dtype in ("float32", "bfloat16"):
+            cfg = _fsdp_split_cfg(arch[key], layers, dtype)
+            first[name(key, cfg)] = _fsdp_full_one_process(
+                prompt(cfg), cfg, 1)["logits"][0]
+    with tempfile.TemporaryDirectory() as store:
+        ranks = mesh.spawn_ranks(_split_depth_rank, FSDP_RANKS, prompts,
+                                 store_dir=store, device="cuda", threads=1,
+                                 timeout_s=900)
+    rel = lambda got, want: float(np.abs(got - want).max()
+                                  / np.abs(want).max())
+    out = {}
+    for (key, shape, layers, _), cfg in zip(SPLIT_DEPTH, cfgs):
+        n = name(key, cfg)
+        out[n] = max(rel(r[n]["first_logits"], first[n]) for r in ranks)
+        log("split_depth", f"({key}) {cfg.name} at full width, {layers} "
+                           f"layers, {cfg.dtype}, on a {shape[0]} x "
+                           f"{shape[1]} mesh: round 0's logits {out[n]:.4g} "
+                           f"of the one process's largest |logit| at worst "
+                           f"over the ranks")
+        f32 = n[:-len(cfg.dtype)] + "float32"
+        if cfg.dtype == "bfloat16" and f32 in first:
+            out[n + "_vs_one_float32"] = max(
+                rel(r[n]["first_logits"], first[f32]) for r in ranks)
+            log("split_depth", f"({key}) {layers} layers: the split in "
+                               f"bfloat16 {out[n + '_vs_one_float32']:.4g} "
+                               f"of the float32 one process's largest "
+                               f"|logit| from it")
+    for n in [n for n in first if n.endswith("bfloat16")]:
+        f32 = n[:-len("bfloat16")] + "float32"
+        out["one_" + n + "_vs_float32"] = w = rel(first[n], first[f32])
+        log("split_depth", f"({n[0]}) {n[1:-len('bfloat16')]} layers: the "
+                           f"one process in bfloat16 {w:.4g} of the float32 "
+                           f"one process's largest |logit| from it "
+                           f"(bfloat16's own error at this depth)")
+    return out
+
+
+def _fsdp_check_full(ranks, one, failures, key="d", cfg=None,
+                     shape=FSDP_MESH, limit=FSDP_FULL_LOGIT_REL):
+    """(d)'s (or ``key``'s: (e)-(g) and their float32 cuts, of ``cfg`` on a
+    ``shape`` mesh) checks
+    (failures appended) and its numbers: every rank's logits finite, the
+    model ranks of one data rank holding the same logits bit for bit, the
+    same greedy tokens on every rank; per rank a flash_attention_fwd a
+    prefill for each attending layer (36 + 9 for (d)), an rglru_scan_fwd
+    for each RG-LRU layer, all on the TMA path, and one blind_agg_fwd a
+    prefill, one blind_agg_fwd a round and no flash or rglru launch; no
+    all-gather of a leaf the model axis splits in a round; round 0's
+    (teacher-forced) logits within ``limit`` of the largest of the one
+    process's (None: printed, not asserted; FSDP_SPLIT). The tokens beside
+    the one process's are printed, not asserted (bfloat16 partial sums in
+    another order may break a near tie)."""
+    import numpy as np
+    cfg = cfg or _fsdp_full_cfg()
+    pcfg = _lm_system(cfg, "meta").party_cfgs[1]
+    attn = _layer_kinds(cfg)[0] + _layer_kinds(pcfg)[0]
+    lru = _layer_kinds(cfg)[1] + _layer_kinds(pcfg)[1]
+    n_rounds = len(ranks[0][key]["round_ms"])
     for r in ranks:
-        d, k = r["d"], f"(d) rank {r['rank']}"
+        d, k = r[key], f"({key}) rank {r['rank']}"
         if not d["finite"]:
             failures.append(f"{k}: logits not finite")
-        want_p = {"flash_attention_fwd": attn, "blind_agg_fwd": 1}
-        want_r = {"flash_attention_fwd": 0,
-                  "blind_agg_fwd": FSDP_FULL_ROUNDS}
+        want_p = {"flash_attention_fwd": attn, "blind_agg_fwd": 1,
+                  "rglru_scan_fwd": lru}
+        want_r = {"flash_attention_fwd": 0, "blind_agg_fwd": n_rounds,
+                  "rglru_scan_fwd": 0}
         for what, got, want in (("prefill", d["prefill_launches"], want_p),
                                 ("rounds", d["round_launches"], want_r)):
             if any(got[n] != v for n, v in want.items()):
                 failures.append(f"{k}: {what} launches {got}, want {want}")
+        if d["prefill_rglru_paths"].get("tma", 0) != lru:
+            failures.append(f"{k}: rglru_scan_fwd paths "
+                            f"{d['prefill_rglru_paths']}, want {lru} on the "
+                            f"TMA path")
         if d["round_weight_gathers"]:
             failures.append(f"{k}: a round all-gathered split leaves "
                             f"{d['round_weight_gathers'][:3]}")
-        if not np.array_equal(d["tokens"], ranks[0]["d"]["tokens"]):
+        if not np.array_equal(d["tokens"], ranks[0][key]["tokens"]):
             failures.append(f"{k}: greedy tokens differ from rank 0's")
         for o in ranks:
             if o["coords"]["data"] == r["coords"]["data"] \
-                    and o["d"]["digests"] != d["digests"]:
+                    and o[key]["digests"] != d["digests"]:
                 failures.append(f"{k}: logits differ from rank "
                                 f"{o['rank']}'s of the same data rank")
-    d0 = ranks[0]["d"]
+    d0 = ranks[0][key]
     same_one = bool(np.array_equal(d0["tokens"], one["tokens"]))
     # where a lane's tokens first part from the one process's, the one
     # process's top-1 minus top-2 logit there: the tie the partial sums'
@@ -4591,23 +4927,28 @@ def _fsdp_check_full(ranks, one, failures):
             top = np.sort(one["logits"][diff[0], lane, -1])[-2:]
             ties[lane] = (int(diff[0]), float(top[1] - top[0]))
     first = one["logits"][0]
-    all_same = all(r["d"]["digests"] == d0["digests"] for r in ranks)
+    all_same = all(r[key]["digests"] == d0["digests"] for r in ranks)
     rel = float(np.abs(d0["first_logits"] - first).max()
                 / np.abs(first).max())
-    if not rel <= FSDP_FULL_LOGIT_REL:
-        failures.append(f"(d): round 0's logits {rel:.4g} of the largest "
-                        f"|logit| from the one process's, limit "
-                        f"{FSDP_FULL_LOGIT_REL}")
-    out = {"prefill_ms_by_rank": {r["rank"]: r["d"]["prefill_ms"]
+    if limit is not None and not rel <= limit:
+        failures.append(f"({key}): round 0's logits {rel:.4g} of the "
+                        f"largest |logit| from the one process's, limit "
+                        f"{limit}")
+    out = {"arch": cfg.name, "mesh": list(shape), "layers": cfg.n_layers,
+           "rounds": n_rounds,
+           "prefill_ms_by_rank": {r["rank"]: r[key]["prefill_ms"]
                                   for r in ranks},
-           "round_ms_by_rank": {r["rank"]: r["d"]["round_ms"] for r in ranks},
-           "resident_bytes_by_rank": {r["rank"]: r["d"]["resident"]
+           "round_ms_by_rank": {r["rank"]: r[key]["round_ms"] for r in ranks},
+           "resident_bytes_by_rank": {r["rank"]: r[key]["resident"]
                                       for r in ranks},
-           "peak_bytes_by_rank": {r["rank"]: r["d"]["peak"] for r in ranks},
-           "prefill_bytes_by_rank": {r["rank"]: r["d"]["prefill_bytes"]
+           "peak_bytes_by_rank": {r["rank"]: r[key]["peak"] for r in ranks},
+           "prefill_bytes_by_rank": {r["rank"]: r[key]["prefill_bytes"]
                                      for r in ranks},
-           "round_bytes_by_rank": {r["rank"]: r["d"]["round_bytes"]
+           "round_bytes_by_rank": {r["rank"]: r[key]["round_bytes"]
                                    for r in ranks},
+           "prefill_counts": d0["prefill_counts"],
+           "round_counts": d0["round_counts"],
+           "prefill_launches": d0["prefill_launches"],
            "round_collectives": d0["round_calls"],
            "tokens": d0["tokens"].tolist(),
            "one_process_tokens": one["tokens"].tolist(),
@@ -4621,13 +4962,13 @@ def _fsdp_check_full(ranks, one, failures):
            "one_process_round_ms": one["round_ms"],
            "logits_same_on_all_ranks": all_same,
            "params": _fsdp_n_params(cfg)}
-    log("fsdp", f"(d) {cfg.name} at full width and depth ({cfg.n_layers} "
-                f"layers, three {_lm_system(cfg, 'meta').party_cfgs[1].n_layers}"
-                f"-layer proxies; {out['params']} parameters), bfloat16, "
-                f"under prefill_shardings / serve_shardings (tensor-parallel "
-                f"compute over model): {FSDP_FULL_LANES} lanes of "
-                f"{FSDP_FULL_PROMPT}-token prompts, then {FSDP_FULL_ROUNDS} "
-                f"greedy rounds; prefill ms by rank "
+    log("fsdp", f"({key}) {cfg.name} at full width ({cfg.n_layers} "
+                f"layers, three {pcfg.n_layers}-layer proxies; "
+                f"{out['params']} parameters), {cfg.dtype}, on a {shape[0]} x "
+                f"{shape[1]} mesh under prefill_shardings / serve_shardings "
+                f"(tensor-parallel compute over model): {FSDP_FULL_LANES} "
+                f"lanes of {FSDP_FULL_PROMPT}-token prompts, then "
+                f"{n_rounds} greedy rounds; prefill ms by rank "
                 f"{ {k: round(v, 1) for k, v in out['prefill_ms_by_rank'].items()} }"
                 f"; median ms a round by rank "
                 f"{ {k: round(statistics.median(v), 1) for k, v in out['round_ms_by_rank'].items()} }"
@@ -4636,8 +4977,11 @@ def _fsdp_check_full(ranks, one, failures):
                 f"; torch.cuda.max_memory_allocated GB by rank "
                 f"{ {k: round(v / 1e9, 2) for k, v in out['peak_bytes_by_rank'].items()} }"
                 f"; collectives' bytes a rank, prefill "
-                f"{d0['prefill_bytes']}, the last round {d0['round_bytes']} "
-                f"({d0['round_calls']} collectives); logits the same on "
+                f"{d0['prefill_bytes']} (counts {d0['prefill_counts']}), "
+                f"the last round {d0['round_bytes']} (counts "
+                f"{d0['round_counts']}); prefill launches "
+                f"{d0['prefill_launches']} (rglru paths "
+                f"{d0['prefill_rglru_paths']}); logits the same on "
                 f"every rank {all_same}; tokens identical on every rank "
                 f"{not any('tokens' in f for f in failures)}, as the one "
                 f"process's {same_one}: rank 0 {out['tokens']}, one process "
@@ -4646,7 +4990,7 @@ def _fsdp_check_full(ranks, one, failures):
                 f"0's logits max abs {out['round0_logits_max_abs_vs_one_process']:.4g}"
                 f" from the one process's (max |logit| "
                 f"{out['logits_max_abs']:.4g}: {rel:.4g} of it, limit "
-                f"{FSDP_FULL_LOGIT_REL}); the one process: prefill "
+                f"{limit}); the one process: prefill "
                 f"{one['prefill_ms']:.1f} ms, median ms a round "
                 f"{statistics.median(one['round_ms']):.1f}")
     return out
@@ -4778,6 +5122,8 @@ def run_phase(name, save=None, compare=None):
         res = phase_sharded(cut_cpu)[1]
     elif name == "fsdp":
         res = phase_fsdp()[1]
+    elif name == "split_depth":
+        res = phase_split_depth()
     elif name == "prng":
         outs = []
         phase_prng(outs)
@@ -4937,7 +5283,9 @@ def main() -> int:
                     f"every LM rank's serving) {sharded_paths}, FSDP plan "
                     f"(every rank's qwen2-1.5b zero3 steps, float32 cut's "
                     f"joint step, qwen2.5-3b cut's serving, qwen2.5-3b's "
-                    f"tensor-parallel serving) {fsdp_paths})")
+                    f"tensor-parallel serving, the split qwen2-moe-a2.7b, "
+                    f"mamba2-2.7b and recurrentgemma-9b serving) "
+                    f"{fsdp_paths})")
     # blind_agg_fwd's launches by party groups, path by path: each path's
     # histogram counts every one of its forward launches
     names = ("Table II slice", "Table II joint", "many-party fused",
@@ -4951,7 +5299,9 @@ def main() -> int:
              "sharded many-party int8", "sharded many-party joint",
              "sharded qwen2.5-3b serving", "fsdp qwen2-1.5b training",
              "fsdp qwen2-1.5b cut joint step", "fsdp qwen2.5-3b cut serving",
-             "fsdp qwen2.5-3b tensor-parallel serving")
+             "fsdp qwen2.5-3b tensor-parallel serving") + tuple(
+                 f"fsdp {c.name} {c.dtype} {c.n_layers}-layer split serving"
+                 for _, c, _, _ in _fsdp_split_runs())
     groups = {n: p["fwd_groups"] for n, p in zip(names, paths)}
     log("launches", f"blind_agg_fwd launches by party groups G, path by "
                     f"path: {groups}")

@@ -30,10 +30,12 @@ options (``--zero1``, ``--layout {tp,zero3}``, ``--serve-fsdp``), as rank
 0's meta blocks (``sharding.shard_tree``), and the report adds their bytes
 ("per_rank") and ``collective_bytes``, the bytes the step's collectives
 move, counted by a ``launch.mesh.RecordingMesh`` that stands in for the
-group with the reference's HLO convention, and "tp_layers", the layers
-taken under the tensor-parallel compute by their attention's split
-(``sharding.TP.attn``; "whole" where the heads do not divide the model
-axis and the attention is gathered). ``run_one`` without a mesh
+group with the reference's HLO convention, and "tp_layers", the layers'
+sub-blocks taken under the tensor-parallel compute by their split
+(``sharding.TP.splits``: "attn heads" / "kv" / "whole", "mlp split",
+"moe experts" / "ff", "ssm heads", "rec width"; "... whole" where the
+split does not divide the model axis and the sub-block is gathered).
+``run_one`` without a mesh
 runs the whole step in one process, as before. A failed combination is
 printed with its traceback and counted; the run exits 1 if any failed.
 """

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import _dense_init, init_linear, linear
 from repro_torch.models.ssm import _depthwise_conv
@@ -53,9 +54,12 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _gates(p: dict, x: torch.Tensor):
-    r = torch.sigmoid(linear(p["w_r"], x).float())
-    i = torch.sigmoid(linear(p["w_i"], x).float())
+def _gates(p: dict, x: torch.Tensor, xg: Optional[torch.Tensor] = None):
+    """a and b from the conv output x; ``xg``: the whole width of x, which
+    the (W, W) gate products read where x is this rank's block of it."""
+    xg = x if xg is None else xg
+    r = torch.sigmoid(linear(p["w_r"], xg).float())
+    i = torch.sigmoid(linear(p["w_i"], xg).float())
     log_a = -RG_LRU_C * _softplus(p["lam"]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * i * x.float()
@@ -64,9 +68,9 @@ def _gates(p: dict, x: torch.Tensor):
 
 def rglru_scan(p: dict, x: torch.Tensor,
                init_state: Optional[torch.Tensor] = None,
-               training: bool = False):
+               training: bool = False, xg: Optional[torch.Tensor] = None):
     """x (B, L, W) -> (h (B,L,W) float32, final state (B,W) float32)."""
-    a, b = _gates(p, x)
+    a, b = _gates(p, x, xg)
     h0 = (init_state.float() if init_state is not None
           else a.new_zeros((a.shape[0], a.shape[2])))
     if training:
@@ -74,29 +78,43 @@ def rglru_scan(p: dict, x: torch.Tensor,
     return ops.rglru_scan(a, b, h0)
 
 
-def rglru_step(p: dict, x: torch.Tensor, state: torch.Tensor):
+def rglru_step(p: dict, x: torch.Tensor, state: torch.Tensor,
+               xg: Optional[torch.Tensor] = None):
     """x (B, 1, W), state (B, W) -> (h (B,1,W), new_state)."""
-    a, b = _gates(p, x)
+    a, b = _gates(p, x, xg)
     h = a[:, 0] * state + b[:, 0]
     return h[:, None], h
 
 
 def recurrent_block(p: dict, x: torch.Tensor, cache: Optional[dict] = None,
-                    training: bool = False):
+                    training: bool = False, tp=None):
     """Griffin recurrent block: gated conv + RG-LRU. x (B,L,d_model).
     cache {"conv": (B, CONV_W-1, W), "state": (B, W)}. Returns (out,
-    cache)."""
+    cache).
+
+    Under ``tp`` (a ``sharding.TP`` with ``lru``) x is the stream as it
+    lies and so is the output; the block runs at this rank's width W / m:
+    ``in_x`` / ``in_gate`` by columns, the conv on the rank's channels
+    (its block of the replicated taps, whose cotangents ``tp.partial``
+    sums), the conv output all-gathered over "model" for ``w_r`` /
+    ``w_i`` (by columns), ``lam``, the scan and the cache at the rank's
+    width, ``out`` by rows into ``tp.exit``."""
+    tp = tp if tp is not None else sharding.WHOLE
+    x = tp.enter(x)
     gate = F.gelu(linear(p["in_gate"], x), approximate="tanh")
     xb = linear(p["in_x"], x)
+    conv_w, conv_b = tp.partial((p["conv_w"], p["conv_b"]))
+    conv_w, conv_b = tp.block(conv_w), tp.block(conv_b)
     conv_cache = cache["conv"] if cache is not None else None
-    xb, new_conv = _depthwise_conv(xb, p["conv_w"], p["conv_b"], conv_cache)
+    xb, new_conv = _depthwise_conv(xb, conv_w, conv_b, conv_cache)
+    xg = None if tp.mesh is None else sharding.gather_cols(xb, tp.mesh)
     if cache is not None and x.shape[1] == 1:
-        h, new_state = rglru_step(p, xb, cache["state"])
+        h, new_state = rglru_step(p, xb, cache["state"], xg)
     else:
         init_state = cache["state"] if cache is not None else None
-        h, new_state = rglru_scan(p, xb, init_state, training)
+        h, new_state = rglru_scan(p, xb, init_state, training, xg)
     y = h.to(x.dtype) * gate
-    out = linear(p["out"], y)
+    out = tp.exit(linear(p["out"], y))
     new_cache = {"conv": new_conv.to(x.dtype), "state": new_state}
     return out, new_cache
 

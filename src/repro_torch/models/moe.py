@@ -35,6 +35,23 @@ per-expert fractions and mean probabilities (a product of global means,
 not a mean of the ranks' products). A rank's buffer holds its own rows
 at their global slots, so every kept token sees the one-process expert
 output and every dropped one is dropped there too.
+
+Over "model" (``tp``, layout "tp"), where the reference pins the dispatch
+buffer to ("model", "batch", None) and GSPMD inserts an all-to-all, the
+port moves activations with the dense MLP's operators instead. Each rank
+routes the stream as it lies (its S block, or the whole stream), the
+gates and expert indices are made whole along S as the stream is
+entered (``tp.enter``: an all-gather over "model", or nothing), every
+rank dispatches the tokens of its data rows into its own experts' slots
+only ("experts": E / m experts a rank, the slots and capacity those of
+the global call) or into every expert's ff columns ("ff"), runs the
+three products on its blocks, combines with the other ranks' experts at
+weight zero, adds its block of the shared experts, and one ``tp.exit``
+(a reduce-scatter, or an all-reduce) sums the ranks' partial outputs.
+A ragged all-to-all would need split sizes that depend on the routing,
+which ``torch.func.vmap`` (the passive MoE proxies) refuses, and a
+fixed-size one moves K times the gather's bytes; a decode round (a whole
+stream) moves one all-reduce of (B, 1, d) a layer.
 """
 from __future__ import annotations
 
@@ -81,30 +98,48 @@ def route(p: dict, xt: torch.Tensor, cfg: MoEConfig):
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
-            capacity_factor: float = 0.0):
-    """x (B, S, d) -> (out (B, S, d), aux loss ())."""
+            capacity_factor: float = 0.0, tp=None):
+    """x (B, S, d) -> (out (B, S, d), aux loss ()). Under ``tp`` (a
+    ``sharding.TP`` whose ``moe`` is "experts" or "ff") x is the stream as
+    it lies (this rank's S block where ``tp.seq``) and so is the output:
+    the layer computes on this rank's "model" block (module docstring)."""
+    tp = tp if tp is not None else sharding.WHOLE
     B, S, d = x.shape
-    T = B * S
     E, K = cfg.n_experts, cfg.top_k
-    xt = x.reshape(T, d)
     experts = torch.arange(E, device=x.device)
 
-    probs, gate_vals, expert_idx = route(p, xt, cfg)
+    # routed on the stream as it lies (the router's cotangent, partial on
+    # an S block, summed over "model" by ``tp.rep``)
+    x_lies = x.reshape(B * S, d)
+    probs, gate_vals, expert_idx = route({"router": tp.rep(p["router"])},
+                                         x_lies, cfg)
 
     # load-balance aux loss (Switch-style)
     first = (expert_idx[:, 0, None] == experts).float()
     split = sharding.rows_split()
-    if split:   # the global call's means: sums over the ranks / global T
-        T_all = sharding.global_rows(B) * S
-        me = sharding.batch_sum(torch.sum(probs, dim=0)) / T_all
-        ce = sharding.batch_sum(torch.sum(first, dim=0)) / T_all
+    if split or tp.seq:   # the global call's means: sums over the ranks
+        T_all = sharding.global_rows(B) * S * (tp.m if tp.seq else 1)
+        total = lambda v: sharding.batch_sum(
+            sharding.reduce_from_model(v, tp.mesh) if tp.seq else v)
+        me = total(torch.sum(probs, dim=0)) / T_all
+        ce = total(torch.sum(first, dim=0)) / T_all
     else:
-        T_all = T
+        T_all = B * S
         me = torch.mean(probs, dim=0)                      # (E,)
         ce = torch.mean(first, dim=0)
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
 
     cap = capacity(T_all, cfg, capacity_factor)
+
+    # the tokens of this rank's rows, their gates and experts, whole along
+    # S (gates and shared gate entered as the stream is: their cotangents
+    # from this rank's partial output are summed over "model")
+    x = tp.enter(x)
+    S_all = x.shape[1]
+    T = B * S_all
+    xt = x.reshape(T, d)
+    gate_vals = tp.enter(gate_vals.reshape(B, S, K)).reshape(T, K)
+    expert_idx = tp.enter(expert_idx.reshape(B, S, K)).reshape(T, K)
 
     # position of each (token, k) assignment inside its expert's buffer:
     # a running count along (t, k) per expert, scanned along the last
@@ -119,16 +154,28 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     pos_in_e = torch.sum(pos * hit, dim=0)                 # (T*K,)
     keep = pos_in_e < cap
     slot = torch.where(keep, pos_in_e, cap)                # overflow slot
+    E_here = E
+    if tp.moe == "experts":
+        # this rank's experts only: another rank's (token, k) is written
+        # as a zero row to this rank's first expert's overflow slot, and
+        # combined with weight 0
+        E_here = E // tp.m
+        e0 = tp.coord * E_here
+        mine = (e_flat >= e0) & (e_flat < e0 + E_here)
+        keep = keep & mine
+        e_flat = torch.where(mine, e_flat - e0, 0)
+        slot = torch.where(keep, slot, cap)
 
-    # dispatch into (E, cap+1, d): kept rows to their own slot, zeros to
-    # the overflow slot
+    # dispatch into (E_here, cap+1, d): kept rows to their own slot, zeros
+    # to the overflow slot
     rows = xt.repeat_interleave(K, dim=0)                  # (T*K, d)
     rows = torch.where(keep[:, None], rows, 0)
     dest = (e_flat * (cap + 1) + slot)[:, None].expand(T * K, d)
-    buf = x.new_zeros((E * (cap + 1), d)).scatter(0, dest, rows)
-    buf = buf.reshape(E, cap + 1, d)
+    buf = x.new_zeros((E_here * (cap + 1), d)).scatter(0, dest, rows)
+    buf = buf.reshape(E_here, cap + 1, d)
 
-    # expert FFN: grouped matmuls (E, cap+1, d) x (E, d, ff)
+    # expert FFN: grouped matmuls (E, cap+1, d) x (E, d, ff), on this
+    # rank's experts or ff columns under ``tp``
     if act == "silu":
         h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
     else:
@@ -144,6 +191,9 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
         yt = yt + contrib[:, k]
 
     if "shared" in p:
-        sg = torch.sigmoid(xt.float() @ p["shared_gate"])
+        # the shared experts on this rank's columns / rows under ``tp``,
+        # their gate on the stream as it lies
+        sg = torch.sigmoid(x_lies.float() @ tp.rep(p["shared_gate"]))
+        sg = tp.enter(sg.reshape(B, S, 1)).reshape(T, 1)
         yt = yt + mlp(p["shared"], xt, act) * sg.to(x.dtype)
-    return yt.reshape(B, S, d), aux
+    return tp.exit(yt.reshape(B, S_all, d)), aux

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.configs.base import SSMConfig
 from repro_torch.models.layers import _dense_init, apply_norm, init_norm
 
@@ -158,27 +159,42 @@ def _depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def ssm_block(p: dict, x: torch.Tensor, cfg: SSMConfig,
-              cache: Optional[dict] = None, rms_eps: float = 1e-6):
+              cache: Optional[dict] = None, rms_eps: float = 1e-6, tp=None):
     """The Mamba-2 mixer. x (B, L, d_model); ``cache`` {"conv", "state"}
     continues from a prefix (one token: the recurrent step). Returns
-    (out, new_cache)."""
+    (out, new_cache).
+
+    Under ``tp`` (a ``sharding.TP`` with ``ssd``) x is the stream as it
+    lies and so is the output: the packed ``in_proj``, the conv and the
+    SiLU run whole on every model rank (they are replicated, their
+    cotangents summed over "model" by ``tp.partial``), the SSD, the ``D``
+    skip and the ``z`` gate on the rank's heads (``A_log`` / ``D`` /
+    ``dt_bias`` its blocks), the gated norm's mean square over the whole
+    ``d_inner`` (a sum over "model"), ``out_proj`` by rows into
+    ``tp.exit``; the cache's state holds the rank's heads, its conv the
+    whole channels."""
+    tp = tp if tp is not None else sharding.WHOLE
+    x = tp.enter(x)
     Bsz, L, d_model = x.shape
     d_inner, H, conv_dim = ssm_dims(d_model, cfg)
     g, n, P = N_GROUPS, cfg.d_state, cfg.head_dim
+    in_proj, conv_w, conv_b, scale = tp.partial(
+        (p["in_proj"], p["conv_w"], p["conv_b"], p["norm"]["scale"]))
 
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = x @ in_proj
     z, xbc, dt_raw = torch.split(zxbcdt, [d_inner, conv_dim, H], dim=-1)
+    z, dt_raw = tp.block(z), tp.block(dt_raw)              # rank's heads
+    H_here, d_here = H // tp.m, d_inner // tp.m
     # jax.nn.softplus: log(1 + exp(v)) with no threshold
     v = dt_raw.float() + p["dt_bias"]
     dt = torch.logaddexp(v, torch.zeros_like(v))           # (B,L,H)
     A = -torch.exp(p["A_log"])                             # (H,)
 
     conv_cache = cache["conv"] if cache is not None else None
-    xbc, new_conv = _depthwise_conv(xbc, p["conv_w"], p["conv_b"],
-                                    conv_cache)
+    xbc, new_conv = _depthwise_conv(xbc, conv_w, conv_b, conv_cache)
     xbc = F.silu(xbc)
     xs, Bmat, Cmat = torch.split(xbc, [d_inner, g * n, g * n], dim=-1)
-    xh = xs.reshape(Bsz, L, H, P).float()
+    xh = tp.block(xs).reshape(Bsz, L, H_here, P).float()
     Bm = Bmat.reshape(Bsz, L, g, n).float()
     Cm = Cmat.reshape(Bsz, L, g, n).float()
 
@@ -192,10 +208,17 @@ def ssm_block(p: dict, x: torch.Tensor, cfg: SSMConfig,
                                   init_state)
 
     y = y + p["D"][None, None, :, None] * xh
-    y = y.reshape(Bsz, L, d_inner).to(x.dtype)
+    y = y.reshape(Bsz, L, d_here).to(x.dtype)
     y = y * F.silu(z)
-    y = apply_norm(p["norm"], y, rms_eps)
-    out = y @ p["out_proj"]
+    if tp.mesh is None:
+        y = apply_norm({"scale": scale}, y, rms_eps)
+    else:   # the RMS over the whole d_inner, of every rank's heads
+        yf = y.float()
+        ss = sharding.model_sum(torch.sum(yf * yf, dim=-1, keepdim=True),
+                                tp.mesh)
+        y = (yf * torch.rsqrt(ss / d_inner + rms_eps)
+             * tp.block(scale).float()).to(y.dtype)
+    out = tp.exit(y @ p["out_proj"])
     new_cache = {"conv": new_conv.to(x.dtype), "state": new_state}
     return out, new_cache
 

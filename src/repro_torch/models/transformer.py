@@ -167,12 +167,13 @@ def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
     (its cross-attention leaves are unused), as in the reference.
 
     ``tp`` (``sharding.TP``, under a plan's tensor-parallel compute): the
-    dense attention (``tp.attn`` "heads" / "kv") and MLP (``tp.mlp``) on
-    this rank's "model" block, Megatron's, their norms on the stream as
-    it lies (this rank's S block where ``tp.seq``); every other sub-block
-    (the MoE FFN, the SSD and RG-LRU mixers, an attention whose split
-    would cut a head, an MLP whose width does not divide) gathered and
-    run whole (``tp.whole``). Without it every sub-block runs whole."""
+    dense attention (``tp.attn`` "heads" / "kv"), MLP (``tp.mlp``), MoE
+    FFN (``tp.moe``), SSD mixer (``tp.ssd``) and RG-LRU mixer (``tp.lru``)
+    on this rank's "model" block, their norms on the stream as it lies
+    (this rank's S block where ``tp.seq``); every other sub-block (an
+    attention whose split would cut a head, a block whose widths do not
+    divide the model axis) gathered and run whole (``tp.whole``). Without
+    it every sub-block runs whole."""
     _check_kind(kind)
     tp = tp if tp is not None else sharding.WHOLE
     eps = cfg.rms_eps
@@ -180,6 +181,10 @@ def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
     norm = lambda name, x: apply_norm(tp.rep(p[name]), x, eps)
 
     def ffn(x):
+        if kind == "moe" and tp.moe:
+            h, a = moe_mod.moe_ffn(p["moe"], norm("ln2", x), cfg.moe, cfg.act,
+                                   tp=tp)
+            return x + h, a
         if kind == "moe":
             def whole(x):
                 h, a = moe_mod.moe_ffn(p["moe"], apply_norm(p["ln2"], x, eps),
@@ -192,6 +197,11 @@ def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
             p["mlp"], apply_norm(p["ln2"], x, eps), cfg.act), aux))
 
     if kind == "ssm":
+        if tp.ssd:
+            h, new_cache = ssm_mod.ssm_block(p["ssm"], norm("ln1", x),
+                                             cfg.ssm, cache, eps, tp=tp)
+            return x + h, new_cache, aux
+
         def whole(x):
             h, c = ssm_mod.ssm_block(p["ssm"], apply_norm(p["ln1"], x, eps),
                                      cfg.ssm, cache, eps)
@@ -199,11 +209,16 @@ def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
         x, new_cache = tp.whole(x, whole)
         return x, new_cache, aux
     if kind == "lru":
-        def whole(x):
-            h, c = griffin.recurrent_block(
-                p["rec"], apply_norm(p["ln1"], x, eps), cache, training)
-            return x + h, c
-        x, new_cache = tp.whole(x, whole)
+        if tp.lru:
+            h, new_cache = griffin.recurrent_block(
+                p["rec"], norm("ln1", x), cache, training, tp=tp)
+            x = x + h
+        else:
+            def whole(x):
+                h, c = griffin.recurrent_block(
+                    p["rec"], apply_norm(p["ln1"], x, eps), cache, training)
+                return x + h, c
+            x, new_cache = tp.whole(x, whole)
         x, _ = ffn(x)
         return x, new_cache, aux
     window = (_layer_window(cfg, kind) if window_override < 0

@@ -40,8 +40,9 @@ the compute. The port chooses both:
 
 Tensor-parallel compute under ``"tp"`` (Megatron's, with its
 sequence-parallel stream; the operators ``copy_to_model``,
-``reduce_from_model``, ``gather_seq``, ``scatter_seq``, ``split_seq`` and
-``join_seq`` are ``_ModelComm``, legal under ``torch.func.vmap``):
+``reduce_from_model``, ``gather_seq``, ``scatter_seq``, ``split_seq``,
+``join_seq``, ``gather_cols`` and ``model_sum`` are ``_ModelComm``, legal
+under ``torch.func.vmap``):
 
   * the dense attention (``models/layers.self_attention``): q/k/v by
     columns on the rank's heads, wo by rows. Where the heads divide the
@@ -56,6 +57,34 @@ sequence-parallel stream; the operators ``copy_to_model``,
     all-reduces);
   * the dense MLP (``layers.mlp``) and EASTER's decision MLPs: up / gate
     by columns, down by rows;
+  * the MoE FFN (``models/moe.moe_ffn``, ``TP.moe``): by expert where the
+    experts divide the model axis ("experts"), else every expert on the
+    rank's ff columns with ``w_down`` by rows ("ff"); the shared experts
+    as a split MLP. Each rank routes the stream as it lies (the router
+    replicated), the gates and expert indices made whole as the stream
+    is, dispatches the tokens of its data rows into its own experts'
+    slots only, and adds its partial output; one ``exit`` sums the
+    ranks'. No all-to-all: the dense MLP's operators, whose sizes do not
+    depend on the routing, so the passive proxies' ``vmap`` holds;
+  * the Mamba-2 mixer (``models/ssm.ssm_block``, ``TP.ssd``): the packed
+    ``in_proj``, the conv and the SiLU replicated, the SSD, its ``D``
+    skip and ``z`` gate on the rank's heads, the gated norm's mean square
+    summed over "model" (``model_sum``), ``out_proj`` by rows;
+  * the RG-LRU mixer (``models/griffin.recurrent_block``, ``TP.lru``):
+    ``in_x`` / ``in_gate`` by columns, the conv on the rank's channels,
+    its output all-gathered (``gather_cols``) for the (W, W) gate
+    products, ``w_r`` / ``w_i`` by columns, ``lam`` and the scan at the
+    rank's width, ``out`` by rows;
+  * a replicated leaf that feeds a rank's block (the router and
+    ``shared_gate`` on an S block, ``in_proj``, the convs' taps, the
+    gated norm's scale) passes ``copy_to_model`` (``TP.rep`` /
+    ``TP.partial``), so that its cotangent is summed over "model" once;
+  * a cache block keeps the "model" entry of what the rank computes on
+    (``TP.keeps_cache``): the K/V heads (or T), the SSD ``state`` by
+    heads, the LRU ``conv`` and ``state`` by width. The SSD ``conv``
+    cache is stored over its packed ``[x | B | C]`` channels, which do
+    not align with a rank's heads: ``cache_in`` gathers it (every rank
+    computes the whole conv) and ``cache_out`` keeps the rank's block;
   * the residual stream between a party's layers is this rank's S block
     where S divides the model axis (norms on the block, ``gather_seq``
     before the column products, ``scatter_seq`` after the row products),
@@ -68,8 +97,9 @@ sequence-parallel stream; the operators ``copy_to_model``,
 
 Still gathered and run whole on every model rank (in a sequence-parallel
 stream: ``join_seq``, the block, ``split_seq``), ROADMAP.md queue 1 item
-H: the MoE FFN (expert parallelism), the SSD and RG-LRU blocks, the
-encoder and the cross-attention.
+H.3: the encoder and the cross-attention, an attention whose split would
+cut a head, and any block whose split widths do not divide the model
+axis.
 
 Model code reaches the plan through ``ambient_mesh`` (the reference's, with
 the step's spec trees): ``stack_tp`` / ``block_tp`` (a party stack's
@@ -88,9 +118,10 @@ reference's ``constrain`` is a no-op without a mesh.
 The reference's ``constrain`` hints steer GSPMD; the port places tensors
 explicitly instead, at each of them:
 
-  * ``models/moe.py:84,94`` (the dispatch buffer and the combine over
-    "batch"): each rank dispatches its own tokens into its own buffer, at
-    the global slots (``batch_prefix``) under the global capacity;
+  * ``models/moe.py:84,94`` (the dispatch buffer over ("model", "batch")
+    and the combine over "batch"): each rank dispatches its own rows'
+    tokens into its own buffer, at the global slots (``batch_prefix``)
+    under the global capacity, and under TP into its own experts only;
   * ``models/transformer.py:283`` (the residual stream over "batch"): the
     stream is this rank's rows; nothing moves;
   * ``core/easter_lm.py:243-260`` (the parties' embeddings and the
@@ -496,13 +527,17 @@ def _block(x: torch.Tensor, entry, dim: int, mesh) -> torch.Tensor:
 
 def _relayout(x: torch.Tensor, src, dst, mesh) -> torch.Tensor:
     """``x`` stored as ``src`` -> the same tensor stored as ``dst``: dims
-    leaving an axis all-gathered over it, dims entering one sliced."""
+    leaving an axis all-gathered over it, dims entering one sliced; the
+    dims that only enter an axis are sliced first, so that the gathers
+    along the others move the smaller block."""
     s, d = _entries(src, x.dim()), _entries(dst, x.dim())
     for i in range(x.dim()):
-        if s[i] == d[i]:
+        if s[i] is None and d[i] is not None:
+            x = _block(x, d[i], i, mesh)
+    for i in range(x.dim()):
+        if s[i] == d[i] or s[i] is None:
             continue
-        if s[i] is not None:
-            x = mesh.all_gather(x, _axes(s[i]), i)
+        x = mesh.all_gather(x, _axes(s[i]), i)
         if d[i] is not None:
             x = _block(x, d[i], i, mesh)
     return x
@@ -607,8 +642,10 @@ class Plan:
     fresh: bool = False
     scopes: list = field(default_factory=list)
     row_tables: dict = field(default_factory=dict)
-    # layers taken under tensor-parallel compute, by their attention's
-    # split ("heads", "kv", "whole"), a recompute's takes counted again
+    # sub-blocks of the layers taken under tensor-parallel compute, by
+    # their split ("attn heads", "attn kv", "attn whole", "mlp split",
+    # "moe experts", "moe ff", "ssm heads", "rec width", or "... whole"),
+    # a recompute's takes counted again
     tp_blocks: dict = field(default_factory=dict)
 
     @property
@@ -721,8 +758,9 @@ def layer_taker(path: Tuple, group: bool = False, tp: "Optional[TP]" = None):
 
     def take(tree, index):
         if tp is not None:      # a segment's repeat: one layer a key
-            plan.tp_blocks[tp.attn] = plan.tp_blocks.get(tp.attn, 0) \
-                + len(tree)
+            for blk in tree.values():
+                for key in tp.splits(blk):
+                    plan.tp_blocks[key] = plan.tp_blocks.get(key, 0) + 1
         return zip_specs(lambda a, sk: _Materialize.apply(
             a, mesh, P(*sk[0]), index, axis, bax, sk[1]), tree, keeps)
     return take
@@ -733,9 +771,11 @@ _KV = ("k", "v", "k_scale", "v_scale")
 
 def _compute_spec(nd: int, plan: Plan, stored=None) -> P:
     """A cache block's compute layout: its rows (dim 0) this rank's where
-    the batch is split, every other dim whole; with ``stored`` (a K/V
-    leaf's stored entries, under tensor-parallel attention) its "model"
-    entry kept (heads, or T: ``_cache_rule``)."""
+    the batch is split, every other dim whole; with ``stored`` (the
+    stored entries of a leaf the tensor-parallel compute reads as its
+    block: ``TP.keeps_cache``) its "model" entry kept (K/V heads or T,
+    an SSD state's heads, an LRU state's or conv's width:
+    ``_cache_rule``)."""
     out = [None] * nd
     if nd and plan.split:
         out[0] = plan.row_axes or None
@@ -746,29 +786,28 @@ def _compute_spec(nd: int, plan: Plan, stored=None) -> P:
     return P(*out)
 
 
-def _kv_spec(names, s, nd, plan, keep: bool):
+def _kv_spec(names, s, nd, plan, tp: "Optional[TP]"):
     """The compute spec of a cache leaf stored as ``s`` (with its stack
     dim, ``nd`` dims without): ``_compute_spec``, keeping the "model"
-    entry of a K/V leaf where ``keep``."""
+    entry of a leaf that ``tp`` computes on as its block."""
     stored = _entries(s, nd + 1)[1:]
-    return _compute_spec(nd, plan, stored if keep and names
-                         and names[-1] in _KV else None)
+    keep = tp is not None and bool(names) and tp.keeps_cache(names[-1])
+    return _compute_spec(nd, plan, stored if keep else None)
 
 
 def cache_in(tree, si: int, index: int, tp: "Optional[TP]" = None):
     """Segment ``si``'s cache block for repeat ``index`` in the compute
-    layout (the plain slice without a plan); with a tensor-parallel
-    attention (``tp.attn`` "heads" or "kv") a K/V block keeps its "model"
-    entry."""
+    layout (the plain slice without a plan); under tensor-parallel
+    compute a block the rank computes on keeps its "model" entry
+    (``TP.keeps_cache``)."""
     plan = current()
     if plan is None:
         return tree_map(lambda a: a[index], tree)
     plan, (_, cspecs) = _scoped("a cache")
-    keep = tp is not None and tp.attn != "whole"
 
     def one(names, a, s):
         x = a[index]
-        dst = _kv_spec(names, s, x.dim(), plan, keep)
+        dst = _kv_spec(names, s, x.dim(), plan, tp)
         src = dst if plan.fresh else P(*_entries(s, a.dim())[1:])
         return _Relayout.apply(x, plan.mesh, src, dst)
     return _zip_path(one, tree, cspecs[si])
@@ -778,20 +817,19 @@ def fresh_caches(full, batch: int, device, cfgs=None):
     """New (zero) caches under the plan from their whole-step shapes
     ``full`` (meta tensors for ``batch`` rows, one tree a party): their
     specs (``cache_specs``) join the plan, and they are made in the
-    compute layout (this rank's rows, every other dim whole, a K/V
-    block's "model" entry kept for a party of ``cfgs`` whose attention
-    computes over "model"), which ``cache_in`` reads as it is;
-    ``cache_out`` writes this rank's blocks of the specs."""
+    compute layout (this rank's rows, every other dim whole, the "model"
+    entry kept of a block that a party of ``cfgs`` computes on over
+    "model"), which ``cache_in`` reads as it is; ``cache_out`` writes
+    this rank's blocks of the specs."""
     plan = current()
     plan.caches = cache_specs(full, plan.mesh, batch)
     plan.fresh = True
 
     def party(tree, specs, cfg):
         tp = None if cfg is None else stack_tp(cfg, 1)
-        keep = tp is not None and tp.attn != "whole"
 
         def zeros(names, a, s):
-            spec = P(None, *_kv_spec(names, s, a.dim() - 1, plan, keep))
+            spec = P(None, *_kv_spec(names, s, a.dim() - 1, plan, tp))
             return torch.zeros(local_shape(a.shape, spec, plan.mesh),
                                dtype=a.dtype, device=device)
         return _zip_path(zeros, tree, specs)
@@ -806,11 +844,10 @@ def cache_out(tree, si: int, tp: "Optional[TP]" = None):
     if plan is None:
         return tree
     plan, (_, cspecs) = _scoped("a cache")
-    keep = tp is not None and tp.attn != "whole"
 
     def one(names, x, s):
         return _Relayout.apply(x, plan.mesh,
-                               _kv_spec(names, s, x.dim(), plan, keep),
+                               _kv_spec(names, s, x.dim(), plan, tp),
                                P(*_entries(s, x.dim() + 1)[1:]))
     return _zip_path(one, tree, cspecs[si])
 
@@ -1136,6 +1173,14 @@ def gather_cols(x, mesh):
     return _ModelComm.apply(x, mesh, "gather", "scatter", -1)
 
 
+def model_sum(x, mesh):
+    """All-reduce over "model" with an all-reduce backward: a statistic
+    that every rank's block reads (the gated norm's sum of squares over
+    the width the ranks split), so each rank's cotangent of it is
+    partial."""
+    return _ModelComm.apply(x, mesh, "sum", "sum", -1)
+
+
 def model_gather(x, mesh, dim: int):
     """Serving: the "model" blocks of ``x`` along ``dim`` (negative)
     all-gathered (no gradient)."""
@@ -1154,7 +1199,10 @@ class TP:
     and the one kv head they read; every kv head gathered from the ranks'
     columns for the cache) or "whole" (gathered); ``mlp``: the dense MLPs split (up / gate by
     columns, down by rows); ``seq``: the residual stream is this rank's S
-    block; ``kv_t``: the block's K/V cache lies over "model" by T.
+    block; ``kv_t``: the block's K/V cache lies over "model" by T;
+    ``moe``: the MoE FFN split "experts" (by expert) or "ff" (every
+    expert's ff columns), or None (gathered); ``ssd``: the SSD mixer on
+    the rank's heads; ``lru``: the RG-LRU mixer at the rank's width.
     ``TP(None)`` (``WHOLE``) is one rank holding every block: m = 1 and
     the operators the identity."""
     mesh: Any
@@ -1162,6 +1210,9 @@ class TP:
     mlp: bool = False
     seq: bool = False
     kv_t: bool = False
+    moe: Optional[str] = None
+    ssd: bool = False
+    lru: bool = False
 
     @property
     def m(self) -> int:
@@ -1174,13 +1225,65 @@ class TP:
     def consumes(self, names) -> bool:
         """True for a layer leaf (its path names) computed on as its
         "model" block."""
-        if len(names) < 3:
+        if len(names) < 2:
             return False
-        grand, parent = names[-3], names[-2]
+        parent, name = names[-2], names[-1]
+        grand = names[-3] if len(names) > 2 else ""
         if grand == "attn" and self.attn != "whole":
             return parent in ("wq", "wk", "wv", "wo")
-        return grand == "mlp" and self.mlp and parent in ("up", "gate",
-                                                          "down")
+        if grand == "mlp" and self.mlp:
+            return parent in ("up", "gate", "down")
+        if self.moe:
+            if parent == "moe":
+                return name in ("w_gate", "w_up", "w_down")
+            if grand == "shared":
+                return parent in ("up", "gate", "down")
+        if self.ssd and parent == "ssm":
+            return name in ("A_log", "D", "dt_bias", "out_proj")
+        if self.lru:
+            if parent == "rec":
+                return name == "lam"
+            if grand == "rec":
+                return parent in ("in_x", "in_gate", "w_r", "w_i", "out")
+        return False
+
+    def keeps_cache(self, name: str) -> bool:
+        """True for a cache leaf (by name) whose "model" block the split
+        compute reads and writes as it is: K/V under a split attention,
+        the SSD state (heads), the LRU state and conv (width). The SSD
+        conv cache, over its packed channels, is gathered."""
+        if name in _KV:
+            return self.attn != "whole"
+        if name == "state":
+            return self.ssd or self.lru
+        return name == "conv" and self.lru
+
+    def splits(self, blk) -> List[str]:
+        """How one block's sub-blocks (a layer's leaves) compute, for
+        ``Plan.tp_blocks``."""
+        how = {"attn": self.attn,
+               "mlp": "split" if self.mlp else "whole",
+               "moe": self.moe or "whole",
+               "ssm": "heads" if self.ssd else "whole",
+               "rec": "width" if self.lru else "whole"}
+        return [f"{k} {v}" for k, v in how.items() if k in blk]
+
+    def partial(self, tree):
+        """Replicated leaves whose products feed this rank's block of a
+        split compute (the SSD's ``in_proj``, a conv's taps, a norm over a
+        split width): every rank's cotangent is partial, so they pass
+        ``copy_to_model`` (its backward sums them over "model") whatever
+        the stream."""
+        if self.mesh is None:
+            return tree
+        return tree_map(lambda a: copy_to_model(a, self.mesh), tree)
+
+    def block(self, x, dim: int = -1):
+        """This rank's block of ``x`` along ``dim`` (a view)."""
+        if self.mesh is None:
+            return x
+        w = x.shape[dim] // self.m
+        return x.narrow(dim, self.coord * w, w)
 
     def enter(self, x):
         """The stream before a column-parallel product."""
@@ -1237,12 +1340,29 @@ def attn_mode(n_heads: int, n_kv_heads: int, head_dim: int, m: int) -> str:
     return "whole"
 
 
+def _fits(n: int, m: int) -> bool:
+    """``_param_rule``'s test: n splits over m ranks."""
+    return n >= m and n % m == 0
+
+
+def moe_mode(moe, m: int) -> Optional[str]:
+    """The MoE FFN's split over ``m`` model ranks (``TP.moe``), as the rule
+    stores it: "experts" where the experts divide, else "ff" where each
+    expert's ff width does; the shared experts' width must divide too."""
+    ff = moe.d_expert_ff
+    if moe.n_shared_experts and not _fits(ff * moe.n_shared_experts, m):
+        return None
+    if _fits(moe.n_experts, m):
+        return "experts"
+    return "ff" if _fits(ff, m) else None
+
+
 def stack_tp(cfg, S: int) -> Optional[TP]:
     """The tensor-parallel compute of ``cfg``'s layer stack over a stream
     of S positions under the current plan, or None (no plan, layout
-    zero3, one model rank, or no block to split: an SSD stack). The
-    stream is sequence-parallel where S divides the model axis (the
-    reference's ``constrain`` rule, S >= m and S % m == 0)."""
+    zero3, one model rank, or no block to split). The stream is
+    sequence-parallel where S divides the model axis (the reference's
+    ``constrain`` rule, S >= m and S % m == 0)."""
     plan = _tp_plan()
     if plan is None:
         return None
@@ -1250,11 +1370,18 @@ def stack_tp(cfg, S: int) -> Optional[TP]:
     attn = ("whole" if cfg.family == "ssm"
             else attn_mode(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
                            m))
-    mlp = (cfg.family not in ("moe", "ssm") and cfg.d_ff >= m
-           and cfg.d_ff % m == 0)
-    if attn == "whole" and not mlp:
+    mlp = (cfg.family not in ("moe", "ssm") and _fits(cfg.d_ff, m))
+    moe = moe_mode(cfg.moe, m) if cfg.family == "moe" else None
+    ssd = False
+    if cfg.family == "ssm":
+        d_inner = cfg.ssm.expand * cfg.d_model
+        ssd = _fits(d_inner // cfg.ssm.head_dim, m)
+    lru = (cfg.family == "hybrid"
+           and _fits(cfg.hybrid.lru_width or cfg.d_model, m))
+    if attn == "whole" and not (mlp or moe or ssd or lru):
         return None
-    return TP(plan.mesh, attn, mlp, seq=S >= m and S % m == 0)
+    return TP(plan.mesh, attn, mlp, seq=S >= m and S % m == 0, moe=moe,
+              ssd=ssd, lru=lru)
 
 
 def block_tp(tp: Optional[TP], si: int, key: str) -> Optional[TP]:

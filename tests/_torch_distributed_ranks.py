@@ -1,7 +1,7 @@
 """The rank side of tests/test_torch_distributed.py: the FSDP plan's train,
 prefill and serve steps on a 2 x 2 (data x model) gloo mesh on the CPU
-(and one serve step on a 4 x 1 mesh of the same ranks), every case
-inside one spawned 4-rank group. Imports no JAX (the ranks are separate
+(and serve steps on 4 x 1 and 1 x 4 meshes of the same ranks), every
+case inside one spawned 4-rank group. Imports no JAX (the ranks are separate
 processes); rank 0 returns numpy, the other ranks their block checks."""
 import dataclasses
 
@@ -12,6 +12,7 @@ from repro_torch import sharding
 from repro_torch.configs.base import (EasterConfig, InputShape, get_config,
                                       smoke_variant)
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.core import train_loop
 from repro_torch.launch import steps
 from repro_torch.tree import tree_leaves
 
@@ -46,33 +47,54 @@ TRAIN_CASES = (
     ("qwen2.5-3b-kv1", "qwen2.5-3b", {"n_kv_heads": 1}, "sgd", "tp", False),
     ("qwen2.5-3b-h3", "qwen2.5-3b", {"n_heads": 3, "n_kv_heads": 1}, "sgd",
      "tp", False),
+    # the split MoE with its shared expert, by expert (4 experts over 2
+    # model ranks) and by ff column (3 experts do not divide 2); the
+    # Griffin stack's RG-LRU at half its width (with the "kv" attention)
+    ("qwen2-moe", "qwen2-moe-a2.7b", {}, "sgd", "tp", False),
+    ("qwen2-moe-ff", "qwen2-moe-a2.7b", {"n_experts": 3}, "sgd", "tp", False),
+    ("recurrentgemma", "recurrentgemma-9b", {}, "sgd", "tp", False),
 )
+# the train cases whose replicated leaves' gradients are held against the
+# one process's: each feeds a rank's block of a split product (the router,
+# the shared gate, the SSD's in_proj, the convs' taps, the norms)
+GRAD_CASES = ("qwen3-moe", "mamba2", "qwen2-moe", "qwen2-moe-ff",
+              "recurrentgemma")
+REPLICATED = ("router", "shared_gate", "in_proj", "conv_w", "conv_b",
+              "scale")
 SERVE_POS = 3
-# (name, config changes, mesh, lanes, blinded) of the decode rounds: on
-# the 2 x 2 mesh (the heads split over "model"), blinded and unblinded (no
-# mask seeds: the uplink ships raw, so whatever differs from one process
-# is the tensor-parallel compute's alone); on 4 x 1 (data x model) over
-# the same ranks, whose compute splits over the batch only, at 8 lanes (2
-# a rank, as the 2 x 2 mesh's data ranks hold: a one-row product takes
-# another CPU GEMM path than the one process's, whose bits differ); one
-# kv head, whose cache lies over "model" by T (the partial softmax merged
-# over the ranks)
+# (name, arch, config changes, mesh, lanes, blinded) of the decode rounds:
+# on the 2 x 2 mesh (the heads split over "model"), blinded and unblinded
+# (no mask seeds: the uplink ships raw, so whatever differs from one
+# process is the tensor-parallel compute's alone); on 4 x 1 (data x
+# model) over the same ranks, whose compute splits over the batch only,
+# at 8 lanes (2 a rank, as the 2 x 2 mesh's data ranks hold: a one-row
+# product takes another CPU GEMM path than the one process's, whose bits
+# differ); one kv head, whose cache lies over "model" by T (the partial
+# softmax merged over the ranks); the split MoE on 2 x 2 and on 1 x 4 (one
+# expert a rank), the SSD on 2 x 2 (8 heads a rank), the RG-LRU on 1 x 4
+# (a quarter of its width a rank). The split blocks' cases also run a
+# (4, 16) prefill (``prefill_case``)
 SERVE_CASES = (
-    ("serve", {}, (2, 2), B, True),
-    ("serve-raw", {}, (2, 2), B, False),
-    ("serve-4x1", {}, (4, 1), 2 * B, True),
-    ("serve-t-split", {"n_kv_heads": 1}, (2, 2), B, True),
+    ("serve", "qwen2.5-3b", {}, (2, 2), B, True),
+    ("serve-raw", "qwen2.5-3b", {}, (2, 2), B, False),
+    ("serve-4x1", "qwen2.5-3b", {}, (4, 1), 2 * B, True),
+    ("serve-t-split", "qwen2.5-3b", {"n_kv_heads": 1}, (2, 2), B, True),
+    ("serve-moe", "qwen2-moe-a2.7b", {}, (2, 2), B, True),
+    ("serve-moe-1x4", "qwen2-moe-a2.7b", {}, (1, 4), B, True),
+    ("serve-mamba2", "mamba2-2.7b", {}, (2, 2), B, True),
+    ("serve-rg-1x4", "recurrentgemma-9b", {}, (1, 4), B, True),
 )
-
+PREFILL_CASES = tuple(c for c in SERVE_CASES if c[1] != "qwen2.5-3b")
 
 def config(arch, changes):
     """The smoke variant of ``arch`` with ``changes`` (``capacity_factor``
-    goes to the MoE config, ``mask_mode`` to ``system``)."""
+    and ``n_experts`` go to the MoE config, ``mask_mode`` to ``system``)."""
     cfg = smoke_variant(get_config(arch))
     changes = {k: v for k, v in changes.items() if k != "mask_mode"}
-    if "capacity_factor" in changes:
-        changes["moe"] = dataclasses.replace(
-            cfg.moe, capacity_factor=changes.pop("capacity_factor"))
+    moe = {k: changes.pop(k) for k in ("capacity_factor", "n_experts")
+           if k in changes}
+    if moe:
+        changes["moe"] = dataclasses.replace(cfg.moe, **moe)
     return dataclasses.replace(cfg, **changes)
 
 
@@ -112,10 +134,25 @@ def _shapes(tree):
     return [tuple(x.shape) for x in tree_leaves(tree)]
 
 
-def train_case(mesh, cfg, opt_name, layout, zero1, mask_mode="float"):
+def replicated_grads(grads, specs):
+    """The gradients of the replicated leaves that feed a split product
+    (``REPLICATED``, by path), from a ``{"parties": [...]}`` tree."""
+    out = {}
+
+    def one(names, g, s):
+        if names[-1] in REPLICATED and "model" not in tuple(s):
+            out["/".join(names)] = g
+    sharding._zip_path(one, grads, specs)
+    return out
+
+
+def train_case(mesh, cfg, opt_name, layout, zero1, mask_mode="float",
+               grads=False):
     """One sharded train step from seed-0 weights: rank 0 gets the loss,
-    the per-party losses and the updated parameters gathered; every rank
-    its block checks."""
+    the per-party losses and the updated parameters gathered (with
+    ``grads`` also the step's gradients of the replicated leaves that feed
+    a split product, ``replicated_grads``); every rank its block
+    checks."""
     sys_ = system(cfg, mask_mode=mask_mode)
     params = sys_.init_params(torch.Generator().manual_seed(0))
     batch = train_batch(cfg)
@@ -134,6 +171,16 @@ def train_case(mesh, cfg, opt_name, layout, zero1, mask_mode="float"):
     stacked = tree_leaves(lp["passive_stacked"])[0]
     views = all(tree_leaves(lp["parties"][k])[0].untyped_storage().data_ptr()
                 == stacked.untyped_storage().data_ptr() for k in (1, 2, 3))
+    rep = None
+    if grads:
+        _, _, g = steps.shard_step(
+            lambda p, o, b, i: train_loop.loss_and_grads(
+                sys_, p, b, i, sys_.mask_seeds()),
+            mesh, in_sh, out_sh, layout)(lp, lo, lb, 0)
+        gspec = {"parties": pspec["parties"]}
+        whole = sharding.gather_tree(g, gspec, mesh)     # every rank calls
+        rep = None if whole is None else replicated_grads(whole, gspec)
+        del g
     run = steps.shard_step(train_step, mesh, in_sh, out_sh, layout)
     lp, lo, m = run(lp, lo, lb, 0)
     bad = (_check_blocks(lp, shapes[0], pspec, mesh)
@@ -146,7 +193,7 @@ def train_case(mesh, cfg, opt_name, layout, zero1, mask_mode="float"):
            "rows": int(lb["tokens"].shape[0])}
     if mesh.rank == 0:
         out.update(loss=float(m["loss"]), per_party=m["per_party"].numpy(),
-                   params=got)
+                   params=got, grads=rep)
     return out
 
 
@@ -182,8 +229,11 @@ def serve_case(mesh, cfg, lanes=B, blinded=True):
     logits, lc = run(lp, lb, lc, SERVE_POS)
     bad = _check_blocks(lc, shapes, cspec, mesh)
     got = sharding.gather_tree(lc, cspec, mesh)
+    t_split = []
+    sharding._map_with_path(lambda names, s: t_split.append(
+        names[-1] in ("k", "v") and _entries_t(s)), cspec)
     out = {"bad_blocks": bad, "bytes": dict(rec.bytes),
-           "t_split": sum(_entries_t(s) for s in sharding.spec_leaves(cspec))}
+           "t_split": sum(t_split)}
     if mesh.rank == 0:
         out.update(logits=logits.numpy(), caches=got)
     return out
@@ -230,17 +280,23 @@ def prefill_case(mesh, cfg):
 
 
 def run_cases():
-    """Every case on this rank of the 2 x 2 mesh (and the 4 x 1 one)."""
+    """Every case on this rank of the 2 x 2 mesh (and the 4 x 1 and 1 x 4
+    ones)."""
     mesh = mesh_mod.make_debug_mesh(2, 2, device="cpu")
-    meshes = {(2, 2): mesh, (4, 1): mesh_mod.make_debug_mesh(4, 1,
-                                                             device="cpu")}
+    meshes = {(2, 2): mesh}
+    for shape in ((4, 1), (1, 4)):
+        meshes[shape] = mesh_mod.make_debug_mesh(*shape, device="cpu")
     out = {"rank": mesh.rank, "coords": dict(mesh.coords)}
     for name, arch, changes, opt_name, layout, zero1 in TRAIN_CASES:
         out[name] = train_case(mesh, config(arch, changes), opt_name,
                                layout, zero1,
-                               changes.get("mask_mode", "float"))
-    for name, changes, shape, lanes, blinded in SERVE_CASES:
-        out[name] = serve_case(meshes[shape], config("qwen2.5-3b", changes),
-                               lanes, blinded)
+                               changes.get("mask_mode", "float"),
+                               grads=name in GRAD_CASES)
+    for name, arch, changes, shape, lanes, blinded in SERVE_CASES:
+        out[name] = serve_case(meshes[shape], config(arch, changes), lanes,
+                               blinded)
+    for name, arch, changes, shape, _, _ in PREFILL_CASES:
+        out["prefill-" + name] = prefill_case(meshes[shape],
+                                              config(arch, changes))
     out["prefill"] = prefill_case(mesh, config("qwen2.5-3b", {}))
     return out

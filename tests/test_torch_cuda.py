@@ -48,7 +48,7 @@ from repro_torch.kernels import blind_agg as tba
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rg_lru as trg
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -1448,3 +1448,136 @@ def test_cuda_t_split_decode_matches_a_whole_cache(cuda, t_split_ranks):
     want = layers._gqa_out(torch.softmax(logits, dim=-1), v).cpu()
     got = torch.cat([out for _, out in sorted(t_split_ranks)], dim=2)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the split MoE and RG-LRU blocks over "model"
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m", [2, 4])
+def test_cuda_rglru_on_a_model_ranks_width(cuda, m):
+    """recurrentgemma-9b's scan on a model rank's width block (512 steps,
+    4096 / m wide) of the active party's 4 lanes and of the passive
+    group's 12 (3 parties x 4 lanes, folded into the batch), each rank's a
+    and b their contiguous block of the whole gates (as the split RG-LRU
+    mixer computes them): the TMA path, bit for bit the plain version, and
+    the blocks side by side the whole width's scan."""
+    L, W = 512, 4096
+    w = W // m
+    for B in (4, 12):
+        a, b, h0 = _rglru_inputs(B, L, W, torch.float32, cuda, 17)
+        whole, whole_last = ref.reference_rglru(a, b, h0)
+        for c in range(m):
+            blk = lambda t: t.narrow(-1, c * w, w).contiguous()
+            ab, bb, hb = blk(a), blk(b), blk(h0)
+            assert trg.kernel_path(ab, bb) == "tma"
+            before = dict(trg.PATH_LAUNCHES)
+            h, last = trg.rglru_scan_fwd(ab, bb, hb)
+            torch.cuda.synchronize()
+            assert trg.PATH_LAUNCHES["tma"] == before["tma"] + 1
+            want_h, want_last = ref.reference_rglru(ab, bb, hb)
+            assert torch.equal(h, want_h) and torch.equal(last, want_last)
+            assert torch.equal(h, blk(whole)) and torch.equal(
+                last, blk(whole_last))
+
+
+# an MoE layer with a shared expert: 8 experts top-2 over 2 model ranks
+MOE_TP_CASE = dict(B=2, S=16, d=256, E=8, K=2, ff=128)
+
+
+def _moe_tp_inputs():
+    """(config, the whole layer's parameters, x), float32 on the CPU."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    c = MOE_TP_CASE
+    cfg = MoEConfig(n_experts=c["E"], top_k=c["K"], n_shared_experts=1,
+                    d_expert_ff=c["ff"])
+    g = torch.Generator().manual_seed(19)
+    p = moe.init_moe(g, c["d"], cfg, "silu", torch.float32)
+    x = torch.randn((c["B"], c["S"], c["d"]), generator=g)
+    return cfg, p, x
+
+
+def _moe_block(p, mode, c, m):
+    """Model rank ``c``'s block of the layer's leaves, as the rule stores
+    them: "experts" (the experts' rows) or "ff" (every expert's ff
+    columns, w_down's rows); the shared expert's columns and rows either
+    way; the router and the shared gate whole."""
+    cut = lambda t, d: t.narrow(d, c * (t.shape[d] // m), t.shape[d] // m)
+    e = 0 if mode == "experts" else None
+    out = {"router": p["router"], "shared_gate": p["shared_gate"],
+           "w_gate": cut(p["w_gate"], e if e is not None else 2),
+           "w_up": cut(p["w_up"], e if e is not None else 2),
+           "w_down": cut(p["w_down"], e if e is not None else 1),
+           "shared": {"gate": {"w": cut(p["shared"]["gate"]["w"], 1)},
+                      "up": {"w": cut(p["shared"]["up"]["w"], 1)},
+                      "down": {"w": cut(p["shared"]["down"]["w"], 0)}}}
+    return tree_map(lambda t: t.contiguous(), out)
+
+
+def _moe_tp_on_card():
+    """Rank side: the layer split over a 2-rank gloo group on cuda:0, by
+    expert and by ff column, on a whole stream and on this rank's S
+    block; (rank, {(mode, seq): (this rank's output as numpy, aux)}):
+    numpy, which pickles by value (a tensor crosses the pipe as a shared
+    file descriptor, gone once the rank exits)."""
+    from repro_torch import sharding
+    from repro_torch.launch import mesh
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = mesh.make_debug_mesh(1, 2, device="cuda")
+    cfg, p, x = _moe_tp_inputs()
+    c, S = m.coord(("model",)), x.shape[1]
+    out = {}
+    for mode in ("experts", "ff"):
+        pl = tree_map(lambda t: t.cuda(), _moe_block(p, mode, c, 2))
+        for seq in (False, True):
+            tp = sharding.TP(m, moe=mode, seq=seq)
+            xin = x.narrow(1, c * S // 2, S // 2) if seq else x
+            y, aux = moe.moe_ffn(pl, xin.cuda(), cfg, "silu", tp=tp)
+            out[(mode, seq)] = (y.cpu().numpy(), float(aux))
+    return m.rank, out
+
+
+@pytest.fixture(scope="module")
+def moe_tp_ranks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import mesh
+    return mesh.spawn_ranks(_moe_tp_on_card, 2,
+                            store_dir=str(tmp_path_factory.mktemp("mesh")),
+                            device="cuda")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("seq", [False, True])
+@pytest.mark.parametrize("mode", ["experts", "ff"])
+def test_cuda_split_moe_matches_the_whole_layer(cuda, moe_tp_ranks, mode,
+                                                seq):
+    """The MoE layer split over 2 model ranks on the card ("experts": 4 of
+    the 8 experts a rank; "ff": every expert's half of the ff columns;
+    the shared expert's columns either way), routed on the stream as it
+    lies, its partial outputs summed over the ranks (an all-reduce on a
+    whole stream, a reduce-scatter onto each rank's S block), against the
+    whole layer on the card, float32 (TF32 off): within rtol 1e-5 / atol
+    1e-6 x max|out| (the experts drawn at the reference's fan-in scale,
+    1/sqrt(E), put outputs of ~250 into the layer, and the partial sums'
+    other order moves them by up to 3.1 float32 ulps of that largest
+    output on the CPU), the load-balance loss within rtol 1e-5."""
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p, x = _moe_tp_inputs()
+    want, want_aux = moe.moe_ffn(tree_map(lambda t: t.cuda(), p), x.cuda(),
+                                 cfg, "silu")
+    want = want.cpu()
+    outs = [(torch.from_numpy(y), aux)
+            for y, aux in (out[(mode, seq)] for _, out in sorted(moe_tp_ranks))]
+    got = torch.cat([y for y, _ in outs], dim=1) if seq else outs[0][0]
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+    for y, aux in outs:
+        if not seq:
+            assert torch.equal(y, outs[0][0])
+        np.testing.assert_allclose(aux, float(want_aux), rtol=1e-5)

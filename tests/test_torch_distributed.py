@@ -12,7 +12,8 @@ weights (the port's, seed 0, handed over as numpy) and batches.
 
   * train steps: qwen2.5-3b, qwen3-moe-235b-a22b and mamba2-2.7b (the
     reference test's three: sgd, lr 1e-2, batch (4, 16), layout "tp":
-    S = 16 divides the model axis, so the stream is sequence-parallel),
+    S = 16 divides the model axis, so the stream is sequence-parallel;
+    the MoE FFN split by expert, the SSD by heads),
     qwen2.5-3b on the int8 wire (the round scale a max over the ranks),
     qwen3-moe at capacity factor 0.25, where the one-process step drops
     tokens (so the global capacity, the slots after the lower ranks'
@@ -20,23 +21,32 @@ weights (the port's, seed 0, handed over as numpy) and batches.
     ZeRO-1 under "zero3" on qwen2.5-3b widened to vocab 4096 / d_ff 2048
     (at smoke size no leaf reaches _add_fsdp's 2^20-element floor), and
     qwen2.5-3b with one kv head (both model ranks' q heads read it) and
-    with 3 q heads (the split would cut a head: the attention gathered);
+    with 3 q heads (the split would cut a head: the attention gathered),
+    qwen2-moe-a2.7b with its shared expert split by expert and, at 3
+    experts, by ff column, and recurrentgemma-9b (the RG-LRU at half its
+    width); the MoE, SSD and RG-LRU cases also hold the gradients of the
+    replicated leaves that feed a split product (the router, the shared
+    gate, the SSD's in_proj, the convs' taps, the norms) to one process's;
   * decode rounds (batch 4, cache 16, position 3, under
     ``serve_shardings``): on the 2 x 2 mesh, blinded and unblinded, on a
     4 x 1 mesh of the same ranks (compute over the batch only), and with
-    one kv head, whose cache lies over "model" by T; a (4, 16) prefill,
-    sequence-parallel;
+    one kv head, whose cache lies over "model" by T; the split MoE on
+    2 x 2 and 1 x 4, the SSD on 2 x 2 and the RG-LRU on 1 x 4, each also
+    a (4, 16) prefill; a (4, 16) qwen2.5-3b prefill, sequence-parallel;
   * on every rank, every leaf's block has the shape its spec gives the
     whole leaf, before and after the step, and the passive parties stay
     views of the stacked group's block;
   * the recording mesh's collectives of a prefill and of a decode round
-    (the meta device, an abstract 2 x 2 mesh): activations only, their
-    bytes by formula.
+    (the meta device, an abstract 2 x 2 mesh), a decode round also with
+    MoE, SSD and RG-LRU layers: activations only, their bytes by
+    formula.
 
 Tolerances. Against the port's one-process step: the losses rtol 1e-6
 (7e-8 relative measured: the global mean sums the ranks' token sums in
 another order), the sgd cases' updated parameters atol 1e-7 / rtol 1e-6
-(1.5e-8 measured); the 4 x 1 decode's logits and caches bit for bit; the
+(1.5e-8 measured); the replicated leaves' gradients ``_close_tp`` at 32
+ulps (18 measured: the split products' partial cotangents summed over
+the ranks); the 4 x 1 decode's logits and caches bit for bit; the
 tensor-parallel decode and prefill as ``_close_tp`` and
 ``_close_tp_caches`` say. Against
 the reference: tests/test_torch_lm.py's rtol 1e-4 / atol 1e-5 for
@@ -103,12 +113,13 @@ def spawned(tmp_path_factory):
     with concurrent.futures.ThreadPoolExecutor(3) as refs:
         jobs = [refs.submit(_reference, name) for name in CASES]
         jobs += [refs.submit(_reference_serve, name) for name in SERVES]
-        jobs.append(refs.submit(_reference_prefill))
+        jobs += [refs.submit(_reference_prefill, name) for name in PREFILLS]
         for name in CASES:
             _one_process(name)
         for name in SERVES:
             _one_process_serve(name)
-        _one_process_prefill()
+        for name in PREFILLS:
+            _one_process_prefill(name)
         for j in jobs:
             j.result()
     yield fut.result()
@@ -118,9 +129,10 @@ def spawned(tmp_path_factory):
 def _ref_cfg(arch, changes):
     cfg = jcfg.smoke_variant(jcfg.get_config(arch))
     changes = {k: v for k, v in changes.items() if k != "mask_mode"}
-    if "capacity_factor" in changes:
-        changes["moe"] = dataclasses.replace(
-            cfg.moe, capacity_factor=changes.pop("capacity_factor"))
+    moe = {k: changes.pop(k) for k in ("capacity_factor", "n_experts")
+           if k in changes}
+    if moe:
+        changes["moe"] = dataclasses.replace(cfg.moe, **moe)
     return dataclasses.replace(cfg, **changes)
 
 
@@ -137,7 +149,8 @@ def _np(tree):
 @functools.lru_cache(maxsize=None)
 def _one_process(name):
     """The port's one-process step on the case's weights and batch: (loss,
-    per-party losses, updated params, clipped gradients) as numpy."""
+    per-party losses, updated params, clipped gradients' magnitudes, the
+    gradients by path) as numpy."""
     _, arch, changes, opt_name, _, _ = CASES[name]
     cfg = ranks.config(arch, changes)
     sys_ = ranks.system(cfg, mask_mode=changes.get("mask_mode", "float"))
@@ -147,13 +160,16 @@ def _one_process(name):
                                             sys_.mask_seeds())
     norm = float(global_norm(grads))
     clipped = _np(grads)
+    by_path = {}
+    sharding._map_with_path(
+        lambda names, g: by_path.__setitem__("/".join(names), g), clipped)
     scale = min(1.0, 1.0 / (norm + 1e-9))
     step, opt = steps.build_train_step(sys_, opt_name, lr=LR)
     state = opt.init({"parties": params["parties"]})
     params, state, m = step(params, state, batch, 0)
     return (float(m["loss"]), m["per_party"].numpy(),
             _np({"parties": params["parties"]}),
-            [np.abs(g) * scale for g in tree_leaves(clipped)])
+            [np.abs(g) * scale for g in tree_leaves(clipped)], by_path)
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,8 +195,8 @@ SERVES = {c[0]: c for c in ranks.SERVE_CASES}
 
 @functools.lru_cache(maxsize=None)
 def _one_process_serve(name):
-    _, changes, _, lanes, blinded = SERVES[name]
-    cfg = ranks.config("qwen2.5-3b", changes)
+    _, arch, changes, _, lanes, blinded = SERVES[name]
+    cfg = ranks.config(arch, changes)
     sys_ = ranks.system(cfg)
     params = sys_.init_params(torch.Generator().manual_seed(2))
     serve = ranks.serve_step(sys_, lanes, blinded)
@@ -198,9 +214,9 @@ def _weights(cfg):
 
 @functools.lru_cache(maxsize=None)
 def _reference_serve(name):
-    _, changes, _, lanes, blinded = SERVES[name]
-    cfg = ranks.config("qwen2.5-3b", changes)
-    js = _ref_system("qwen2.5-3b", changes)
+    _, arch, changes, _, lanes, blinded = SERVES[name]
+    cfg = ranks.config(arch, changes)
+    js = _ref_system(arch, changes)
     if blinded:
         serve = jsteps.build_serve_step(js, JInputShape("d", ranks.S, lanes,
                                                         "decode"))
@@ -215,9 +231,16 @@ def _reference_serve(name):
     return np.asarray(logits), jax.tree.map(np.asarray, caches)
 
 
+# the prefills: qwen2.5-3b's ("prefill") and the split blocks' serve
+# cases' ("prefill-<case>"), by name -> (arch, config changes)
+PREFILLS = {"prefill": ("qwen2.5-3b", {}),
+            **{"prefill-" + c[0]: (c[1], c[2]) for c in ranks.PREFILL_CASES}}
+
+
 @functools.lru_cache(maxsize=None)
-def _one_process_prefill():
-    cfg = ranks.config("qwen2.5-3b", {})
+def _one_process_prefill(name="prefill"):
+    arch, changes = PREFILLS[name]
+    cfg = ranks.config(arch, changes)
     sys_ = ranks.system(cfg)
     prefill = steps.build_prefill_step(sys_, ranks.InputShape(
         "p", ranks.S, ranks.B, "prefill"))
@@ -227,9 +250,10 @@ def _one_process_prefill():
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_prefill():
-    cfg = ranks.config("qwen2.5-3b", {})
-    js = _ref_system("qwen2.5-3b", {})
+def _reference_prefill(name="prefill"):
+    arch, changes = PREFILLS[name]
+    cfg = ranks.config(arch, changes)
+    js = _ref_system(arch, changes)
     prefill = jsteps.build_prefill_step(js, JInputShape(
         "p", ranks.S, ranks.B, "prefill"))
     batch = {"tokens": jnp.asarray(ranks.prefill_inputs(cfg)[
@@ -266,7 +290,7 @@ def test_sharded_train_step_matches_single_device(spawned, name):
         assert got["rows"] == (1 if layout == "zero3" else 2)
         assert got["n_sharded"] > 0
     got = spawned[0][name]
-    loss, per, params, gabs = _one_process(name)
+    loss, per, params, gabs, grads = _one_process(name)
     np.testing.assert_allclose(got["loss"], loss, rtol=1e-6)
     np.testing.assert_allclose(got["per_party"], per, rtol=1e-6)
     r_loss, r_per, r_params = _reference(name)
@@ -279,6 +303,18 @@ def test_sharded_train_step_matches_single_device(spawned, name):
     else:
         _close(got["params"], params, 1e-6, 1e-7)
         _close(got["params"], r_params, RTOL, ATOL)
+    if name in ranks.GRAD_CASES:
+        # every replicated leaf that feeds a split product, against the
+        # one process's gradient (unclipped, before the update)
+        kinds = {k.rsplit("/", 1)[-1] for k in got["grads"]}
+        want = {"scale", "router"} if "moe" in arch else {"scale", "conv_w"}
+        assert want <= kinds, kinds
+        if "mamba2" in arch:
+            assert {"in_proj", "conv_b"} <= kinds
+        if name.startswith("qwen2-moe"):
+            assert "shared_gate" in kinds
+        for k, g in got["grads"].items():
+            _close_tp(g, grads[k], ulps=32)
 
 
 def test_moe_case_drops_tokens():
@@ -330,36 +366,48 @@ def _close_tp(got, want, ulps=16):
 
 
 def _close_tp_caches(got, want):
-    """Tensor-parallel K/V caches (by party, by segment) against one
-    process: the stack's first layer bit for bit, as no row-parallel sum
+    """Tensor-parallel caches (by party, by segment, by block) against one
+    process: the stack's first block bit for bit, as no row-parallel sum
     lies before it (its k / v come from the rank's columns of wk / wv and
-    the vocabulary-parallel embedding, both exact), every later layer at
-    ``_close_tp`` with 8 ulps (measured: at most 4.9)."""
+    the vocabulary-parallel embedding, an RG-LRU's state from its columns
+    of in_x and w_r / w_i, an SSD's conv from the replicated in_proj: all
+    exact), every later block at ``_close_tp`` with 8 ulps (measured: at
+    most 5.5). One exception: the SSD decode step's state, whose einsum
+    over a rank's heads contracts in another order than over all of them
+    (0.016 ulps of the leaf's largest measured), is held at 8 ulps in the
+    first block too."""
     for party_got, party_want in zip(got, want):
         for si, (seg_got, seg_want) in enumerate(zip(party_got, party_want)):
-            for a, b in zip(tree_leaves(seg_got), tree_leaves(seg_want)):
-                a, b = np.asarray(a), np.asarray(b)
-                if b.dtype.kind != "f":
-                    np.testing.assert_array_equal(a, b)
-                    continue
-                if si == 0:
-                    np.testing.assert_array_equal(a[0], b[0])
-                    a, b = a[1:], b[1:]
-                _close_tp(a, b, ulps=8)
+            for key in seg_want:
+                for leaf in seg_want[key]:
+                    a = np.asarray(seg_got[key][leaf])
+                    b = np.asarray(seg_want[key][leaf])
+                    if b.dtype.kind != "f":
+                        np.testing.assert_array_equal(a, b)
+                        continue
+                    if si == 0 and key == "p0" and not (
+                            leaf == "state" and b.ndim == 5):
+                        np.testing.assert_array_equal(a[0], b[0])
+                        a, b = a[1:], b[1:]
+                    if b.size:
+                        _close_tp(a, b, ulps=8)
 
 
 @pytest.mark.parametrize("name", list(SERVES))
 def test_sharded_serve_step_matches_single_device(spawned, name):
     """On the 4 x 1 mesh (compute split over the batch only) the logits
-    and caches are the one process's bits; under "tp" on 2 x 2 they are
-    held by ``_close_tp`` and ``_close_tp_caches``, blinded or not. The
-    T-split case's cache lies over "model" by T, the others' do not."""
+    and caches are the one process's bits; under "tp" on 2 x 2 and 1 x 4
+    they are held by ``_close_tp`` and ``_close_tp_caches``, blinded or
+    not. The caches whose one kv head does not divide the model axis (the
+    T-split case, and recurrentgemma's over 4 ranks) lie over "model" by
+    T, the others' do not."""
     for r in spawned:
         assert r[name]["bad_blocks"] == []
-        assert bool(r[name]["t_split"]) == (name == "serve-t-split")
+        assert bool(r[name]["t_split"]) == (name in ("serve-t-split",
+                                                     "serve-rg-1x4"))
     got = spawned[0][name]
     logits, caches = _one_process_serve(name)
-    if SERVES[name][2][1] == 1:
+    if SERVES[name][3][1] == 1:
         np.testing.assert_array_equal(got["logits"], logits)
         for a, b in zip(tree_leaves(got["caches"]), tree_leaves(caches)):
             np.testing.assert_array_equal(a, b)
@@ -387,12 +435,30 @@ def test_sharded_prefill_matches_single_device(spawned):
     _close(got["caches"], r_caches, RTOL, ATOL)
 
 
-def _recorded_step(kind, B, S, changes=None):
-    """A smoke qwen2.5-3b step (``kind`` "prefill" or "decode", B rows of
-    S) on the meta device as rank 0 of an abstract 2 x 2 mesh: (config,
+@pytest.mark.parametrize("name", [n for n in PREFILLS if n != "prefill"])
+def test_sharded_prefill_of_split_blocks(spawned, name):
+    """A (4, 16) prefill of the split MoE (2 x 2 and 1 x 4), SSD (2 x 2)
+    and RG-LRU (1 x 4) stacks: the stream sequence-parallel, each block
+    on the rank's "model" block; E (``_close_tp``) and the caches
+    (``_close_tp_caches``) against one process, both against the
+    reference."""
+    for r in spawned:
+        assert r[name]["bytes"]["reduce-scatter"] > 0
+    got = spawned[0][name]
+    E, caches = _one_process_prefill(name)
+    _close_tp(got["E"], E)
+    _close_tp_caches(got["caches"], caches)
+    r_E, r_caches = _reference_prefill(name)
+    np.testing.assert_allclose(got["E"], r_E, rtol=RTOL, atol=ATOL)
+    _close(got["caches"], r_caches, RTOL, ATOL)
+
+
+def _recorded_step(kind, B, S, changes=None, arch="qwen2.5-3b"):
+    """A smoke ``arch`` step (``kind`` "prefill" or "decode", B rows of S)
+    on the meta device as rank 0 of an abstract 2 x 2 mesh: (config,
     system, the recording mesh, the output, the step's parameter
     specs)."""
-    cfg = ranks.config("qwen2.5-3b", changes or {})
+    cfg = ranks.config(arch, changes or {})
     sys_ = steps.make_system(cfg, ranks.system(cfg).easter, device="meta")
     params = steps.abstract_params(sys_)
     shape = ranks.InputShape("s", S, B, kind)
@@ -488,6 +554,82 @@ def test_collective_bytes_of_a_decode_round():
     assert coll["all-gather"] == gathers
     assert coll["reduce-scatter"] == 0 and coll["broadcast"] == 0
     assert coll["total"] == want_ar + gathers
+    _no_weight_gathered(rec, sys_, pspec)
+
+
+# the decode round's split blocks: an MoE stack (4 experts, 2 a model
+# rank), an SSD stack (16 heads, 8 a rank) and a Griffin stack (the
+# RG-LRU at half its width; 2 kv heads, so that its attention splits by
+# heads, as the dense layers of the test above)
+SPLIT_DECODES = {"qwen2-moe-a2.7b": {}, "mamba2-2.7b": {},
+                 "recurrentgemma-9b": {"n_kv_heads": 2}}
+
+
+def _layer_bytes(cfg, kind, B, m, n_data):
+    """The collectives' bytes by (kind, axis) of one float32 layer of a
+    decode round over B lanes (B / n_data a data rank) on ``m`` model
+    ranks: the row-parallel sums into the stream, an MoE's load-balance
+    statistics and slot prefix over "data", the SSD conv cache gathered
+    whole over "model" (its packed channels do not align with a rank's
+    heads), the RG-LRU's conv output gathered for its gates, and the new
+    caches that the reference's rule keeps whole over "data" (the SSD
+    state and conv, the LRU's) gathered from the data ranks' rows."""
+    from repro_torch.models import ssm
+    b, d, f32 = B // n_data, cfg.d_model, 4
+    out = {("all-reduce", "model"): 2 * b * d * f32}   # the mixer's, the FFN's
+    if kind == "moe":
+        E = cfg.moe.n_experts
+        out[("all-reduce", "data")] = 2 * E * f32      # the aux's two means
+        out[("all-gather", "data")] = n_data * E * 4   # int32 slot prefix
+    elif kind == "ssm":
+        d_inner, H, conv_dim = ssm.ssm_dims(d, cfg.ssm)
+        w = cfg.ssm.d_conv - 1
+        out[("all-reduce", "model")] = b * d * f32 + b * f32   # exit, norm
+        out[("all-gather", "model")] = b * w * conv_dim * f32
+        out[("all-gather", "data")] = B * (w * conv_dim // m + H // m
+                                           * cfg.ssm.head_dim
+                                           * cfg.ssm.d_state) * f32
+    elif kind == "lru":
+        W = cfg.hybrid.lru_width
+        out[("all-gather", "model")] = b * W * f32
+        out[("all-gather", "data")] = B * (3 + 1) * (W // m) * f32
+    return out
+
+
+@pytest.mark.parametrize("arch", list(SPLIT_DECODES))
+def test_collective_bytes_of_a_decode_round_split_blocks(arch):
+    """A decode round of the split MoE, SSD and RG-LRU stacks (4 lanes, 2
+    a data rank, cache 16) as rank 0 of the abstract 2 x 2 mesh: every
+    layer's collectives by kind and axis as ``_layer_bytes`` gives them
+    (the passive group's 3 parties as one tensor), the embedding's and the
+    decision MLP's all-reduces and the logits' all-gathers as in the
+    dense round; no weight moves, nothing else moves."""
+    import collections
+    from repro_torch.models import transformer
+    B, T, m, n_data = 4, ranks.S, 2, 2
+    cfg, sys_, rec, (logits, _), pspec = _recorded_step(
+        "decode", B, T, SPLIT_DECODES[arch], arch)
+    assert tuple(logits.shape) == (B, 1, cfg.vocab_size)
+    b, f32 = B // n_data, 4
+    want = collections.Counter({
+        ("all-reduce", "model"): sys_.C * b * cfg.d_model * f32
+        + sys_.easter.decision_layers * b * sys_.easter.d_embed * f32,
+        ("all-gather", "model"): b * cfg.vocab_size * f32,
+        ("all-gather", "data"): B * cfg.vocab_size * f32})
+    kinds = set()
+    for pcfg, parties in ((sys_.party_cfgs[0], 1),
+                          (sys_.party_cfgs[1], sys_.C - 1)):
+        for pattern, reps in transformer.stack_plan(pcfg):
+            for kind in pattern:
+                kinds.add(kind)
+                for k, n in _layer_bytes(pcfg, kind, B, m, n_data).items():
+                    want[k] += reps * parties * n
+    assert kinds & {"moe", "ssm", "lru"}
+    got = collections.Counter()
+    for kind, axes, shape in rec.calls:
+        size = 4 * int(np.prod(shape))       # float32 or int32
+        got[(kind, "+".join(axes))] += size
+    assert got == want
     _no_weight_gathered(rec, sys_, pspec)
 
 
