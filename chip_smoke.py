@@ -202,8 +202,8 @@ Phases, each printing its own lines:
           layers, d_model 1536, 12/2 heads of 128, d_ff 8960, vocab
           151,936, bfloat16, remat per layer; three 7-layer passive
           proxies; 3.31e9 parameters random from a torch.Generator seeded
-          0 on the card) through build_trainer(TrainConfig(chunk=4)) (adam
-          1e-3, clip 1.0): two chunks of 4 steps on 4 x 2048-token batches
+          0 on the card) through build_trainer(TrainConfig(chunk=2)) (adam
+          1e-3, clip 1.0): two chunks of 2 steps on 4 x 2048-token batches
           of lm_batch_iterator(seed=0); ms per step (host clock, each step
           started after a synchronize; median of the second chunk),
           tokens/s, peak device memory, per-party losses (finite, the mean
@@ -253,7 +253,7 @@ Phases, each printing its own lines:
           parameters, bfloat16, the card's generator seeded 0, the ranks
           drawing every leaf in turns, each keeping its blocks) under
           prefill_shardings / serve_shardings:
-          4 lanes (2 a data rank) of 512-token prompts, then 16 greedy
+          4 lanes (2 a data rank) of 512-token prompts, then 4 greedy
           rounds; per rank the resident parameter bytes, peak memory,
           prefill ms and ms a round, and the collectives' bytes of the
           prefill and of the last round by kind (a RecordingMesh over the
@@ -261,7 +261,8 @@ Phases, each printing its own lines:
           rank holding the same logits bit for bit, the same tokens on
           every rank, per rank 36 + 9 flash_attention_fwd and one
           blind_agg_fwd a prefill, one blind_agg_fwd a round, and no
-          all-gather of a leaf the model axis splits in a round; the
+          all-gather of a leaf the model axis splits, nor of a K/V cache
+          or cross K/V, in a round; the
           tokens beside the one process's on the same weights (run by
           the parent before the ranks work) printed, not asserted.
           (e)-(g) the split MoE, SSD and RG-LRU stacks, served as (d)
@@ -288,6 +289,17 @@ Phases, each printing its own lines:
           the ranks work): the float32 cuts within FSDP_SPLIT_F32_REL,
           (f) and (g) within their limits in FSDP_SPLIT, (e) printed
           (bfloat16 rounding of the split sums grows with depth).
+          (h) whisper-small at full width and depth (12 encoder and 12
+          decoder layers, 12/12 heads of 64, 3 a rank; 51,865 rows, which
+          do not divide 4, so the tables split by their width and each
+          rank looks up its columns) on the 1 x 4 mesh: encoder_kv on
+          4 lanes of 1500-frame audio under the plan (the encoder, its
+          stream over the frames sequence-parallel, and the cross K/V on
+          each rank's heads), a 64-token prefill, 4 greedy rounds; as (d),
+          with its encoder_kv ms, launches (12 + 12 flash_attention_fwd),
+          bytes and cross K/V bytes a rank apart, 12 + 12 + 3 + 3
+          flash_attention_fwd a prefill and 12 + 3 a round (the
+          cross-attention on each rank's heads), round 0 within 2^-4.
   gemma_cut  gemma3-4b at full width (d_model 2560, 8/4 heads of 256,
           gelu MLP of 10240, vocab 262,144) cut to one (5 local, 1 global)
           period: 6 active layers, 2 local per passive proxy, float32 with
@@ -324,7 +336,7 @@ Phases, each printing its own lines:
           layers; 0.70e9 parameters, bfloat16): 4 transcriptions of 30 s
           of audio ((4, 1500, 768) frame embeddings from the card's
           generator, a 4-token start prompt): encoder_kv once, a prefill,
-          serve_tokens for 224 greedy tokens; encoder_kv, prefill and
+          serve_tokens for 64 greedy tokens; encoder_kv, prefill and
           per-round ms, tokens/s, peak memory, profiler windows; asserted
           24 flash_attention_fwd launches in encoder_kv, 30 a prefill (12
           + 3 self, 12 + 3 cross), 15 a decode round, one blind_agg_fwd a
@@ -355,7 +367,12 @@ CPU outputs, then the sharded phase), fsdp (the fsdp phase),
 split_depth (the fsdp phase's split MoE and SSD paths at depth cuts in
 float32 and bfloat16, round 0's logits against one process's, beside
 the one process in bfloat16 against itself in float32: bfloat16's own
-error at that depth; FSDP_SPLIT), agg (the
+error at that depth; FSDP_SPLIT), tsplit ((i): qwen2-1.5b at full width
+and depth on a 1 x 3 mesh of three ranks sharing the card, whose 12/2
+heads do not divide 3: each attention runs whole over its cache's T
+block, 172 of 516 slots a rank, the ranks' partial softmax merged; 4
+lanes of 512-token prompts, 4 greedy rounds, held and printed as (d)),
+agg (the
 blind_agg_fwd / blind_agg_bwd timing and the launch floor; --save and
 --compare as for prng, the backward's outputs required to be bit for bit
 the other checkout's), flash, rglru (the rglru timing) or prng (the prng
@@ -368,7 +385,7 @@ top-k (float masks, fused masks, joint), qwen2.5-3b
 serving, recurrentgemma-9b serving, qwen2-1.5b training, its joint step,
 qwen2-moe-a2.7b serving, mamba2-2.7b serving, whisper-small serving,
 qwen2-vl-7b serving; in the sharded phase's ranks every round; in the
-fsdp phase's ranks (a) to (g)) and read
+fsdp phase's ranks (a) to (h)) and read
 just after; every kernel
 must have launched on some path, and blind_agg_fwd's launches are printed
 by party-group count G, path by path. The second-to-last line is the JSON
@@ -457,17 +474,24 @@ FLASH_TP_HEADS, FLASH_TP = (8, 1, 128), ((2, 512), (6, 512))
 # batch axis: on a 1 x 4 mesh a rank holds every lane)
 FLASH_TP_SPLIT = (((4, 4, 128), 0), ((4, 1, 256), 2048))
 FLASH_TP_SPLIT_BS = ((4, 512), (12, 512))
+# a rank's causal prompt attention under the fsdp phase's (h) and (i):
+# whisper-small's decoder at 3/3 of 64 over its 64-token prompt (1 x 4)
+# and qwen2-1.5b's whole 12/2 of 128 over 512 tokens (1 x 3: its heads do
+# not divide the three ranks), as (heads, S), at B = 4 and 12 (the active
+# party's lanes and the passive group's)
+FLASH_TP_CAUSAL = (((3, 3, 64), 64), ((12, 2, 128), 512))
+FLASH_TP_CAUSAL_B = (4, 12)
 # the recurrentgemma-9b serving slice: the same serving run on Griffin
 # parties (38 layers: 12 x (lru, lru, attn) + (lru, lru); three 9-layer
 # passive proxies), 16/1/256 heads with a local window of 2048; the depth
 # cut keeps one pattern repeat (3 active layers, 3 per passive proxy)
 RG_ARCH = "recurrentgemma-9b"
 # the LM training slice: qwen2-1.5b at full width and depth in bfloat16,
-# EasterConfig() defaults, build_trainer(TrainConfig(chunk=4)) (adam 1e-3,
-# clip 1.0), two counted chunks of 4 steps on 4 x 2048-token batches from
+# EasterConfig() defaults, build_trainer(TrainConfig(chunk=2)) (adam 1e-3,
+# clip 1.0), two counted chunks of 2 steps on 4 x 2048-token batches from
 # lm_batch_iterator(seed=0); the float32 depth cut against the CPU port
 TRAIN_ARCH = "qwen2-1.5b"
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK, TRAIN_CHUNKS = 4, 2048, 4, 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK, TRAIN_CHUNKS = 4, 2048, 2, 2
 TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 4, 2, 128
 RG_CUT_LAYERS = 3
 RG_FLASH_HEADS, RG_WINDOW = (16, 1, 256), 2048
@@ -494,15 +518,15 @@ FLASH_MODELS = (("", FLASH_PREFILL_HEADS, 0), ("rg ", RG_FLASH_HEADS,
 # whisper-small (encoder-decoder: 12 encoder and 12 decoder layers, MHA
 # 12/12 x 64; three proxies of 12 encoder and 3 decoder layers), 4
 # transcriptions of 30 s of audio (1500 frame embeddings each) with a
-# 4-token start prompt and 224 greedy tokens (half its 448-token text
-# context); qwen2-vl-7b (28 layers, GQA 28/4 x 128; three 7-layer
+# 4-token start prompt and 64 greedy tokens (its rounds wait on the
+# host); qwen2-vl-7b (28 layers, GQA 28/4 x 128; three 7-layer
 # proxies), 4 lanes of 2048-token prompts whose first 1024 positions are
 # an image's patch embeddings, then one request of 1280 tokens, 32 greedy
 # tokens each. Their float32 depth cuts against the CPU port: whisper at
 # 2 encoder and 2 decoder layers over the full 1500 frames, qwen2-vl at 2
 # layers with a 1,100-token prompt (its 1024 patches inserted)
 WHISPER_ARCH, VLM_ARCH = "whisper-small", "qwen2-vl-7b"
-WHISPER_LANES, WHISPER_PROMPT, WHISPER_NEW = 4, 4, 224
+WHISPER_LANES, WHISPER_PROMPT, WHISPER_NEW = 4, 4, 64
 VLM_LANES, VLM_PROMPTS, VLM_NEW = 4, (2048, 1280), 32
 WHISPER_CUT_LAYERS, VLM_CUT_LAYERS = 2, 2
 VLM_CUT_BATCH, VLM_CUT_PROMPT = 1, 1100
@@ -513,12 +537,22 @@ FRAMES = 1500
 # the passive group's 12 folded; B = 1 for one request), the decoder's
 # cross-attention against 1500 keys at the 3-token prefill and the 1-token
 # decode round, and qwen2-vl's causal 28/4 prefills of 2047 and 1279
+# a model rank's heads of whisper-small under the fsdp phase's (h) (1 x 4:
+# 3/3 of 64 a rank): the encoder's non-causal self-attention over 1500
+# frames and the cross-attention at the 64-token prefill and the 1-token
+# round against 1500 keys, for the active party's 4 lanes and the passive
+# group's 12 (3 parties x 4 lanes, folded into the batch axis)
+FLASH_TP_WHISPER_HEADS = (3, 3, 64)
+FLASH_TP_WHISPER = tuple((B, S, FRAMES) for B in (4, 12)
+                         for S in (FRAMES, 64, 1))
 FLASH_FRONTEND = tuple(
     (B, FRAMES, FRAMES, WHISPER_FLASH_HEADS, False) for B in (1, 4, 12)) \
     + tuple((B, S, FRAMES, WHISPER_FLASH_HEADS, False) for B in (4, 12)
             for S in (WHISPER_PROMPT - 1, 1)) \
     + tuple((B, S, S, VLM_FLASH_HEADS, True) for B in (1, 4, 12)
-            for S in (VLM_PROMPTS[0] - 1, VLM_PROMPTS[1] - 1))
+            for S in (VLM_PROMPTS[0] - 1, VLM_PROMPTS[1] - 1)) \
+    + tuple((B, S, T, FLASH_TP_WHISPER_HEADS, False)
+            for B, S, T in FLASH_TP_WHISPER)
 # flash_attention_fwd's timing shapes: (label, B, S, heads, window, T,
 # causal), the active party's (B = 1) and the folded passive group's (B =
 # 3) prefills, then the shapes the frontend families' counted paths launch
@@ -529,7 +563,9 @@ FLASH_TIMING = tuple(("", B, S, FLASH_PREFILL_HEADS, 0, S, True)
     ("whisper ", B, S, WHISPER_FLASH_HEADS, 0, FRAMES, False)
     for B in (4, 12) for S in (FRAMES, WHISPER_PROMPT - 1, 1)) + tuple(
     ("vlm ", B, S, VLM_FLASH_HEADS, 0, S, True)
-    for B, S in ((4, 2047), (12, 2047), (1, 1279), (3, 1279)))
+    for B, S in ((4, 2047), (12, 2047), (1, 1279), (3, 1279))) + tuple(
+    ("whisper tp ", B, S, FLASH_TP_WHISPER_HEADS, 0, T, False)
+    for B, S, T in FLASH_TP_WHISPER)
 # rglru_scan_fwd against its plain version: the reference sweep
 # (tests/test_kernels.py), ragged L and W, and the serving path's prefill
 # shapes (B = 1, and 3 for the folded passive group) at width 4096
@@ -1995,12 +2031,14 @@ def phase_flash():
     # the passive group's, folded into the batch axis (B = 3), at
     # qwen2.5-3b's, recurrentgemma-9b's, gemma3-4b's and qwen2-moe-a2.7b's
     # heads and windows; and a model rank's heads under the fsdp phase's
-    # tensor-parallel prefills (at m = 2 and m = 4)
+    # tensor-parallel prefills (at m = 2 and m = 4, and (h)'s and (i)'s)
     prefill_shapes = [(heads, window, B, S) for _, heads, window
                       in FLASH_MODELS for B, S in FLASH_PREFILL] + [
         (FLASH_TP_HEADS, 0, B, S) for B, S in FLASH_TP] + [
         (heads, window, B, S) for heads, window in FLASH_TP_SPLIT
-        for B, S in FLASH_TP_SPLIT_BS]
+        for B, S in FLASH_TP_SPLIT_BS] + [
+        (heads, 0, B, S) for heads, S in FLASH_TP_CAUSAL
+        for B in FLASH_TP_CAUSAL_B]
     for heads, window, B, S in prefill_shapes:
         for dt in (f32, bf16):
             err, used, ok = _flash_prefill_case(B, S, dt, gen, heads,
@@ -2071,9 +2109,9 @@ def phase_flash():
                  f"8/4/256 causal window {GEMMA_WINDOW} and 16/16/128 "
                  f"causal, a model rank's 8/1/128 causal at (B, S) in "
                  f"{FLASH_TP} and its (heads, window) in {FLASH_TP_SPLIT} "
-                 f"at (B, S) in {FLASH_TP_SPLIT_BS} x float32/bfloat16, the "
-                 f"frontend "
-                 f"families' "
+                 f"at (B, S) in {FLASH_TP_SPLIT_BS}, its (heads, S) in "
+                 f"{FLASH_TP_CAUSAL} causal at B in {FLASH_TP_CAUSAL_B} x "
+                 f"float32/bfloat16, the frontend families' "
                  f"(B, S, T, heads, causal) in {FLASH_FRONTEND} x "
                  f"float32/bfloat16; worst "
                  f"float32 {worst[f32]:.3g}, bfloat16 {worst[bf16]:.3g}; "
@@ -2606,7 +2644,7 @@ def phase_whisper():
     path: 4 transcriptions of 30 s of audio (frame embeddings (4, 1500,
     768) from the card's generator, a 4-token start prompt from numpy
     seed 0): ``encoder_kv`` once, a prefill of the first 3 tokens, then
-    ``serve_tokens`` for 224 greedy tokens, every round given the cross
+    ``serve_tokens`` for 64 greedy tokens, every round given the cross
     K/V. Asserted: one flash_attention_fwd per encoder layer of the
     active party and of the passive group (folded into one launch) in
     encoder_kv, one per self- and one per cross-attention layer of both
@@ -3425,9 +3463,11 @@ def phase_timing_flash():
     heads, gemma3-4b's window-1024 8/4/256 heads and qwen2-moe-a2.7b's
     16/16/128 heads at (1 | 3, 2047); whisper-small's 12/12/64 at (4 |
     12, 1500 | 3 | 1) non-causal over T = 1500 (encoder, prefill and
-    decode cross-attention); qwen2-vl-7b's 28/4/128 causal at (4 | 12,
-    2047) and (1 | 3, 1279). Keys "B x S" (qwen2.5-3b), "rg B x S",
-    "gemma B x S", "moe B x S", "whisper B x S" and "vlm B x S"."""
+    decode cross-attention), and a model rank's 3/3/64 of them under the
+    fsdp phase's (h) at (4 | 12, 1500 | 64 | 1); qwen2-vl-7b's 28/4/128
+    causal at (4 | 12, 2047) and (1 | 3, 1279). Keys "B x S"
+    (qwen2.5-3b), "rg B x S", "gemma B x S", "moe B x S", "whisper B x
+    S", "whisper tp B x S" and "vlm B x S"."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(7)
     return {f"{label}{B}x{S}": _flash_timing_case(B, S, heads, window, gen,
@@ -3961,8 +4001,10 @@ FSDP_CUT_LAYERS, FSDP_CUT_BATCH, FSDP_CUT_SEQ, FSDP_LR = 2, 4, 128, 1e-3
 FSDP_SERVE_LAYERS, FSDP_SERVE_LANES = 2, 4
 FSDP_SERVE_PROMPT, FSDP_SERVE_ROUNDS = 64, 4
 # (d): qwen2.5-3b at full width and depth under the tensor-parallel
-# compute, 4 lanes (2 a data rank) of 512-token prompts, 16 greedy rounds
-FSDP_FULL_LANES, FSDP_FULL_PROMPT, FSDP_FULL_ROUNDS = 4, 512, 16
+# compute, 4 lanes (2 a data rank) of 512-token prompts, 4 greedy rounds
+# (16 before (h) joined the phase: a round moves the same bytes and
+# launches the same kernels as the last, and (e) covers the main path)
+FSDP_FULL_LANES, FSDP_FULL_PROMPT, FSDP_FULL_ROUNDS = 4, 512, 4
 # (d)'s round 0 is teacher-forced (it feeds the prompt's last token): its
 # logits are held to the one process's on the same weights within 2^-4 of
 # their largest magnitude (bfloat16 partials rounded before their sum over
@@ -3998,6 +4040,21 @@ FSDP_SPLIT = (("e", MOE_ARCH, (1, 4), None, FSDP_SPLIT_ROUNDS, 6, None),
                2.0 ** -3),
               ("g", RG_ARCH, (1, 4), FSDP_RG_LAYERS, FSDP_SPLIT_ROUNDS, None,
                FSDP_FULL_LOGIT_REL))
+
+
+# (h): whisper-small at full width and depth (12 encoder and 12 decoder
+# layers, 12/12 heads of 64: 3 a rank) on a 1 x 4 mesh, its encoder, cross
+# K/V and cross-attention on each rank's heads: 4 lanes of 1500-frame
+# audio (models/build.frontend_inputs, the card's generator seeded
+# FSDP_H_AUDIO_SEED) through encoder_kv under the plan, 64-token prompts,
+# 4 greedy rounds, held as (d)
+FSDP_H_MESH, FSDP_H_PROMPT, FSDP_H_AUDIO_SEED = (1, 4), 64, 9
+# (i), --phase tsplit: qwen2-1.5b at full width and depth on a 1 x 3 mesh
+# (three ranks sharing the card), whose 12/2 heads do not divide 3: each
+# attention runs whole over its cache's T block (516 = 512 + 4 slots, 172
+# a rank), the ranks' partial softmax merged; 4 lanes of 512-token
+# prompts, 4 greedy rounds, held as (d)
+TSPLIT_RANKS, TSPLIT_MESH, TSPLIT_ARCH = 3, (1, 3), TRAIN_ARCH
 
 
 def _fsdp_batches(cfg):
@@ -4076,8 +4133,9 @@ def _fsdp_rank(batches, cut_batch, prompt, prompt_full, prompts_split, ref_dir,
     float32 cut served under serve_shardings, (d) qwen2.5-3b at full width
     and depth served under the tensor-parallel compute
     (``prompt_full``), (e)-(g) the split MoE, SSD and RG-LRU stacks
-    (``FSDP_SPLIT``, ``prompts_split``); results for the parent, numpy,
-    with the seconds each part ended at (``marks``)."""
+    (``FSDP_SPLIT``, ``prompts_split``) and (h) whisper-small; results for
+    the parent, numpy, with the seconds each part ended at
+    (``marks``)."""
     import torch
     from repro_torch import sharding
     from repro_torch.configs.base import EasterConfig
@@ -4090,7 +4148,8 @@ def _fsdp_rank(batches, cut_batch, prompt, prompt_full, prompts_split, ref_dir,
     m = mesh.make_debug_mesh(*FSDP_MESH, device="cuda")
     # the other shapes of the same ranks, made by every rank in one order
     meshes = {tuple(FSDP_MESH): m}
-    for shape in sorted({sh for _, _, sh, *_ in FSDP_SPLIT} - set(meshes)):
+    for shape in sorted({sh for _, _, sh, *_ in FSDP_SPLIT}
+                        | {FSDP_H_MESH} - set(meshes)):
         meshes[shape] = mesh.make_debug_mesh(*shape, device="cuda")
     torch.zeros((), device=m.device)            # this rank's CUDA context
     res = {"rank": m.rank, "coords": dict(m.coords), "backend": m.backend,
@@ -4158,16 +4217,14 @@ def _fsdp_rank(batches, cut_batch, prompt, prompt_full, prompts_split, ref_dir,
                                             [on(cut_batch)], "(b)")
     lp, lo, losses, _, launches = _fsdp_step_loop(run, lp, lo, lbs)
     mark("(b) step")
-    del run, lo
-    _free_card()
+    # the blocks wait on the host for the CPU port's step (the parent's
+    # thread), compared once (c)-(h) are served
+    b_blocks = tree_map(lambda t: t.detach().cpu(),
+                        {"parties": lp["parties"]})
+    b_spec = pspec
     res["b"] = {"loss": losses[0], "launches": launches,
-                "peak": torch.cuda.max_memory_allocated(),
-                **_fsdp_compare_blocks(lp, pspec, m, ref_dir)}
-    mark("(b) compared")
-    log("fsdp", f"rank {m.rank}: (b) loss {losses[0]}, blocks max abs "
-                f"{res['b']['max_abs']:.3g} ok {res['b']['ok']}, peak "
-                f"{res['b']['peak'] / 1e9:.2f} GB; {res['marks']}")
-    del lp, lbs, sys_
+                "peak": torch.cuda.max_memory_allocated()}
+    del run, lo, lp, lbs, sys_
     _free_card()
     # (c) serving: a 4-lane prefill and greedy rounds under serve_shardings
     sys_ = _lm_system(serve_cfg, "cuda")
@@ -4202,6 +4259,11 @@ def _fsdp_rank(batches, cut_batch, prompt, prompt_full, prompts_split, ref_dir,
                     f"{r['peak'] / 1e9:.2f} GB; {res['marks']}")
         del sys_
         _free_card()
+    res["b"].update(_fsdp_compare_blocks(b_blocks, b_spec, m, ref_dir))
+    mark("(b) compared")
+    log("fsdp", f"rank {m.rank}: (b) loss {res['b']['loss']}, blocks max "
+                f"abs {res['b']['max_abs']:.3g} ok {res['b']['ok']}, peak "
+                f"{res['b']['peak'] / 1e9:.2f} GB; {res['marks']}")
     res["work_s"] = time.perf_counter() - t_go
     return res
 
@@ -4220,12 +4282,14 @@ def _fsdp_split_cfg(arch, layers=None, dtype=None):
 def _fsdp_split_runs():
     """(key, config, mesh, rounds) of every split-block run of the fsdp
     phase: each FSDP_SPLIT path, then its float32 cut ("e32", "f32"), one
-    teacher-forced round."""
+    teacher-forced round, then (h) whisper-small."""
     runs = [(key, _fsdp_split_cfg(arch, layers), shape, rounds)
             for key, arch, shape, layers, rounds, *_ in FSDP_SPLIT]
     return runs + [(key + "32", _fsdp_split_cfg(arch, cut, "float32"),
                     shape, 1)
-                   for key, arch, shape, _, _, cut, _ in FSDP_SPLIT if cut]
+                   for key, arch, shape, _, _, cut, _ in FSDP_SPLIT if cut] \
+        + [("h", _fsdp_split_cfg(WHISPER_ARCH), FSDP_H_MESH,
+            FSDP_SPLIT_ROUNDS)]
 
 
 def _draw_blocks(sys_, gen, pspec, m, full):
@@ -4377,7 +4441,12 @@ def _fsdp_compare_blocks(lp, pspec, m, ref_dir):
 def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
     """A len(prompt)-lane prefill of ``prompt[:, :-1]`` into caches of
     prompt + rounds slots, then ``rounds`` greedy decode rounds from its
-    last token: (E, logits by round, tokens, launches), numpy. With a
+    last token: (E, logits by round, tokens, launches), numpy. An
+    encoder-decoder first runs ``encoder_kv`` on 1500-frame audio
+    (``models/build.frontend_inputs``, the generator seeded
+    FSDP_H_AUDIO_SEED; under a mesh on this rank's rows and heads), whose
+    cross K/V every step reads; its ms, launches, bytes and the cross
+    K/V's bytes are reported apart (``encoder_*``). With a
     mesh ``m`` each step runs under the plan on this rank's blocks (the
     prefill's specs from prefill_shardings, the rounds' from
     serve_shardings; the ranks draw the weights in turns, each keeping its
@@ -4390,9 +4459,10 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
     and each round's ms, the launches of the prefill and of the rounds
     apart, the collectives' bytes by kind of the prefill and of the last
     round (a RecordingMesh over ``m``) and their counts by kind, that
-    round's all-gathers of a leaf the model axis splits, the
-    rglru_scan_fwd launches of the prefill by kernel path, the resident
-    parameter bytes and the peak device memory."""
+    round's all-gathers of a leaf the model axis splits and of a K/V
+    cache or cross K/V (``_kv_gathers``), the rglru_scan_fwd launches of
+    the prefill by kernel path, the resident parameter bytes and the peak
+    device memory."""
     import hashlib
     import numpy as np
     import torch
@@ -4408,14 +4478,21 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
     seeds = sys_.mask_seeds()
     toks = torch.as_tensor(prompt, device=dev)
 
-    def prefill(params, batch):
+    def prefill(params, batch, *fe):
         caches = sys_.init_caches(batch["tokens"].shape[0], T)
         return sys_.prefill(params, batch["tokens"], caches, seeds=seeds,
-                            round_idx=5)
+                            round_idx=5, fe_list=fe[0] if fe else None)
 
     serve = steps.build_serve_step(sys_, InputShape("fsdp", T, B, "decode"))
     batch = {"tokens": toks[:, :-1]}
     out = {}
+    audio = None
+    if sys_.cfg.family == "encdec":
+        from repro_torch.models.build import frontend_inputs
+        audio = {"tokens": toks[:, :1], **frontend_inputs(
+            sys_.cfg, B, torch.Generator(device=dev.type).manual_seed(
+                FSDP_H_AUDIO_SEED))}
+    encode = lambda params, a: sys_.encoder_kv(params, a["audio_embed"])
     if m is None:
         params = sys_.init_params(gen)
         run_serve = lambda: serve
@@ -4436,6 +4513,12 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
         rec = (lambda: RecordingMesh(m)) if detail else (lambda: m)
         pre_mesh = rec()
         prefill = steps.shard_step(prefill, pre_mesh, pre_in, pre_out)
+        if audio is not None:
+            a_spec = sharding.batch_specs(audio, m)
+            audio = sharding.shard_tree(audio, a_spec, m)
+            enc_mesh = rec()
+            encode = steps.shard_step(encode, enc_mesh, (pre_in[0], a_spec),
+                                      None)
         meshes = []
 
         def run_serve():
@@ -4445,10 +4528,26 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
         (lambda t: sharding.shard_tree({"tokens": t}, dec_in[1], m)["tokens"])
     if m is not None:           # the CPU run (a thread) leaves them alone
         _reset_lm_launches()
+    fe = ()
+    if audio is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fe = (encode(params, audio),)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["encoder_ms"] = (time.perf_counter() - t0) * 1e3
+        out["cross_kv_bytes"] = dryrun.tree_bytes(fe[0])
+        if detail:
+            out.update(encoder_launches=_lm_launches(),
+                       encoder_bytes=dict(enc_mesh.bytes),
+                       encoder_counts=_kind_counts(enc_mesh.calls))
+        if m is not None:
+            _reset_lm_launches()
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    E, caches = prefill(params, batch)
+    E, caches = prefill(params, batch, *fe)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
@@ -4464,7 +4563,8 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
     for i in range(rounds):
         step = run_serve()
         t0 = time.perf_counter()
-        lg, caches = step(params, {"tokens": rows(tok)}, caches, P - 1 + i)
+        lg, caches = step(params, {"tokens": rows(tok)}, caches, P - 1 + i,
+                          *fe)
         tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
         toks_out.append(tok.cpu().numpy())
         ms.append((time.perf_counter() - t0) * 1e3)
@@ -4480,20 +4580,25 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
         torch.cuda.synchronize()
     launches = None if m is None else _lm_launches()
     out.update(tokens=np.concatenate(toks_out, 1), launches=launches,
-               round_ms=ms)
+               round_ms=ms, prompt_tokens=P - 1)
     if not detail:
         out.update(E=E.float().cpu().numpy(), logits=np.stack(logits))
         return out
     last = meshes[-1]
+    kv_t = set()
+    sharding._map_with_path(lambda names, t: kv_t.add(int(t.shape[-3]))
+                            if names[-1] in ("k", "v") else None, caches)
     out.update(
-        round_launches=launches, finite=finite,
+        round_launches=launches, finite=finite, kv_cache_t=sorted(kv_t),
         digests=digests, round_bytes=dict(last.bytes),
         round_calls=len(last.calls), round_counts=_kind_counts(last.calls),
-        round_weight_gathers=_split_leaf_gathers(last.calls, meta,
-                                                 dec_in[0]),
+        round_weight_gathers=_split_leaf_gathers(
+            last.calls, meta, dec_in[0], sys_, m.shape["model"]),
+        round_kv_gathers=_kv_gathers(last.calls, sys_, T),
         resident=dryrun.tree_bytes({"parties": params["parties"]}),
         peak=torch.cuda.max_memory_allocated())
-    out["launches"] = _sum_launches([out["prefill_launches"], launches])
+    out["launches"] = _sum_launches([out.get("encoder_launches", {}),
+                                     out["prefill_launches"], launches])
     return out
 
 
@@ -4505,19 +4610,57 @@ def _kind_counts(calls):
     return out
 
 
-def _split_leaf_gathers(calls, params, pspec):
-    """The recorded all-gathers and broadcasts whose shape is that of a
-    parameter leaf the model axis splits, or of one layer (or one party's
-    layer) of it: under the tensor-parallel compute, none."""
+def _split_leaf_gathers(calls, params, pspec, sys_, m):
+    """The recorded all-gathers and broadcasts of a parameter leaf that
+    the model axis splits, whole or one layer of it (the passive group's
+    K parties stacked in front): under the tensor-parallel compute, none
+    but the takes of an attention whose heads do not divide the ``m``
+    model ranks, which a round gathers once a layer to run whole. Told
+    apart by path and counted by shape: of each shape, the gathers beyond
+    the whole attentions' takes of it, so that a split leaf of a whole
+    leaf's shape still shows."""
+    import collections
     from repro_torch import sharding
-    from repro_torch.tree import tree_leaves
-    split = [tuple(x.shape) for x, s in zip(
-        tree_leaves({"parties": params["parties"]}),
-        sharding.spec_leaves({"parties": pspec["parties"]}))
-        if "model" in tuple(s)]
-    shapes = {sh[i:] for sh in split for i in range(3)}
-    return [c for c in calls if c[0] in ("all-gather", "broadcast")
-            and c[2] in shapes]
+    K = sys_.C - 1
+    shapes, takes = set(), collections.Counter()
+
+    def one(names, x, s):
+        if "model" not in tuple(s):
+            return
+        active = names[1] == "i0"
+        sh = tuple(x.shape)
+        shapes.update({sh, sh[1:], sh[2:], (K,) + sh[1:]})
+        cfg = sys_.party_cfgs[0 if active else 1]
+        if names[1] in ("i0", "i1") and "attn" in names \
+                and sharding.attn_mode(cfg.n_heads, cfg.n_kv_heads,
+                                       cfg.resolved_head_dim, m) == "whole":
+            # a layer's take: the active party's, or the group's at once
+            takes[sh[1:] if active else (K,) + sh[1:]] += sh[0]
+    sharding._zip_path(one, {"parties": params["parties"]},
+                       {"parties": pspec["parties"]})
+    seen, out = collections.Counter(), []
+    for c in calls:
+        if c[0] in ("all-gather", "broadcast") and c[2] in shapes:
+            seen[c[2]] += 1
+            if seen[c[2]] > takes[c[2]]:
+                out.append(c)
+    return out
+
+
+def _kv_gathers(calls, sys_, T):
+    """The recorded all-gathers of a K/V cache of T slots, or of an
+    encoder-decoder's cross K/V over its frames, whole or a model rank's
+    heads (their last three dims): under the tensor-parallel compute,
+    none (a cache keeps its heads or T block, the cross K/V its
+    heads)."""
+    out = []
+    for cfg in sys_.party_cfgs:
+        hd, hk = cfg.resolved_head_dim, cfg.n_kv_heads
+        lens = {T, cfg.n_audio_frames} - {0, 1}
+        out += [c for c in calls if c[0] == "all-gather" and len(c[2]) >= 4
+                and c[2][-1] == hd and c[2][-3] in lens
+                and (c[2][-2] == hk or hk % c[2][-2] == 0)]
+    return sorted(set(out))
 
 
 def _meta_caches(sys_, B, T):
@@ -4553,7 +4696,9 @@ def _fsdp_cpu_refs(weights, cut_batch, prompt, ref_dir):
     from repro_torch.tree import tree_leaves
     _, cut, serve_cfg = _fsdp_cfgs()
     threads = torch.get_num_threads()
-    torch.set_num_threads(4)         # the other cores to the card's runs
+    # the fsdp phase waits on this thread: every core of the host's but
+    # two (the ranks' own host work is mostly gloo's staging)
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) - 2))
     sys_ = EasterLM(cut, EasterConfig(), grad_mode="joint", device="cpu")
     batch = {k: torch.as_tensor(v) for k, v in cut_batch.items()}
     params = sys_.load_params(weights.pop("cut"))
@@ -4610,7 +4755,8 @@ def phase_fsdp():
         dtype=np.int32)
     runs = _fsdp_split_runs()
     prompts_split = {key: np.random.default_rng(3).integers(
-        0, c.vocab_size, (FSDP_FULL_LANES, FSDP_FULL_PROMPT + 1),
+        0, c.vocab_size, (FSDP_FULL_LANES, 1 + (
+            FSDP_H_PROMPT if key == "h" else FSDP_FULL_PROMPT)),
         dtype=np.int32) for key, c, _, _ in runs if len(key) == 1}
     with concurrent.futures.ThreadPoolExecutor(2) as ex, \
             tempfile.TemporaryDirectory() as store:
@@ -4750,7 +4896,8 @@ def phase_fsdp():
     for key, c, shape, _ in runs:
         if shape[0] == 1 and len(key) == 1:
             failures += _fsdp_overlay_identity(c, shape)
-        limit = FSDP_SPLIT_F32_REL if len(key) > 1 else limits[key]
+        limit = (FSDP_SPLIT_F32_REL if len(key) > 1
+                 else limits.get(key, FSDP_FULL_LOGIT_REL))
         res[key] = _fsdp_check_full(ranks, one_split[key], failures, key, c,
                                     shape, limit)
     res["seconds"] = time.perf_counter() - t_phase
@@ -4771,6 +4918,64 @@ def phase_fsdp():
     paths = [_sum_launches([r[k]["launches"] for r in ranks])
              for k in ("a", "b", "c", "d") + tuple(key for key, *_ in runs)]
     return paths, res
+
+
+def _tsplit_rank(prompt):
+    """One rank of ``--phase tsplit``: (i) on the TSPLIT_MESH mesh of the
+    TSPLIT_RANKS ranks sharing the card (``_fsdp_serve``, detail)."""
+    import torch
+    from repro_torch.launch import mesh
+    m = mesh.make_debug_mesh(*TSPLIT_MESH, device="cuda")
+    torch.zeros((), device=m.device)            # this rank's CUDA context
+    t0 = time.perf_counter()
+    sys_ = _lm_system(_fsdp_split_cfg(TSPLIT_ARCH), "cuda")
+    res = {"rank": m.rank, "coords": dict(m.coords),
+           "i": _fsdp_serve(sys_, m, prompt, FSDP_SPLIT_ROUNDS, detail=True)}
+    res["work_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_tsplit():
+    """(i): qwen2-1.5b at full width and depth on a 1 x 3 mesh, whose
+    attention runs whole on every rank over its T block of the cache
+    (``TSPLIT_*``), held as (d) against the one process (run first, in
+    this process); every rank's K/V caches hold T / 3 slots. Returns the
+    numbers."""
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import mesh
+    t0 = time.perf_counter()
+    cfg = _fsdp_split_cfg(TSPLIT_ARCH)
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (FSDP_FULL_LANES, FSDP_FULL_PROMPT + 1),
+        dtype=np.int32)
+    one = _fsdp_full_one_process(prompt, cfg, FSDP_SPLIT_ROUNDS)
+    with tempfile.TemporaryDirectory() as store:
+        ranks = mesh.spawn_ranks(_tsplit_rank, TSPLIT_RANKS, prompt,
+                                 store_dir=store, device="cuda", threads=1,
+                                 timeout_s=600)
+    failures = []
+    res = _fsdp_check_full(ranks, one, failures, "i", cfg, TSPLIT_MESH)
+    T = FSDP_FULL_PROMPT + FSDP_SPLIT_ROUNDS
+    for r in ranks:
+        if r["i"]["kv_cache_t"] != [T // TSPLIT_MESH[1]]:
+            failures.append(f"(i) rank {r['rank']}: K/V caches of "
+                            f"{r['i']['kv_cache_t']} slots, want "
+                            f"{T // TSPLIT_MESH[1]} of {T}")
+    res["kv_cache_t_by_rank"] = {r["rank"]: r["i"]["kv_cache_t"]
+                                 for r in ranks}
+    res["work_s_by_rank"] = {r["rank"]: r["work_s"] for r in ranks}
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log("tsplit", f"(i) K/V cache slots a rank {res['kv_cache_t_by_rank']} "
+                  f"of {T}; the ranks' work {res['work_s_by_rank']} s; phase "
+                  f"took {res['seconds']:.1f} s on {res['card']}")
+    if failures:
+        raise AssertionError("tsplit phase: " + "; ".join(failures))
+    return res
 
 
 # --phase split_depth: (path, mesh, active layers, dtype) of the split MoE
@@ -4889,16 +5094,26 @@ def _fsdp_check_full(ranks, one, failures, key="d", cfg=None,
     attn = _layer_kinds(cfg)[0] + _layer_kinds(pcfg)[0]
     lru = _layer_kinds(cfg)[1] + _layer_kinds(pcfg)[1]
     n_rounds = len(ranks[0][key]["round_ms"])
+    # an encoder-decoder's decoder layer also attends to the encoder's
+    # K/V, in the prefill and in every round; encoder_kv runs the active
+    # party's encoder and the passive group's (one launch a layer)
+    xattn = cfg.family == "encdec"
     for r in ranks:
         d, k = r[key], f"({key}) rank {r['rank']}"
         if not d["finite"]:
             failures.append(f"{k}: logits not finite")
-        want_p = {"flash_attention_fwd": attn, "blind_agg_fwd": 1,
-                  "rglru_scan_fwd": lru}
-        want_r = {"flash_attention_fwd": 0, "blind_agg_fwd": n_rounds,
-                  "rglru_scan_fwd": 0}
-        for what, got, want in (("prefill", d["prefill_launches"], want_p),
-                                ("rounds", d["round_launches"], want_r)):
+        want_p = {"flash_attention_fwd": attn * (2 if xattn else 1),
+                  "blind_agg_fwd": 1, "rglru_scan_fwd": lru}
+        want_r = {"flash_attention_fwd": attn * n_rounds if xattn else 0,
+                  "blind_agg_fwd": n_rounds, "rglru_scan_fwd": 0}
+        checks = [("prefill", d["prefill_launches"], want_p),
+                  ("rounds", d["round_launches"], want_r)]
+        if xattn:
+            checks.append(("encoder_kv", d["encoder_launches"], {
+                "flash_attention_fwd": (cfg.n_encoder_layers
+                                        + pcfg.n_encoder_layers),
+                "blind_agg_fwd": 0}))
+        for what, got, want in checks:
             if any(got[n] != v for n, v in want.items()):
                 failures.append(f"{k}: {what} launches {got}, want {want}")
         if d["prefill_rglru_paths"].get("tma", 0) != lru:
@@ -4908,6 +5123,9 @@ def _fsdp_check_full(ranks, one, failures, key="d", cfg=None,
         if d["round_weight_gathers"]:
             failures.append(f"{k}: a round all-gathered split leaves "
                             f"{d['round_weight_gathers'][:3]}")
+        if d["round_kv_gathers"]:
+            failures.append(f"{k}: a round all-gathered a K/V cache or the "
+                            f"cross K/V {d['round_kv_gathers'][:3]}")
         if not np.array_equal(d["tokens"], ranks[0][key]["tokens"]):
             failures.append(f"{k}: greedy tokens differ from rank 0's")
         for o in ranks:
@@ -4962,12 +5180,33 @@ def _fsdp_check_full(ranks, one, failures, key="d", cfg=None,
            "one_process_round_ms": one["round_ms"],
            "logits_same_on_all_ranks": all_same,
            "params": _fsdp_n_params(cfg)}
+    if xattn:
+        out.update({
+            "encoder_kv_ms_by_rank": {r["rank"]: r[key]["encoder_ms"]
+                                      for r in ranks},
+            "cross_kv_bytes_by_rank": {r["rank"]: r[key]["cross_kv_bytes"]
+                                       for r in ranks},
+            "encoder_bytes_by_rank": {r["rank"]: r[key]["encoder_bytes"]
+                                      for r in ranks},
+            "encoder_counts": d0["encoder_counts"],
+            "encoder_launches": d0["encoder_launches"],
+            "one_process_encoder_kv_ms": one["encoder_ms"],
+            "one_process_cross_kv_bytes": one["cross_kv_bytes"]})
+        log("fsdp", f"({key}) encoder_kv ms by rank "
+                    f"{ {k: round(v, 1) for k, v in out['encoder_kv_ms_by_rank'].items()} }"
+                    f" (one process {one['encoder_ms']:.1f}); cross K/V MB "
+                    f"a rank "
+                    f"{ {k: round(v / 1e6, 2) for k, v in out['cross_kv_bytes_by_rank'].items()} }"
+                    f" (one process {one['cross_kv_bytes'] / 1e6:.2f}); "
+                    f"collectives' bytes a rank {d0['encoder_bytes']} "
+                    f"(counts {d0['encoder_counts']}); launches "
+                    f"{d0['encoder_launches']}")
     log("fsdp", f"({key}) {cfg.name} at full width ({cfg.n_layers} "
                 f"layers, three {pcfg.n_layers}-layer proxies; "
                 f"{out['params']} parameters), {cfg.dtype}, on a {shape[0]} x "
                 f"{shape[1]} mesh under prefill_shardings / serve_shardings "
                 f"(tensor-parallel compute over model): {FSDP_FULL_LANES} "
-                f"lanes of {FSDP_FULL_PROMPT}-token prompts, then "
+                f"lanes of {d0['prompt_tokens'] + 1}-token prompts, then "
                 f"{n_rounds} greedy rounds; prefill ms by rank "
                 f"{ {k: round(v, 1) for k, v in out['prefill_ms_by_rank'].items()} }"
                 f"; median ms a round by rank "
@@ -5124,6 +5363,8 @@ def run_phase(name, save=None, compare=None):
         res = phase_fsdp()[1]
     elif name == "split_depth":
         res = phase_split_depth()
+    elif name == "tsplit":
+        res = phase_tsplit()
     elif name == "prng":
         outs = []
         phase_prng(outs)
@@ -5178,11 +5419,25 @@ def main() -> int:
                  f"torch.backends.cudnn.allow_tf32="
                  f"{torch.backends.cudnn.allow_tf32}")
 
+    t_main = [time.perf_counter()] * 2
+    phase_s = {}
+
+    def done(name):
+        """The script's timeline: each phase's seconds, printed as it
+        ends and kept for the result line."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_main[1], 1)
+        t_main[1] = now
+        log("time", f"{name} took {phase_s[name]} s ({now - t_main[0]:.1f} "
+                    f"s in)")
+
     libs = phase_build()
     _check_flash_build(libs["flash_attention"])
     _check_rglru_build(libs["rg_lru"])
+    done("build")
     worst_f32 = phase_kernels()
     worst_f32["blind_agg_prng_fwd"] = phase_prng()
+    done("kernels, prng")
 
     ds, batches = _table2_batches(SLICE_ROUNDS)
     table2 = _build_slice("easter", "cpu")
@@ -5197,20 +5452,27 @@ def main() -> int:
 
     slice_launches, ms_round = phase_slice(ds, batches, params0)
     joint_launches = phase_joint(batches, params0)
+    done("slice, joint")
     many_launches, many_joint, many_unfused, fused_ms, unfused_ms = \
         phase_many()
     phase_wires(params0, batches)
+    done("many, wires")
     topk_paths, baselines = phase_baselines(ds, batches)
     wire = phase_wire(ds, batches, params0)
     engines = phase_engines(batches, params0)
+    done("baselines, wire, engines")
     timing = phase_timing()
     timing_prng = phase_timing_prng()
     phase_profile(batches, params0)
+    done("timing, profile")
     worst_f32["flash_attention_fwd"] = phase_flash()
+    done("flash")
     lm_launches, lm = _serve_phase("lm", LM_ARCH)
     cut_cpu = {}
     lm_cut = _cut_phase("lm", LM_ARCH, LM_CUT_LAYERS, keep=cut_cpu)
+    done("lm, lm cut")
     sharded_paths, sharded = phase_sharded(cut_cpu)
+    done("sharded")
     del cut_cpu
     worst_f32["rglru_scan_fwd"] = phase_rglru()
     rg_launches, rg = _serve_phase("rg", RG_ARCH)
@@ -5220,12 +5482,16 @@ def main() -> int:
         raise AssertionError(f"rglru_scan_fwd paths on the serving path: "
                              f"{rg['rglru_paths']}")
     rg_cut = _cut_phase("rg_cut", RG_ARCH, RG_CUT_LAYERS, check_host=True)
+    done("rglru, rg, rg cut")
     # the passive group's token embeddings are one offset gather: no copy
     # of the stacked tables in a prefill or a decode round
     timing_flash = phase_timing_flash()
     timing_rglru = phase_timing_rglru()
+    done("flash and rglru timing")
     (train_launches, joint_launches_lm), train = phase_train()
+    done("train")
     fsdp_paths, fsdp = phase_fsdp()
+    done("fsdp")
     gemma_cut = _cut_phase("gemma_cut", GEMMA_ARCH, GEMMA_CUT_LAYERS,
                            check_host=True, batch=GEMMA_CUT_BATCH,
                            prompt_len=GEMMA_CUT_PROMPT)
@@ -5235,9 +5501,11 @@ def main() -> int:
     mamba_launches, mamba = phase_moe_or_mamba("mamba")
     mamba_cut = _cut_phase("mamba_cut", MAMBA_ARCH, MAMBA_CUT_LAYERS,
                            prompt_len=MAMBA_CUT_PROMPT)
+    done("gemma cut, moe, moe cut, mamba, mamba cut")
     whisper_launches, whisper = phase_whisper()
     whisper_cut, vlm_cut = _frontend_cuts()
     vlm_launches, vlm = phase_vlm()
+    done("whisper, frontend cuts, vlm")
 
     # the passive group's token embeddings are one offset gather and its
     # cross K/V is read in place: no copy of the stacked tables, nor of a
@@ -5284,7 +5552,8 @@ def main() -> int:
                     f"(every rank's qwen2-1.5b zero3 steps, float32 cut's "
                     f"joint step, qwen2.5-3b cut's serving, qwen2.5-3b's "
                     f"tensor-parallel serving, the split qwen2-moe-a2.7b, "
-                    f"mamba2-2.7b and recurrentgemma-9b serving) "
+                    f"mamba2-2.7b, recurrentgemma-9b and whisper-small "
+                    f"serving) "
                     f"{fsdp_paths})")
     # blind_agg_fwd's launches by party groups, path by path: each path's
     # histogram counts every one of its forward launches
@@ -5374,7 +5643,7 @@ def main() -> int:
                       "mamba_cut": mamba_cut, "whisper": whisper,
                       "whisper_cut": whisper_cut, "vlm": vlm,
                       "vlm_cut": vlm_cut, "sharded": sharded,
-                      "fsdp": fsdp}))
+                      "fsdp": fsdp, "phase_s": phase_s}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

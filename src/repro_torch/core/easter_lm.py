@@ -778,21 +778,27 @@ class EasterLM:
         every rank's, on every rank (their spec is replicated)."""
         return None if out is None else sharding.batch_gather(out)
 
-    @staticmethod
-    def _local_fe(fe_list, rows: int):
-        """The decode step's ``enc_kv`` given for the step's rows (its spec
-        is replicated) -> this rank's ``rows`` under a plan; an ``enc_kv``
-        of this rank's rows already (``encoder_kv`` under the plan) passes
-        as it is."""
+    def _local_fe(self, fe_list, rows: int):
+        """A step's ``enc_kv`` given whole (its spec is replicated: the
+        step's rows, every kv head) -> this rank's ``rows`` under a plan,
+        and, where the party's cross-attention splits by heads
+        (``sharding.cross_tp``), this rank's Hkv / m heads; an ``enc_kv``
+        that ``encoder_kv`` made under the plan (this rank's rows and
+        heads already) passes as it is."""
         n = sharding.global_rows(rows)
-        if n == rows:
-            return fe_list
 
-        def local(t):
-            return sharding.local_rows(t, 1) if t.shape[1] == n else t
+        def local(t, pcfg):
+            if t.shape[1] == n and n != rows:
+                t = sharding.local_rows(t, 1)
+            tp = sharding.cross_tp(sharding.stack_tp(pcfg, 1))
+            if tp is not None and t.shape[-2] == pcfg.n_kv_heads:
+                t = tp.block(t, -2)
+            return t
 
-        return [{**fe, "enc_kv": tuple(local(t) for t in fe["enc_kv"])}
-                if "enc_kv" in fe else fe for fe in fe_list]
+        return [{**fe, "enc_kv": tuple(local(t, pcfg)
+                                       for t in fe["enc_kv"])}
+                if "enc_kv" in fe else fe
+                for fe, pcfg in zip(fe_list, self.party_cfgs)]
 
     def _passive_embed_grouped(self, params, tokens, caches, pos,
                                window_override, fe_list):
@@ -891,7 +897,12 @@ class EasterLM:
         ``serve_step``. On the vectorized engine the passive group's
         encoders run at once and its entries are views into one (K,
         n_layers, ...) tensor laid out layer-major
-        (``transformer._encoder_kv(group=True)``)."""
+        (``transformer._encoder_kv(group=True)``). Under a plan
+        ``audio_embed`` is this rank's rows, and so is each ``enc_kv``;
+        where a party's cross-attention splits by heads over "model" its
+        ``enc_kv`` holds this rank's Hkv / m heads (the encoder and the
+        cross K/V computed split), and the steps take it as it is
+        (``_local_fe``)."""
         audio_embed = torch.as_tensor(audio_embed, device=self.device)
         params = sharding.step_view(params, 0)
 

@@ -219,7 +219,10 @@ def _on_mesh(sys_, shape, mesh, fn, args, specs, caches, zero1, layout,
     def counted(*args):
         out = fn(*args)
         # the layers taken under the tensor-parallel compute, by their
-        # attention's split ("whole": gathered, its heads not aligned)
+        # sub-blocks' split ("attn whole": gathered, its heads not
+        # aligned), an encoder-decoder's "enc heads|whole" encoder blocks
+        # and "xattn heads|whole" cross-attentions, and "kv T" the blocks
+        # whose K/V cache lies over "model" by T (kept, never gathered)
         result["tp_layers"] = dict(sharding.current().tp_blocks)
         return out
     return (steps_mod.shard_step(counted, mesh, in_sh, out_sh, step_layout),

@@ -442,28 +442,34 @@ def self_attention(params: dict, x: torch.Tensor, *, n_heads: int,
     ``training`` takes that path on every device (the flash kernel has no
     backward).
 
-    ``tp`` (``sharding.TP`` whose ``attn`` is "heads" or "kv"; None:
-    ``sharding.WHOLE``, one rank holding the whole layer) computes on
-    this rank's "model" block (Megatron): x is the normed stream (this
-    rank's S block when ``tp.seq``), entered whole (``tp.enter``); q by
-    this rank's columns of wq, Hq / m heads; under "heads" its Hkv / m kv
+    ``tp`` (``sharding.TP``; None: ``sharding.WHOLE``, one rank holding
+    the whole layer) whose ``attn`` is "heads" or "kv" computes on this
+    rank's "model" block (Megatron): x is the normed stream (this rank's
+    S block when ``tp.seq``), entered whole (``tp.enter``); q by this
+    rank's columns of wq, Hq / m heads; under "heads" its Hkv / m kv
     heads from its columns of wk / wv, under "kv" every kv head, its
     columns' products all-gathered (``gather_cols``: the cache holds them
-    all), and attention with the one head this rank's q heads read. A
-    K/V cache block holds this rank's heads, or (``tp.kv_t``) its T block
-    of every head: the prefill writes its block, a decode step writes the
-    slot where it lies and merges the ranks' partial softmax over their T
-    blocks (``_t_split_decode``). The output is this rank's rows of wo,
-    reduced into the stream (``tp.exit``); a wo bias, unsplit, added
-    once, after the reduction. Returns (out, new_cache)."""
+    all), and attention with the one head this rank's q heads read. The
+    output is this rank's rows of wo, reduced into the stream
+    (``tp.exit``); a wo bias, unsplit, added once, after the reduction.
+    Under "whole" the layer runs whole on the whole x (gathered leaves)
+    and only ``tp.kv_t`` applies. A K/V cache block holds this rank's
+    heads, or (``tp.kv_t``) its T block of every head: the prefill
+    writes its block, a decode step writes the slot where it lies and
+    merges the ranks' partial softmax over their T blocks
+    (``_t_split_decode``; under "whole" every head's). Returns (out,
+    new_cache)."""
     tp = tp if tp is not None else sharding.WHOLE
-    x = tp.enter(x)
+    split = tp.attn != "whole"
+    if split:
+        x = tp.enter(x)
     B, S, _ = x.shape
     m, c = tp.m, tp.coord
-    hq = n_heads // m
+    mh = m if split else 1              # the heads' divisor
+    hq = n_heads // mh
     q = linear(params["wq"], x).reshape(B, S, hq, head_dim)
     k, v = linear(params["wk"], x), linear(params["wv"], x)
-    hk = n_kv_heads // m
+    hk = n_kv_heads // mh
     if tp.attn == "kv":
         k, v = sharding.gather_cols(k, tp.mesh), sharding.gather_cols(
             v, tp.mesh)
@@ -487,7 +493,7 @@ def self_attention(params: dict, x: torch.Tensor, *, n_heads: int,
         mask = _decode_mask(T, idx, window)
         if tp.kv_t:
             attn = _t_split_decode(q, ck, cv, mask.narrow(-1, lo, Tl),
-                                   head_dim, tp)
+                                   head_dim, tp, split)
         else:
             logits = _masked_logits(q, ck[:, :, own], mask, head_dim)
             attn = _gqa_out(torch.softmax(logits, dim=-1), cv[:, :, own])
@@ -506,21 +512,24 @@ def self_attention(params: dict, x: torch.Tensor, *, n_heads: int,
                 new_cache = _prefill_cache(cache, k, v, S, window)
         attn = _attend(q, k[:, :, own], v[:, :, own], causal, window, mode,
                        q_chunk, training)
-    out = tp.exit(attn.reshape(B, S, hq * head_dim) @ params["wo"]["w"])
-    if "b" in params["wo"]:
-        out = out + tp.rep(params["wo"]["b"])
-    return out, new_cache
+    out = attn.reshape(B, S, hq * head_dim) @ params["wo"]["w"]
+    b = params["wo"].get("b")
+    if split:
+        out = tp.exit(out)
+        b = None if b is None else tp.rep(b)
+    return (out if b is None else out + b), new_cache
 
 
-def _t_split_decode(q, ck, cv, mask, head_dim: int, tp):
+def _t_split_decode(q, ck, cv, mask, head_dim: int, tp, split: bool = True):
     """One decode step's attention over a cache whose T lies over "model":
-    this rank's q heads (B, 1, Hq / m, hd) gathered to every head, each
-    rank's partial softmax over its T block (ck / cv (B, Tl, Hkv, hd),
-    ``mask`` its slots), merged by log-sum-exp over the ranks (a max, then
-    one sum of the unnormalised outputs and their weights); this rank's
-    heads of the result, float32."""
+    each rank's partial softmax over its T block (ck / cv (B, Tl, Hkv,
+    hd), ``mask`` its slots), merged by log-sum-exp over the ranks (a max,
+    then one sum of the unnormalised outputs and their weights), float32.
+    ``split``: q (B, 1, Hq / m, hd) is this rank's heads, gathered to
+    every head first, and this rank's heads of the result are returned;
+    else q and the result hold every head (a whole attention)."""
     hq = q.shape[2]
-    qa = sharding.model_gather(q, tp.mesh, -2)           # (B, 1, Hq, hd)
+    qa = sharding.model_gather(q, tp.mesh, -2) if split else q
     logits = _masked_logits(qa, ck, mask, head_dim)      # (B,Hkv,G,1,Tl)
     mx = sharding.model_max(torch.amax(logits, dim=-1, keepdim=True),
                             tp.mesh)
@@ -530,7 +539,7 @@ def _t_split_decode(q, ck, cv, mask, head_dim: int, tp):
     w = torch.sum(p, dim=-1).permute(0, 3, 1, 2).reshape(B, S, Hkv * G, 1)
     ow = sharding.reduce_from_model(torch.cat([o, w], dim=-1), tp.mesh)
     out = ow[..., :-1] / ow[..., -1:]
-    return out[:, :, tp.coord * hq:(tp.coord + 1) * hq]
+    return out[:, :, tp.coord * hq:(tp.coord + 1) * hq] if split else out
 
 
 def _attend(q, k, v, causal, window, mode, q_chunk, training=False):

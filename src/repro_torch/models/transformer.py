@@ -28,11 +28,16 @@ embeddings (``audio_embed``, B x F x d) with fixed sinusoidal positions
 and non-causal self-attention, projects the encoder output once into
 every decoder layer's cross K/V (``_encoder_kv``, passed back as
 ``enc_kv`` in decode), and inserts a cross-attention after each decoder
-block's MLP, as the reference does; the decoder adds sinusoidal
-positions to its token embeddings (``rope_theta = 0``). The vision family
-(qwen2-vl) writes the patch embeddings (``vision_embed``) over the first
-positions of a prompt at least as long as them, and takes M-RoPE cos/sin
-from ``mrope_pos`` (3, B, S) when given, plain RoPE otherwise.
+block's MLP, as the reference does. Under a plan's tensor-parallel
+compute the encoder is a stack of its own (its stream over the F frames
+sequence-parallel where F divides the model axis, its blocks split as
+the decoder's), and where the attention splits by heads the cross K/V
+and the cross-attention are computed on the rank's heads. The decoder
+adds sinusoidal positions to its token embeddings (``rope_theta = 0``).
+The vision family (qwen2-vl) writes the patch embeddings
+(``vision_embed``) over the first positions of a prompt at least as long
+as them, and takes M-RoPE cos/sin from ``mrope_pos`` (3, B, S) when
+given, plain RoPE otherwise.
 
 ``apply_lm`` is ``embed`` then ``apply_hidden``, so a grouped caller can
 gather the embeddings itself (``layers.embed_grouped``) and start from
@@ -41,10 +46,13 @@ them; the patch insert and the decoder's sinusoidal positions are in
 plain paths on every device (the flash and RG-LRU kernels have no
 backward) and, with ``remat="full"``, recomputes each layer repeat in the
 backward pass (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint`` around its scan body). ``group=True`` runs K stacked
-parties of one config: the leaves carry a leading (K,) axis and so does
-x, each repeat is one ``torch.func.vmap`` over the group, and the
-checkpoint wraps the vmap (a checkpoint inside vmap fails in backward).
+``jax.checkpoint`` around its scan body); ``remat="dots"`` saves the
+repeat's matrix products and recomputes the rest (a selective
+checkpoint, the reference's ``dots_saveable`` policy). ``group=True``
+runs K stacked parties of one config: the leaves carry a leading (K,)
+axis and so does x, each repeat is one ``torch.func.vmap`` over the
+group, and the checkpoint wraps the vmap (a checkpoint inside vmap fails
+in backward).
 """
 from __future__ import annotations
 
@@ -172,8 +180,11 @@ def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
     on this rank's "model" block, their norms on the stream as it lies
     (this rank's S block where ``tp.seq``); every other sub-block (an
     attention whose split would cut a head, a block whose widths do not
-    divide the model axis) gathered and run whole (``tp.whole``). Without
-    it every sub-block runs whole."""
+    divide the model axis) gathered and run whole (``tp.whole``), a whole
+    attention's T-split cache (``tp.kv_t``) kept as this rank's T block.
+    The encoder's blocks take the encoder stream's ``tp`` (``encode``);
+    an encoder-decoder's cross-attention follows the block
+    (``_apply_xattn``). Without it every sub-block runs whole."""
     _check_kind(kind)
     tp = tp if tp is not None else sharding.WHOLE
     eps = cfg.rms_eps
@@ -230,9 +241,9 @@ def apply_block(p: Params, x: torch.Tensor, *, cfg: ModelConfig, kind: str,
         h, new_cache = self_attention(p["attn"], norm("ln1", x), tp=tp, **kw)
         x = x + h
     else:
-        def whole(x):
+        def whole(x):       # a T-split cache (tp.kv_t) stays this rank's
             h, c = self_attention(p["attn"], apply_norm(p["ln1"], x, eps),
-                                  **kw)
+                                  tp=tp, **kw)
             return x + h, c
         x, new_cache = tp.whole(x, whole)
     x, aux = ffn(x)
@@ -364,19 +375,37 @@ def _cos_sin(cfg: ModelConfig, positions: torch.Tensor,
     return rope_cos_sin(positions, hd, cfg.rope_theta)
 
 
-REMAT_DOTS_TODO = ("remat='dots' (save the matmul outputs, recompute the "
-                   "rest) is not ported: ROADMAP.md queue 1 item A; use "
-                   "remat='full' or 'none'")
+# the matrix products whose outputs remat="dots" saves (jax's
+# dots_saveable saves every dot_general's): linear layers, einsums and
+# the attention's batched products reach these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
 
 
-def _remat(cfg: ModelConfig, training: bool) -> bool:
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(cfg: ModelConfig, training: bool):
+    """The checkpoint that wraps each repeat of a training forward, or
+    None: ``remat="full"`` recomputes the repeat in the backward pass;
+    ``"dots"`` saves its matrix products' outputs and recomputes the rest
+    (the reference's ``jax.checkpoint_policies.dots_saveable``)."""
     if not training or cfg.remat == "none":
-        return False
-    if cfg.remat == "full":
-        return True
+        return None
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}")
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
     if cfg.remat == "dots":
-        raise NotImplementedError(REMAT_DOTS_TODO)
-    raise ValueError(f"remat {cfg.remat!r}")
+        kw["context_fn"] = _dots_context
+    return functools.partial(checkpoint, **kw)
 
 
 def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
@@ -390,6 +419,12 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
     if caches is not None and (group or training):
         raise ValueError("a grouped or training forward carries no caches")
     remat = _remat(cfg, training)
+    if xattn is not None:
+        # a decoder layer's cross-attention reads lnx, wq and wo (its K/V
+        # come made): only those leaves are taken
+        xp, k, v = xattn
+        xattn = ({"lnx": xp["lnx"],
+                  "attn": {n: xp["attn"][n] for n in ("wq", "wo")}}, k, v)
     aux_total = torch.zeros((x.shape[0],) if group else (),
                             dtype=torch.float32, device=x.device)
     # under a plan's layout "tp", the dense blocks compute over "model":
@@ -409,6 +444,8 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
         tps = {f"p{i}": (sharding.block_tp(tp, si, f"p{i}")
                          if seg_cache is not None else tp)
                for i in range(len(kinds))}
+        sharding.count_tp("kv T", reps * sum(
+            t is not None and t.kv_t for t in tps.values()))
 
         def rep(p_rep, x, c_rep=None, x_rep=None, kinds=kinds, tps=tps):
             """One repeat of the segment's pattern: (x, new_caches, aux)."""
@@ -423,9 +460,7 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
                     new_c[f"p{i}"] = nc
                 aux = a if aux is None else aux + a
                 if x_rep is not None:
-                    x = _apply_xattn(x_rep, x, cfg, training) if tp is None \
-                        else tp.whole(x, lambda x: (_apply_xattn(
-                            x_rep, x, cfg, training),))[0]
+                    x = _apply_xattn(x_rep, x, cfg, training, tp)
             return x, new_c, aux
 
         if group:   # (x, aux) of every party at once
@@ -435,7 +470,8 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
 
         take = sharding.layer_taker(("segments", si), group, tp)
         xtake = (None if xattn is None
-                 else sharding.layer_taker(("xattn",), group))
+                 else sharding.layer_taker(("xattn",), group,
+                                           sharding.cross_tp(tp), "xattn"))
 
         def run(seg_params, x, xattn, r, layer=layer, rep=rep, take=take):
             """Repeat r from the segment's stacked leaves: each layer's
@@ -453,13 +489,14 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
                 return rep(p_rep, x, x_rep)
             return rep(p_rep, x, None, x_rep)[::2]
 
-        if remat:
+        if remat is not None:
             # under TP the recompute in the backward issues the repeat's
             # collectives (its leaves' gathers, the stream's all-gathers
             # and reduce-scatters) again, in the forward's order: every
-            # rank recomputes the same repeats in the same order
-            run = functools.partial(checkpoint, run, use_reentrant=False,
-                                    preserve_rng_state=False)
+            # rank recomputes the same repeats in the same order. Under
+            # "dots" only the matrix products come from the saved outputs;
+            # every collective runs again, on every rank alike
+            run = functools.partial(remat, run)
         per_rep = []
         for r in range(reps):
             if seg_cache is not None:
@@ -489,23 +526,43 @@ def _run_segments(params, x, *, cfg: ModelConfig, cos, sin, caches,
 
 
 def _apply_xattn(x_rep, x: torch.Tensor, cfg: ModelConfig,
-                 training: bool = False) -> torch.Tensor:
+                 training: bool = False, tp=None) -> torch.Tensor:
     """The decoder's cross-attention insert for one layer: x_rep =
-    (params, k, v), k/v (B, F, Hkv, hd) of the encoder output."""
+    (params, k, v), k/v (B, F, Hkv, hd) of the encoder output. Under a
+    stack ``tp`` whose attention splits by heads (``sharding.cross_tp``)
+    on this rank's heads: the norm on the stream as it lies, the stream
+    entered (``tp.enter``), q by this rank's columns of wq (Hq / m
+    heads) against its Hkv / m heads of k/v (``_encoder_kv``), wo by rows
+    into the stream (``tp.exit``), a wo bias added once after the
+    reduction; under any other ``tp`` gathered and run whole
+    (``tp.whole``)."""
     xp, ek, ev = x_rep
-    h = apply_norm(xp["lnx"], x, cfg.rms_eps)
-    B, S, _ = h.shape
     hd = cfg.resolved_head_dim
-    q = linear(xp["attn"]["wq"], h).reshape(B, S, cfg.n_heads, hd)
-    o = cross_attend(q, ek, ev, training)
-    return x + linear(xp["attn"]["wo"], o.reshape(B, S, cfg.n_heads * hd))
+    tp = tp if tp is not None else sharding.WHOLE
+    xtp = sharding.cross_tp(tp)
+
+    def attend(x, xtp):
+        h = xtp.enter(apply_norm(xtp.rep(xp["lnx"]), x, cfg.rms_eps))
+        B, S, _ = h.shape
+        hq = cfg.n_heads // xtp.m
+        q = linear(xp["attn"]["wq"], h).reshape(B, S, hq, hd)
+        o = cross_attend(q, ek, ev, training)
+        out = xtp.exit(o.reshape(B, S, hq * hd) @ xp["attn"]["wo"]["w"])
+        if "b" in xp["attn"]["wo"]:
+            out = out + xtp.rep(xp["attn"]["wo"]["b"])
+        return (x + out,)
+
+    if xtp is not None:
+        return attend(x, xtp)[0]
+    return tp.whole(x, lambda x: attend(x, sharding.WHOLE))[0]
 
 
-def _layer_stack(tree, path, n: int, group: bool):
+def _layer_stack(tree, path, n: int, group: bool, tp=None, label=None):
     """Layers 0..n-1 of (n, ...) leaves, or of (K, n, ...) leaves with
     ``group``, one at a time (``sharding.layer_taker``: under a plan each is
-    gathered when the loop reaches it)."""
-    take = sharding.layer_taker(path, group)
+    gathered when the loop reaches it, a leaf that ``tp`` computes on as
+    its "model" block kept so)."""
+    take = sharding.layer_taker(path, group, tp, label)
     return (take(tree, l) for l in range(n))
 
 
@@ -514,22 +571,33 @@ def encode(params: Params, audio_embed: torch.Tensor, cfg: ModelConfig, *,
     """Whisper-style encoder over stubbed frame embeddings (B, F, d):
     sinusoidal positions, then ``n_encoder_layers`` non-causal attention
     blocks and a norm. ``group``: the leaves carry K stacked parties in
-    front, and so does the output (K, B, F, d)."""
+    front, and so does the output (K, B, F, d). Under a plan's
+    tensor-parallel compute the blocks split as a stack over F positions
+    does (``sharding.stack_tp(cfg, F)``: the attention by heads where they
+    divide the model axis, the MLP by columns and rows, the stream this
+    rank's F block where F divides it); the stream is joined whole before
+    the final norm, so the output is whole on every model rank."""
     x = audio_embed + _sinusoid(audio_embed.shape[-2], cfg.d_model,
                                 audio_embed.dtype, audio_embed.device)
     enc = params["encoder"]
+    tp = sharding.stack_tp(cfg, x.shape[-2])
 
     def block(p, x):
         return apply_block(p, x, cfg=cfg, kind="attn", cos=None, sin=None,
-                           cache=None, causal=False, training=training)[0]
+                           cache=None, causal=False, training=training,
+                           tp=tp)[0]
 
     norm = functools.partial(apply_norm, eps=cfg.rms_eps)
     if group:
         block, norm = vmap(block), vmap(norm)
         x = x.expand((enc["norm"]["scale"].shape[0],) + tuple(x.shape))
+    if tp is not None and tp.seq:
+        x = sharding.split_seq(x, tp.mesh)
     for p in _layer_stack(enc["blocks"], ("encoder", "blocks"),
-                          cfg.n_encoder_layers, group):
+                          cfg.n_encoder_layers, group, tp, "enc"):
         x = block(p, x)
+    if tp is not None and tp.seq:
+        x = sharding.join_seq(x, tp.mesh)
     return norm(enc["norm"], x)
 
 
@@ -539,11 +607,20 @@ def _encoder_kv(params: Params, enc_out: torch.Tensor, cfg: ModelConfig, *,
     (k, v), each (n_layers, B, F, Hkv, hd). ``group``: enc_out (K, B, F,
     d) and leaves with K in front give (K, n_layers, B, F, Hkv, hd),
     laid out layer-major, so that one layer's K/V across the group,
-    ``k[:, l]``, is one contiguous block."""
-    shape = enc_out.shape[:-1] + (cfg.n_kv_heads, cfg.resolved_head_dim)
+    ``k[:, l]``, is one contiguous block. Where the cross-attention
+    splits by heads (``sharding.cross_tp``) each layer's K/V are this
+    rank's Hkv / m heads, from its columns of wk / wv (and of their
+    biases); enc_out, whole on every model rank, enters once
+    (``copy_to_model``: its cotangents are partial)."""
+    tp = sharding.cross_tp(sharding.stack_tp(cfg, enc_out.shape[-2]))
+    hk = cfg.n_kv_heads // (1 if tp is None else tp.m)
+    shape = enc_out.shape[:-1] + (hk, cfg.resolved_head_dim)
+    if tp is not None:
+        enc_out = sharding.copy_to_model(enc_out, tp.mesh)
     lin = vmap(linear) if group else linear
     ks, vs = [], []
-    for p in _layer_stack(params["xattn"], ("xattn",), cfg.n_layers, group):
+    for p in _layer_stack(params["xattn"], ("xattn",), cfg.n_layers, group,
+                          tp):
         ks.append(lin(p["attn"]["wk"], enc_out).reshape(shape))
         vs.append(lin(p["attn"]["wv"], enc_out).reshape(shape))
     k, v = torch.stack(ks), torch.stack(vs)

@@ -49,12 +49,23 @@ under ``torch.func.vmap``):
     model axis each rank takes its q and kv heads; where ``Hkv < m`` and
     ``m % Hkv == 0`` it takes its q heads and computes every kv head
     (its columns of ``wk`` / ``wv``, the products all-gathered: the
-    cache holds them all) but attends with the one its heads read; otherwise the column split cuts inside
-    a head and the layer's attention is gathered and runs whole
-    (``Plan.tp_blocks`` counts each choice). A K/V cache block keeps
-    its "model" entry: heads, or T where the heads do not divide, whose
-    decode merges each rank's partial softmax over its T block (two
-    all-reduces);
+    cache holds them all) but attends with the one its heads read;
+    otherwise the column split would cut inside a head, and the layer
+    runs whole on every rank from its gathered leaves (``Plan.tp_blocks``
+    counts each choice). A K/V cache block always keeps its "model"
+    entry: heads, or T where the heads do not divide, whose decode
+    merges each rank's partial softmax over its T block (a max and a
+    sum all-reduce; every head's where the attention runs whole), so no
+    cache is gathered;
+  * an encoder-decoder's encoder (``models/transformer.encode``) is a
+    stack of its own over the F frames (``stack_tp(cfg, F)``: its stream
+    sequence-parallel where F divides the axis, its attention and MLP
+    split as the decoder's); where the attention splits by heads
+    (``cross_tp``) the cross K/V (``_encoder_kv``: each layer's from the
+    rank's columns of ``wk`` / ``wv``) and the cross-attention
+    (``_apply_xattn``: q by ``wq``'s columns, ``wo`` by rows) are the
+    rank's heads, and a step's ``enc_kv`` holds them (``EasterLM
+    .encoder_kv``; a whole one is cut by ``EasterLM._local_fe``);
   * the dense MLP (``layers.mlp``) and EASTER's decision MLPs: up / gate
     by columns, down by rows;
   * the MoE FFN (``models/moe.moe_ffn``, ``TP.moe``): by expert where the
@@ -90,16 +101,18 @@ under ``torch.func.vmap``):
     before the column products, ``scatter_seq`` after the row products),
     else whole (``copy_to_model`` / ``reduce_from_model``); whole at the
     stack's ends;
-  * the token tables by vocabulary (``embed_rows``, always under TP), the
-    head by vocabulary columns: the cross-entropy's log-sum-exp and label
-    logit are reduced over "model" (``core/losses.py``), the served logits
-    all-gathered.
+  * the token tables by vocabulary (``embed_rows``, always under TP), or,
+    where the vocabulary does not divide the axis and the rule splits the
+    width, each rank's columns of the step's rows gathered (where they
+    are fewer than the vocabulary's); the head by vocabulary columns: the
+    cross-entropy's log-sum-exp and label logit are reduced over "model"
+    (``core/losses.py``), the served logits all-gathered.
 
-Still gathered and run whole on every model rank (in a sequence-parallel
-stream: ``join_seq``, the block, ``split_seq``), ROADMAP.md queue 1 item
-H.3: the encoder and the cross-attention, an attention whose split would
-cut a head, and any block whose split widths do not divide the model
-axis.
+Gathered and run whole on every model rank (in a sequence-parallel
+stream: ``join_seq``, the block, ``split_seq``): only a block whose split
+widths do not divide the model axis (an attention whose split would cut
+a head, keeping its cache's T block; an MLP, MoE, SSD or RG-LRU mixer of
+such widths; a cross-attention whose heads do not divide).
 
 Model code reaches the plan through ``ambient_mesh`` (the reference's, with
 the step's spec trees): ``stack_tp`` / ``block_tp`` (a party stack's
@@ -644,8 +657,11 @@ class Plan:
     row_tables: dict = field(default_factory=dict)
     # sub-blocks of the layers taken under tensor-parallel compute, by
     # their split ("attn heads", "attn kv", "attn whole", "mlp split",
-    # "moe experts", "moe ff", "ssm heads", "rec width", or "... whole"),
-    # a recompute's takes counted again
+    # "moe experts", "moe ff", "ssm heads", "rec width", or "... whole";
+    # an encoder-decoder's "enc heads" / "enc whole" encoder blocks and
+    # "xattn heads" / "xattn whole" cross-attentions), "kv T" the blocks
+    # whose K/V cache lies over "model" by T; a recompute's takes counted
+    # again
     tp_blocks: dict = field(default_factory=dict)
 
     @property
@@ -736,7 +752,8 @@ def _at(tree, path):
     return tree
 
 
-def layer_taker(path: Tuple, group: bool = False, tp: "Optional[TP]" = None):
+def layer_taker(path: Tuple, group: bool = False, tp: "Optional[TP]" = None,
+                label: Optional[str] = None):
     """``take(stack, index)``: layer ``index`` of the layer stack at
     ``path`` in the backbone (leaves (n, ...), or (K, n, ...) with
     ``group``): the plain slice without a plan, else each leaf
@@ -744,7 +761,11 @@ def layer_taker(path: Tuple, group: bool = False, tp: "Optional[TP]" = None):
     the layer computes on as their "model" blocks (``TP.consumes``) are
     materialised over every other axis only. The scope's specs and the
     plan are bound here, so a checkpointed layer's recompute in the
-    backward pass, outside the scope, takes its layer alike."""
+    backward pass, outside the scope, takes its layer alike. ``label``
+    (a stack of one block kind: "enc", the encoder's blocks, "xattn", the
+    cross-attentions) counts each take in ``Plan.tp_blocks`` by the
+    attention's split, "<label> heads" or "<label> whole"; without it a
+    segment's takes count each block's sub-blocks (``TP.splits``)."""
     axis = 1 if group else 0
     plan = current()
     if plan is None:
@@ -757,13 +778,25 @@ def layer_taker(path: Tuple, group: bool = False, tp: "Optional[TP]" = None):
                            specs)
 
     def take(tree, index):
-        if tp is not None:      # a segment's repeat: one layer a key
-            for blk in tree.values():
-                for key in tp.splits(blk):
-                    plan.tp_blocks[key] = plan.tp_blocks.get(key, 0) + 1
+        if label is not None:
+            keys = [f"{label} {'whole' if tp is None else tp.attn}"]
+        elif tp is not None:    # a segment's repeat: one layer a key
+            keys = [key for blk in tree.values() for key in tp.splits(blk)]
+        else:
+            keys = []
+        for key in keys:
+            plan.tp_blocks[key] = plan.tp_blocks.get(key, 0) + 1
         return zip_specs(lambda a, sk: _Materialize.apply(
             a, mesh, P(*sk[0]), index, axis, bax, sk[1]), tree, keeps)
     return take
+
+
+def count_tp(key: str, n: int = 1) -> None:
+    """Add ``n`` to the plan's ``tp_blocks[key]`` (no-op without a
+    plan)."""
+    plan = current()
+    if plan is not None and n:
+        plan.tp_blocks[key] = plan.tp_blocks.get(key, 0) + n
 
 
 _KV = ("k", "v", "k_scale", "v_scale")
@@ -901,8 +934,10 @@ def _party_view(party, specs, plan, n_tokens):
                 else:
                     bb[kk] = _once(vv, sp, mesh, MODEL)
                     plan.row_tables[id(bb[kk]["table"])] = ()
-            elif kk == "embed" and _rows_cheaper(vv["table"], sp["table"],
-                                                 plan, n_tokens):
+            elif kk == "embed" and (
+                    _rows_cheaper(vv["table"], sp["table"], plan, n_tokens)
+                    or tp and _cols_cheaper(vv["table"], sp["table"],
+                                            n_tokens)):
                 bb[kk] = vv
                 plan.row_tables[id(vv["table"])] = plan.row_axes
             elif kk == "encoder":
@@ -919,9 +954,10 @@ def step_view(params, n_tokens: int):
     reads them: under a plan every leaf outside the layer stacks
     materialised (once a step; the gradients reach the blocks through
     ``materialize``), the layer stacks left as blocks for ``layer_taker``,
-    and a token table split over its vocabulary alone left as its block
-    for ``embed_rows`` where moving the step's token rows costs less than
-    gathering the table (``_rows_cheaper``); ``parties[1:]`` row views of
+    and a token table split over its vocabulary alone (or, under TP, its
+    width) left as its block for ``embed_rows`` where moving the step's
+    token rows costs less than gathering the table (``_rows_cheaper``,
+    ``_cols_cheaper``); ``parties[1:]`` row views of
     the materialised ``passive_stacked``. Unchanged without a plan."""
     plan = current()
     if plan is None:
@@ -1249,11 +1285,14 @@ class TP:
 
     def keeps_cache(self, name: str) -> bool:
         """True for a cache leaf (by name) whose "model" block the split
-        compute reads and writes as it is: K/V under a split attention,
-        the SSD state (heads), the LRU state and conv (width). The SSD
-        conv cache, over its packed channels, is gathered."""
+        compute reads and writes as it is: K/V always (its heads under a
+        "heads" attention; else its T block, where ``_cache_rule`` puts T
+        over "model": the decode merges the ranks' partial softmax, the
+        attention split or whole), the SSD state (heads), the LRU state
+        and conv (width). The SSD conv cache, over its packed channels,
+        is gathered."""
         if name in _KV:
-            return self.attn != "whole"
+            return True
         if name == "state":
             return self.ssd or self.lru
         return name == "conv" and self.lru
@@ -1359,10 +1398,11 @@ def moe_mode(moe, m: int) -> Optional[str]:
 
 def stack_tp(cfg, S: int) -> Optional[TP]:
     """The tensor-parallel compute of ``cfg``'s layer stack over a stream
-    of S positions under the current plan, or None (no plan, layout
-    zero3, one model rank, or no block to split). The stream is
-    sequence-parallel where S divides the model axis (the reference's
-    ``constrain`` rule, S >= m and S % m == 0)."""
+    of S positions under the current plan (an encoder-decoder's encoder
+    too, over its F frames), or None (no plan, layout zero3, one model
+    rank). The stream is sequence-parallel where S divides the model axis
+    (the reference's ``constrain`` rule, S >= m and S % m == 0) and some
+    block splits."""
     plan = _tp_plan()
     if plan is None:
         return None
@@ -1378,18 +1418,30 @@ def stack_tp(cfg, S: int) -> Optional[TP]:
         ssd = _fits(d_inner // cfg.ssm.head_dim, m)
     lru = (cfg.family == "hybrid"
            and _fits(cfg.hybrid.lru_width or cfg.d_model, m))
-    if attn == "whole" and not (mlp or moe or ssd or lru):
-        return None
-    return TP(plan.mesh, attn, mlp, seq=S >= m and S % m == 0, moe=moe,
-              ssd=ssd, lru=lru)
+    # a stack with nothing split keeps its stream whole (a whole block in
+    # a sequence-parallel stream costs a join and a split); its TP still
+    # keeps a K/V cache's T block (``block_tp``)
+    split = attn != "whole" or mlp or bool(moe) or ssd or lru
+    return TP(plan.mesh, attn, mlp, seq=split and S >= m and S % m == 0,
+              moe=moe, ssd=ssd, lru=lru)
 
 
 def block_tp(tp: Optional[TP], si: int, key: str) -> Optional[TP]:
     """``tp`` for segment ``si``'s block ``key`` over this step's caches:
-    ``kv_t`` where its K/V cache lies over "model" by T."""
-    if tp is None or tp.attn != "kv" or not cache_split_t(si, key):
+    ``kv_t`` where its K/V cache lies over "model" by T ("kv" or "whole"
+    attention: the decode merges the ranks' partial softmax over their T
+    blocks instead of gathering the cache)."""
+    if tp is None or not cache_split_t(si, key):
         return tp
     return dataclasses.replace(tp, kv_t=True)
+
+
+def cross_tp(tp: Optional[TP]) -> Optional[TP]:
+    """An encoder-decoder's cross-attention split as ``tp``'s attention
+    (the same widths): on the rank's heads (q by ``wq``'s columns, the
+    K/V ``_encoder_kv`` made from ``wk`` / ``wv``'s, ``wo`` by rows)
+    where it is "heads", else None (gathered and run whole)."""
+    return tp if tp is not None and tp.attn == "heads" else None
 
 
 def decision_tp() -> Optional[TP]:
@@ -1433,6 +1485,48 @@ def _rows_cheaper(table, spec, plan, n_tokens: int) -> bool:
     axes = _axes(e[-2])
     n_g = plan.mesh.axis_size(tuple(a for a in axes if a in plan.row_axes))
     return n_g * n_tokens < table.shape[-2] * plan.mesh.axis_size(axes)
+
+
+def _cols_cheaper(table, spec, n_tokens: int) -> bool:
+    """True when ``spec`` splits the table's width (-1) over "model" alone
+    (the rule's choice where the vocabulary does not divide the axis:
+    whisper-small's 51,865 rows) and this rank's ``n_tokens`` rows, which
+    ``embed_rows`` gathers by their columns, are fewer than the
+    vocabulary's, which gathering the table moves."""
+    e = _entries(spec, table.dim())
+    return (e[-1] == "model" and all(x is None for x in e[:-1])
+            and n_tokens < table.shape[-2])
+
+
+class _EmbedCols(torch.autograd.Function):
+    """Rows of a table (K, V, d / m) split over "model" by its width for
+    this rank's tokens (N,): each rank looks up its columns of the rows,
+    and the columns are all-gathered over "model" (exact). The backward
+    keeps this rank's columns of the (replicated) cotangent, adds each
+    into its token's row of this rank's block, and sums the block over
+    the batch axes ``bax`` the table is whole on."""
+
+    @staticmethod
+    def forward(table, tokens, mesh, bax):
+        return mesh.all_gather(table[:, tokens.long()].contiguous(), MODEL,
+                               -1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, tokens, ctx.mesh, ctx.bax = inputs
+        ctx.shape = table.shape
+        ctx.save_for_backward(tokens)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        w = ctx.shape[-1]
+        g = g.narrow(-1, ctx.mesh.coord(MODEL) * w, w)
+        grad = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        grad.index_add_(1, tokens.long(), g)
+        if ctx.bax:
+            grad = ctx.mesh.all_reduce(grad, ctx.bax)
+        return grad, None, None, None
 
 
 class _EmbedRows(torch.autograd.Function):
@@ -1493,19 +1587,23 @@ def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
     """Token embeddings (B, S, d), or (K, B, S, d) from K stacked tables
     with ``group`` (``layers.embed`` / ``layers.embed_grouped``). Under a
     plan whose ``step_view`` left the table a block of its vocabulary,
-    the rows are looked up where they lie (``_EmbedRows``) instead of
-    gathering the table."""
+    the rows are looked up where they lie (``_EmbedRows``), and of a
+    table split by its width over "model", each rank's columns of the
+    rows, gathered (``_EmbedCols``), instead of gathering the table."""
     from repro_torch.models.layers import embed, embed_grouped
     plan = current()
     if plan is None or id(table) not in plan.row_tables:
         return (embed_grouped(table, tokens) if group
                 else embed({"table": table}, tokens))
     plan, (specs, _) = _scoped("a token table")
-    spec = specs["embed"]["table"]
-    axes = _axes(_entries(spec, table.dim())[-2])
+    e = _entries(specs["embed"]["table"], table.dim())
     t = table if group else table[None]
-    rows = _EmbedRows.apply(t, tokens.reshape(-1), plan.mesh, axes,
-                            plan.row_tables[id(table)])
+    if e[-2] is None:
+        rows = _EmbedCols.apply(t, tokens.reshape(-1), plan.mesh,
+                                plan.row_tables[id(table)])
+    else:
+        rows = _EmbedRows.apply(t, tokens.reshape(-1), plan.mesh,
+                                _axes(e[-2]), plan.row_tables[id(table)])
     rows = rows.reshape((rows.shape[0],) + tuple(tokens.shape)
                         + (rows.shape[-1],))
     return rows if group else rows[0]

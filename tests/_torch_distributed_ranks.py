@@ -53,14 +53,26 @@ TRAIN_CASES = (
     ("qwen2-moe", "qwen2-moe-a2.7b", {}, "sgd", "tp", False),
     ("qwen2-moe-ff", "qwen2-moe-a2.7b", {"n_experts": 3}, "sgd", "tp", False),
     ("recurrentgemma", "recurrentgemma-9b", {}, "sgd", "tp", False),
+    # the encoder-decoder: its encoder (the stream over the 16 frames
+    # sequence-parallel), cross K/V and cross-attention on each rank's 2 of
+    # 4 heads, the batch carrying the frames; at vocab 510, which does not
+    # divide the model axis, the rule splits the tables by their width, as
+    # whisper-small's 51,865 rows at full size (each rank looks up its
+    # columns); and remat="dots" (the matrix products saved, the rest and
+    # every collective recomputed in the backward)
+    ("whisper", "whisper-small", {"vocab_size": 510}, "sgd", "tp", False),
+    ("qwen2.5-3b-dots", "qwen2.5-3b", {"remat": "dots"}, "sgd", "tp",
+     False),
 )
 # the train cases whose replicated leaves' gradients are held against the
 # one process's: each feeds a rank's block of a split product (the router,
-# the shared gate, the SSD's in_proj, the convs' taps, the norms)
+# the shared gate, the SSD's in_proj, the convs' taps, the norms: whisper's
+# layer norms, scale and bias, of its encoder blocks, the encoder's final
+# norm and the cross-attentions' lnx)
 GRAD_CASES = ("qwen3-moe", "mamba2", "qwen2-moe", "qwen2-moe-ff",
-              "recurrentgemma")
+              "recurrentgemma", "whisper")
 REPLICATED = ("router", "shared_gate", "in_proj", "conv_w", "conv_b",
-              "scale")
+              "scale", "bias")
 SERVE_POS = 3
 # (name, arch, config changes, mesh, lanes, blinded) of the decode rounds:
 # on the 2 x 2 mesh (the heads split over "model"), blinded and unblinded
@@ -72,8 +84,14 @@ SERVE_POS = 3
 # differ); one kv head, whose cache lies over "model" by T (the partial
 # softmax merged over the ranks); the split MoE on 2 x 2 and on 1 x 4 (one
 # expert a rank), the SSD on 2 x 2 (8 heads a rank), the RG-LRU on 1 x 4
-# (a quarter of its width a rank). The split blocks' cases also run a
-# (4, 16) prefill (``prefill_case``)
+# (a quarter of its width a rank); whisper-small on 2 x 2 and 1 x 4 (the
+# encoder, cross K/V and cross-attention on each rank's heads; on 1 x 4 at
+# vocab 510, the tables split by width, as at full size); 3 q heads and
+# one kv head, whose attention stays whole (the split would cut a head)
+# over a T-split cache (each rank's partial softmax merged), in qwen2.5-3b
+# and in gemma3-4b's sliding layers, decoded at position 40 into a
+# 64-slot cache, past the 32-slot ring of the window (``SERVE_AT``). The
+# cases but the first four also run a (4, 16) prefill (``prefill_case``)
 SERVE_CASES = (
     ("serve", "qwen2.5-3b", {}, (2, 2), B, True),
     ("serve-raw", "qwen2.5-3b", {}, (2, 2), B, False),
@@ -83,8 +101,21 @@ SERVE_CASES = (
     ("serve-moe-1x4", "qwen2-moe-a2.7b", {}, (1, 4), B, True),
     ("serve-mamba2", "mamba2-2.7b", {}, (2, 2), B, True),
     ("serve-rg-1x4", "recurrentgemma-9b", {}, (1, 4), B, True),
+    ("serve-whisper", "whisper-small", {}, (2, 2), B, True),
+    ("serve-whisper-1x4", "whisper-small", {"vocab_size": 510}, (1, 4), B,
+     True),
+    ("serve-h3", "qwen2.5-3b", {"n_heads": 3, "n_kv_heads": 1}, (2, 2), B,
+     True),
+    ("serve-gemma3-h3", "gemma3-4b", {"n_heads": 3, "n_kv_heads": 1},
+     (2, 2), B, True),
 )
-PREFILL_CASES = tuple(c for c in SERVE_CASES if c[1] != "qwen2.5-3b")
+PREFILL_CASES = SERVE_CASES[4:]
+# (cache length, position) of a decode round, by case; else (S, SERVE_POS)
+SERVE_AT = {"serve-gemma3-h3": (64, 40)}
+
+
+def serve_at(name):
+    return SERVE_AT.get(name, (S, SERVE_POS))
 
 def config(arch, changes):
     """The smoke variant of ``arch`` with ``changes`` (``capacity_factor``
@@ -106,11 +137,21 @@ def system(cfg, device="cpu", mask_mode="float"):
                           mask_mode=mask_mode), device=device)
 
 
+def audio(cfg, rows=B, seed=5):
+    """An encoder-decoder's frame embeddings (rows, F, d), float32."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (rows, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+
+
 def train_batch(cfg, seed=1):
     rng = np.random.default_rng(seed)
-    return {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S),
-                                             dtype=np.int32))
-            for k in ("tokens", "labels")}
+    out = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S),
+                                            dtype=np.int32))
+           for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        out["audio_embed"] = audio(cfg)
+    return out
 
 
 def serve_inputs(cfg, seed=3, lanes=B):
@@ -207,33 +248,67 @@ def serve_step(sys_, lanes, blinded=True):
         params, batch["tokens"], caches, pos, None)
 
 
-def serve_case(mesh, cfg, lanes=B, blinded=True):
+def enc_kv(sys_, params, cfg, lanes=B, mesh=None, pspec=None):
+    """An encoder-decoder's ``fe_list`` for ``lanes`` lanes of ``audio``:
+    whole, or with ``mesh`` made under the plan from this rank's blocks
+    ``params`` of ``pspec`` (this rank's rows and heads)."""
+    run = lambda p, b: sys_.encoder_kv(p, b["audio_embed"])
+    batch = {"tokens": torch.zeros((lanes, 1), dtype=torch.int32),
+             "audio_embed": audio(cfg, lanes)}
+    if mesh is None:
+        return run(params, batch)
+    bspec = sharding.batch_specs(batch, mesh)
+    return steps.shard_step(run, mesh, (pspec, bspec), None)(
+        params, sharding.shard_tree(batch, bspec, mesh))
+
+
+def serve_case(mesh, cfg, lanes=B, blinded=True, at=(S, SERVE_POS)):
     """One decode round (the reference's serve test: batch 4, cache 16,
-    position 3; ``lanes`` lanes) under ``serve_shardings``: rank 0 gets
-    the logits and the caches gathered; every rank the bytes its
-    collectives moved."""
+    position 3; ``lanes`` lanes; ``at`` another (cache, position)) under
+    ``serve_shardings``: rank 0 gets the logits and the caches gathered;
+    every rank the bytes its collectives moved and the all-gathers of a
+    cache's shape (none: every cache block is kept). An encoder-decoder
+    decodes with the cross K/V made under the plan (this rank's heads),
+    then again with the whole ones (``logits_whole_kv``: the step takes
+    this rank's heads)."""
     sys_ = system(cfg)
+    T, pos = at
     params = sys_.init_params(torch.Generator().manual_seed(2))
     serve = serve_step(sys_, lanes, blinded)
     batch = serve_inputs(cfg, lanes=lanes)
-    caches = sys_.init_caches(lanes, S)
-    specs = {"batch": batch, "caches": caches, "pos": SERVE_POS}
+    caches = sys_.init_caches(lanes, T)
+    specs = {"batch": batch, "caches": caches, "pos": pos}
     in_sh, out_sh = steps.serve_shardings(sys_, mesh, specs, params)
     pspec, bspec, cspec, _ = in_sh
     shapes = _shapes(caches)
+    whole_kv = (enc_kv(sys_, params, cfg, lanes)
+                if cfg.family == "encdec" else None)
     lp = sharding.shard_tree(params, pspec, mesh)
     lb = sharding.shard_tree(batch, bspec, mesh)
     lc = sharding.shard_tree(caches, cspec, mesh)
+    fe = ()
+    if whole_kv is not None:
+        fe = (enc_kv(sys_, lp, cfg, lanes, mesh, pspec),)
     rec = mesh_mod.RecordingMesh(mesh)
     run = steps.shard_step(serve, rec, in_sh, out_sh)
-    logits, lc = run(lp, lb, lc, SERVE_POS)
-    bad = _check_blocks(lc, shapes, cspec, mesh)
-    got = sharding.gather_tree(lc, cspec, mesh)
+    logits, new_lc = run(lp, lb, lc, pos, *fe)
+    bad = _check_blocks(new_lc, shapes, cspec, mesh)
+    got = sharding.gather_tree(new_lc, cspec, mesh)
     t_split = []
     sharding._map_with_path(lambda names, s: t_split.append(
         names[-1] in ("k", "v") and _entries_t(s)), cspec)
+    kv = set()
+    sharding._map_with_path(lambda names, a: kv.add(tuple(a.shape[-3:]))
+                            if names[-1] in ("k", "v") else None, caches)
     out = {"bad_blocks": bad, "bytes": dict(rec.bytes),
-           "t_split": sum(t_split)}
+           "t_split": sum(t_split),
+           "cache_gathers": [c for c in rec.calls if c[0] == "all-gather"
+                             and len(c[2]) >= 4 and c[2][-3:] in kv]}
+    if whole_kv is not None:
+        lc = sharding.shard_tree(caches, cspec, mesh)
+        out["logits_whole_kv"] = steps.shard_step(serve, mesh, in_sh, out_sh)(
+            lp, lb, lc, pos, whole_kv)[0].numpy()
+        out["enc_kv_shape"] = tuple(fe[0][0]["enc_kv"][0].shape)
     if mesh.rank == 0:
         out.update(logits=logits.numpy(), caches=got)
     return out
@@ -247,8 +322,11 @@ def _entries_t(spec) -> bool:
 
 def prefill_inputs(cfg, seed=4):
     rng = np.random.default_rng(seed)
-    return {"tokens": torch.from_numpy(rng.integers(
+    out = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (B, S), dtype=np.int32))}
+    if cfg.family == "encdec":
+        out["audio_embed"] = audio(cfg)
+    return out
 
 
 def meta_caches(sys_, b, t):
@@ -271,9 +349,15 @@ def prefill_case(mesh, cfg):
     lp = sharding.shard_tree(params, in_sh[0], mesh)
     lb = sharding.shard_tree(batch, in_sh[1], mesh)
     rec = mesh_mod.RecordingMesh(mesh)
-    E, lc = steps.shard_step(prefill, rec, in_sh, out_sh)(lp, lb)
+    rec_blocks = {}
+
+    def counted(*args):
+        out = prefill(*args)
+        rec_blocks.update(sharding.current().tp_blocks)
+        return out
+    E, lc = steps.shard_step(counted, rec, in_sh, out_sh)(lp, lb)
     got = sharding.gather_tree(lc, out_sh[1], mesh)
-    out = {"bytes": dict(rec.bytes)}
+    out = {"bytes": dict(rec.bytes), "tp_blocks": dict(rec_blocks)}
     if mesh.rank == 0:
         out.update(E=E.numpy(), caches=got)
     return out
@@ -294,7 +378,7 @@ def run_cases():
                                grads=name in GRAD_CASES)
     for name, arch, changes, shape, lanes, blinded in SERVE_CASES:
         out[name] = serve_case(meshes[shape], config(arch, changes), lanes,
-                               blinded)
+                               blinded, serve_at(name))
     for name, arch, changes, shape, _, _ in PREFILL_CASES:
         out["prefill-" + name] = prefill_case(meshes[shape],
                                               config(arch, changes))

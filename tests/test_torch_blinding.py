@@ -17,6 +17,17 @@ import torch
 from repro.core import blinding as jb
 from repro_torch.core import blinding as tb
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small eager torch ops: they finish sooner on one thread than
+    on a thread pool contended by the other test workers on the same
+    CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SEEDS = [0, 1, 12345678901234567, (1 << 63) - 1]
 ROUNDS = [0, 1, 7, jb.SERVE_DOMAIN + 5, jb.PREFILL_DOMAIN + 3]
 

@@ -1450,6 +1450,153 @@ def test_cuda_t_split_decode_matches_a_whole_cache(cuda, t_split_ranks):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+# a whole attention's decode step over a T-split cache: (lanes, T, q
+# heads, kv heads, hd, d_model, each lane's position); 3 q heads do not
+# divide 2 model ranks, so the layer runs whole on every rank and only its
+# cache is split
+WHOLE_T_SPLIT_CASE = (3, 1024, 3, 1, 64, 256, (700, 1023, 5))
+
+
+def _whole_t_split_inputs():
+    """Whole attention weights (qkv biases), the stream x (B, 1, d) and a
+    per-lane cache (B, T, Hkv, hd) whose slots up to each lane's position
+    are filled, float32."""
+    from repro_torch.models import layers
+    B, T, Hq, Hkv, hd, d, pos = WHOLE_T_SPLIT_CASE
+    g = torch.Generator().manual_seed(12)
+    p = layers.init_attention(g, d, Hq, Hkv, hd, True, torch.float32)
+    p = tree_map(lambda a: a + 0.1 * torch.randn(a.shape, generator=g), p)
+    x = torch.randn((B, 1, d), generator=g)
+    k, v = (torch.randn((B, T, Hkv, hd), generator=g) for _ in range(2))
+    cache = {"k": k, "v": v,
+             "idx": torch.tensor(pos, dtype=torch.int32)}
+    return p, x, cache
+
+
+def _whole_t_split_step(p, x, cache, tp=None):
+    from repro_torch.models import layers
+    _, _, Hq, Hkv, hd, _, _ = WHOLE_T_SPLIT_CASE
+    return layers.self_attention(p, x, n_heads=Hq, n_kv_heads=Hkv,
+                                 head_dim=hd, cache=cache, tp=tp)
+
+
+# a split cross-attention: (lanes, queries, encoder frames); whisper-small's
+# smoke widths (d 256, 4 heads of 64, qkv biases, layer norm), 2 heads a
+# rank over 2 model ranks
+XATTN_CASE = (2, 16, 150)
+
+
+def _xattn_inputs():
+    """The smoke whisper config, one layer's cross-attention leaves
+    (``lnx``, ``attn``), the stream x (B, S, d) and the encoder's k / v
+    (B, F, Hkv, hd), float32."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.models import layers
+    cfg = smoke_variant(get_config("whisper-small"))
+    B, S, F = XATTN_CASE
+    g = torch.Generator().manual_seed(13)
+    hd = cfg.resolved_head_dim
+    xp = {"lnx": {"scale": 1 + 0.1 * torch.randn(cfg.d_model, generator=g),
+                  "bias": 0.1 * torch.randn(cfg.d_model, generator=g)},
+          "attn": layers.init_attention(g, cfg.d_model, cfg.n_heads,
+                                        cfg.n_kv_heads, hd, True,
+                                        torch.float32)}
+    x = torch.randn((B, S, cfg.d_model), generator=g)
+    ek, ev = (torch.randn((B, F, cfg.n_kv_heads, hd), generator=g)
+              for _ in range(2))
+    return cfg, xp, x, ek, ev
+
+
+def _tp_attention_on_card():
+    """Rank side, 2 model ranks over gloo on cuda:0: (rank, the whole
+    attention's decode output and this rank's T block of its new cache
+    (``self_attention`` under a "whole" TP with ``kv_t``), the split
+    cross-attention's output (``transformer._apply_xattn`` on this rank's
+    heads: its columns of wq, its rows of wo, its heads of k / v) and
+    its flash_attention_fwd launches)."""
+    from repro_torch import sharding
+    from repro_torch.launch import mesh
+    from repro_torch.models import transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = mesh.make_debug_mesh(1, 2, device="cuda")
+    c = m.coord(("model",))
+    on = lambda tree: tree_map(lambda a: a.cuda(), tree)
+    blk = lambda t, d: t.narrow(d, c * t.shape[d] // 2, t.shape[d] // 2)
+    p, x, cache = on(_whole_t_split_inputs())
+    cache = {n: (t if n == "idx" else blk(t, 1).contiguous())
+             for n, t in cache.items()}
+    tp = sharding.TP(m, attn="whole", kv_t=True)
+    out, new = _whole_t_split_step(p, x, cache, tp)
+    cfg, *rest = _xattn_inputs()
+    xp, xs, ek, ev = on(tuple(rest))
+    a = xp["attn"]
+    xp_r = {"lnx": xp["lnx"],
+            "attn": {"wq": {"w": blk(a["wq"]["w"], 1), "b": blk(a["wq"]["b"],
+                                                               0)},
+                     "wo": {"w": blk(a["wo"]["w"], 0)}}}
+    before = tfa.LAUNCHES["flash_attention_fwd"]
+    with torch.no_grad():
+        xo = transformer._apply_xattn(
+            (xp_r, blk(ek, 2).contiguous(), blk(ev, 2).contiguous()), xs,
+            cfg, False, sharding.TP(m, attn="heads"))
+    torch.cuda.synchronize()
+    return (m.rank, out.cpu(), {n: t.cpu() for n, t in new.items()},
+            xo.cpu(), tfa.LAUNCHES["flash_attention_fwd"] - before)
+
+
+@pytest.fixture(scope="module")
+def tp_attention_ranks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import mesh
+    return sorted(mesh.spawn_ranks(
+        _tp_attention_on_card, 2,
+        store_dir=str(tmp_path_factory.mktemp("mesh")), device="cuda"),
+        key=lambda r: r[0])
+
+
+@pytest.mark.requires_cuda
+def test_cuda_whole_attention_t_split_decode(cuda, tp_attention_ranks):
+    """A decode step of an attention whose 3 q heads do not divide 2 model
+    ranks, run whole on each rank over its T block of the cache (the new
+    K/V written where the slot lies, every head's partial softmax merged
+    over the ranks, wo whole, no exit) against the whole layer over the
+    whole cache on the card, float32 (TF32 off): the output the same on
+    both ranks and within rtol 1e-5 / atol 1e-6, each rank's block of the
+    new cache the whole step's bit for bit. A lane at position 5 sees no
+    slot of rank 1's block."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p, x, cache = tree_map(lambda a: a.cuda(), _whole_t_split_inputs())
+    want, new = _whole_t_split_step(p, x, cache)
+    want = want.cpu()
+    for rank, out, got_cache, _, _ in tp_attention_ranks:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+        for n in ("k", "v"):
+            Tl = got_cache[n].shape[1]
+            assert torch.equal(got_cache[n],
+                               new[n].cpu()[:, rank * Tl:(rank + 1) * Tl])
+        assert torch.equal(got_cache["idx"], new["idx"].cpu())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_split_cross_attention_matches_the_whole_one(
+        cuda, tp_attention_ranks):
+    """The cross-attention on each of 2 model ranks' heads (2 of 4: q by
+    its columns of wq, flash_attention_fwd non-causal against its heads of
+    the encoder's k / v, its rows of wo summed over the ranks) against the
+    whole cross-attention on the card, float32 (TF32 off): one launch a
+    rank, the same output on both, within rtol 1e-5 / atol 1e-6."""
+    from repro_torch.models import transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, *rest = _xattn_inputs()
+    xp, x, ek, ev = tree_map(lambda a: a.cuda(), tuple(rest))
+    with torch.no_grad():
+        want = transformer._apply_xattn((xp, ek, ev), x, cfg).cpu()
+    for _, _, _, got, launches in tp_attention_ranks:
+        assert launches == 1
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # the split MoE and RG-LRU blocks over "model"
 # ---------------------------------------------------------------------------

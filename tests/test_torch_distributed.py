@@ -200,9 +200,11 @@ def _one_process_serve(name):
     sys_ = ranks.system(cfg)
     params = sys_.init_params(torch.Generator().manual_seed(2))
     serve = ranks.serve_step(sys_, lanes, blinded)
+    T, pos = ranks.serve_at(name)
+    fe = ((ranks.enc_kv(sys_, params, cfg, lanes),)
+          if cfg.family == "encdec" else ())
     logits, caches = serve(params, ranks.serve_inputs(cfg, lanes=lanes),
-                           sys_.init_caches(lanes, ranks.S),
-                           ranks.SERVE_POS)
+                           sys_.init_caches(lanes, T), pos, *fe)
     return logits.numpy(), _np(caches)
 
 
@@ -225,9 +227,14 @@ def _reference_serve(name):
             return js.serve_step(params, batch["tokens"], caches, pos, None)
     batch = {"tokens": jnp.asarray(ranks.serve_inputs(
         cfg, lanes=lanes)["tokens"].numpy())}
-    logits, caches = _jit(serve, jax.tree.map(jnp.asarray, _weights(cfg)),
-                          batch, js.init_caches(lanes, ranks.S),
-                          jnp.asarray(ranks.SERVE_POS, jnp.int32))
+    T, pos = ranks.serve_at(name)
+    params = jax.tree.map(jnp.asarray, _weights(cfg))
+    fe = ()
+    if cfg.family == "encdec":
+        fe = (_jit(js.encoder_kv, params,
+                   jnp.asarray(ranks.audio(cfg, lanes).numpy())),)
+    logits, caches = _jit(serve, params, batch, js.init_caches(lanes, T),
+                          jnp.asarray(pos, jnp.int32), *fe)
     return np.asarray(logits), jax.tree.map(np.asarray, caches)
 
 
@@ -256,8 +263,8 @@ def _reference_prefill(name="prefill"):
     js = _ref_system(arch, changes)
     prefill = jsteps.build_prefill_step(js, JInputShape(
         "p", ranks.S, ranks.B, "prefill"))
-    batch = {"tokens": jnp.asarray(ranks.prefill_inputs(cfg)[
-        "tokens"].numpy())}
+    batch = {k: jnp.asarray(v.numpy())
+             for k, v in ranks.prefill_inputs(cfg).items()}
     E, caches = _jit(prefill, jax.tree.map(jnp.asarray, _weights(cfg)),
                      batch)
     return np.asarray(E), jax.tree.map(np.asarray, caches)
@@ -307,12 +314,19 @@ def test_sharded_train_step_matches_single_device(spawned, name):
         # every replicated leaf that feeds a split product, against the
         # one process's gradient (unclipped, before the update)
         kinds = {k.rsplit("/", 1)[-1] for k in got["grads"]}
-        want = {"scale", "router"} if "moe" in arch else {"scale", "conv_w"}
+        want = ({"scale", "router"} if "moe" in arch
+                else {"scale", "bias"} if "whisper" in arch
+                else {"scale", "conv_w"})
         assert want <= kinds, kinds
         if "mamba2" in arch:
             assert {"in_proj", "conv_b"} <= kinds
         if name.startswith("qwen2-moe"):
             assert "shared_gate" in kinds
+        if "whisper" in arch:
+            # the encoder blocks' and final norms, the cross-attentions'
+            assert {"encoder/blocks/ln1", "encoder/norm", "xattn/lnx"} <= {
+                k.rsplit("/", 1)[0].split("backbone/")[-1]
+                for k in got["grads"]}
         for k, g in got["grads"].items():
             _close_tp(g, grads[k], ulps=32)
 
@@ -401,19 +415,31 @@ def test_sharded_serve_step_matches_single_device(spawned, name):
     not. The caches whose one kv head does not divide the model axis (the
     T-split case, and recurrentgemma's over 4 ranks) lie over "model" by
     T, the others' do not."""
+    cfg = ranks.config(*SERVES[name][1:3])
+    m = SERVES[name][3][1]
     for r in spawned:
         assert r[name]["bad_blocks"] == []
-        assert bool(r[name]["t_split"]) == (name in ("serve-t-split",
-                                                     "serve-rg-1x4"))
+        assert bool(r[name]["t_split"]) == (name in (
+            "serve-t-split", "serve-rg-1x4", "serve-h3", "serve-gemma3-h3"))
+        # every cache block kept: no K/V cache all-gathered
+        assert r[name]["cache_gathers"] == []
+        if cfg.family == "encdec":
+            # the cross K/V made under the plan: this rank's rows and heads
+            assert r[name]["enc_kv_shape"] == (
+                cfg.n_layers, ranks.B // SERVES[name][3][0],
+                cfg.n_audio_frames, cfg.n_kv_heads // m,
+                cfg.resolved_head_dim)
     got = spawned[0][name]
     logits, caches = _one_process_serve(name)
-    if SERVES[name][3][1] == 1:
+    if m == 1:
         np.testing.assert_array_equal(got["logits"], logits)
         for a, b in zip(tree_leaves(got["caches"]), tree_leaves(caches)):
             np.testing.assert_array_equal(a, b)
     else:
         _close_tp(got["logits"], logits)
         _close_tp_caches(got["caches"], caches)
+        if cfg.family == "encdec":      # the whole cross K/V, cut by the step
+            _close_tp(got["logits_whole_kv"], logits)
     r_logits, r_caches = _reference_serve(name)
     np.testing.assert_allclose(got["logits"], r_logits, rtol=RTOL, atol=ATOL)
     _close(got["caches"], r_caches, RTOL, ATOL)
@@ -442,8 +468,13 @@ def test_sharded_prefill_of_split_blocks(spawned, name):
     on the rank's "model" block; E (``_close_tp``) and the caches
     (``_close_tp_caches``) against one process, both against the
     reference."""
+    blocks = {"whisper": {"enc heads", "xattn heads", "attn heads"},
+              "h3": {"attn whole", "kv T"}}
     for r in spawned:
         assert r[name]["bytes"]["reduce-scatter"] > 0
+        for k, want in blocks.items():
+            if k in name:
+                assert want <= set(r[name]["tp_blocks"]), r[name]["tp_blocks"]
     got = spawned[0][name]
     E, caches = _one_process_prefill(name)
     _close_tp(got["E"], E)
@@ -473,22 +504,29 @@ def _recorded_step(kind, B, S, changes=None, arch="qwen2.5-3b"):
         step = steps.build_serve_step(sys_, shape)
         in_sh, out_sh = steps.serve_shardings(sys_, rec, specs, params)
         args = [params, specs["batch"], specs["caches"], specs["pos"]]
+        if "fe_list" in specs:      # an encoder-decoder's cross K/V, whole
+            args.append(specs["fe_list"])
     local = [sharding.shard_tree(a, s, rec) if isinstance(s, (dict, list))
              else a for a, s in zip(args, in_sh)]
     out = steps.shard_step(step, rec, in_sh, out_sh)(*local)
     return cfg, sys_, rec, out, in_sh[0]
 
 
-def _no_weight_gathered(rec, sys_, pspec):
+def _no_weight_gathered(rec, sys_, pspec, whole=()):
     """No all-gather or broadcast of the recording has the shape of a
     leaf the model axis splits, or of one layer (or one party's layer) of
-    it: every moved tensor is an activation."""
+    it: every moved tensor is an activation. ``whole``: path names of the
+    sub-blocks gathered and run whole (their leaves' shapes left out: the
+    byte count holds the rest)."""
     params = steps.abstract_params(sys_)
-    split = [tuple(x.shape) for x, s in zip(
-        tree_leaves({"parties": params["parties"]}),
-        sharding.spec_leaves({"parties": pspec["parties"]}))
-        if "model" in tuple(s)]
-    shapes = {sh[i:] for sh in split for i in range(3)}
+    split, gathered = [], []
+    sharding._zip_path(
+        lambda names, x, s: (gathered if set(names) & set(whole)
+                             else split).append(tuple(x.shape))
+        if "model" in tuple(s) else None,
+        {"parties": params["parties"]}, {"parties": pspec["parties"]})
+    shapes = ({sh[i:] for sh in split for i in range(3)}
+              - {sh[i:] for sh in gathered for i in range(3)})
     assert split
     assert not [c for c in rec.calls if c[0] in ("all-gather", "broadcast")
                 and c[2] in shapes]
@@ -558,25 +596,54 @@ def test_collective_bytes_of_a_decode_round():
 
 
 # the decode round's split blocks: an MoE stack (4 experts, 2 a model
-# rank), an SSD stack (16 heads, 8 a rank) and a Griffin stack (the
-# RG-LRU at half its width; 2 kv heads, so that its attention splits by
-# heads, as the dense layers of the test above)
-SPLIT_DECODES = {"qwen2-moe-a2.7b": {}, "mamba2-2.7b": {},
-                 "recurrentgemma-9b": {"n_kv_heads": 2}}
+# rank), an SSD stack (16 heads, 8 a rank), a Griffin stack (the RG-LRU
+# at half its width; 2 kv heads, so that its attention splits by heads,
+# as the dense layers of the test above), whisper-small (2 of 4 heads a
+# rank in its self- and cross-attention, the cross K/V this rank's heads)
+# and a whole attention over a T-split cache (3 q heads and one kv head:
+# the split would cut a head), by name -> (arch, config changes)
+SPLIT_DECODES = {"qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}),
+                 "mamba2-2.7b": ("mamba2-2.7b", {}),
+                 "recurrentgemma-9b": ("recurrentgemma-9b",
+                                       {"n_kv_heads": 2}),
+                 "whisper-small": ("whisper-small", {}),
+                 "h3": ("qwen2.5-3b", {"n_heads": 3, "n_kv_heads": 1})}
 
 
 def _layer_bytes(cfg, kind, B, m, n_data):
     """The collectives' bytes by (kind, axis) of one float32 layer of a
     decode round over B lanes (B / n_data a data rank) on ``m`` model
-    ranks: the row-parallel sums into the stream, an MoE's load-balance
-    statistics and slot prefix over "data", the SSD conv cache gathered
-    whole over "model" (its packed channels do not align with a rank's
-    heads), the RG-LRU's conv output gathered for its gates, and the new
-    caches that the reference's rule keeps whole over "data" (the SSD
-    state and conv, the LRU's) gathered from the data ranks' rows."""
+    ranks: the row-parallel sums into the stream (an encoder-decoder's
+    cross-attention a third), an MoE's load-balance statistics and slot
+    prefix over "data", the SSD conv cache gathered whole over "model"
+    (its packed channels do not align with a rank's heads), the RG-LRU's
+    conv output gathered for its gates, and the new caches that the
+    reference's rule keeps whole over "data" (the SSD state and conv, the
+    LRU's) gathered from the data ranks' rows. An attention whose heads
+    do not divide the model axis runs whole: its stored blocks gathered
+    (every leaf of wq / wk / wv / wo the rule splits), no exit, and its
+    T-split cache's partial softmax merged (a max of (b, Hq) and a sum of
+    the unnormalised outputs and weights (b, Hq, hd + 1)); its cache is
+    never gathered."""
+    from repro_torch import sharding
     from repro_torch.models import ssm
     b, d, f32 = B // n_data, cfg.d_model, 4
     out = {("all-reduce", "model"): 2 * b * d * f32}   # the mixer's, the FFN's
+    if cfg.family == "encdec":
+        out[("all-reduce", "model")] += b * d * f32    # the cross-attention
+    hd, hq, hk = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    if kind in ("attn", "local", "global") and sharding.attn_mode(
+            hq, hk, hd, m) == "whole":
+        fits = lambda n: n >= m and n % m == 0
+        leaves = [d * hq * hd, d * hk * hd, d * hk * hd]   # wq, wk, wv
+        if cfg.qkv_bias:
+            leaves += [hq * hd, hk * hd, hk * hd]
+        split = [n for n, w in zip(leaves, [hq * hd, hk * hd, hk * hd] * 2)
+                 if fits(w)]
+        split += [hq * hd * d] if fits(hq * hd) else []    # wo by rows
+        out[("all-gather", "model")] = sum(split) * f32
+        out[("all-reduce", "model")] = (b * d + b * hq + b * hq * (hd + 1)) \
+            * f32
     if kind == "moe":
         E = cfg.moe.n_experts
         out[("all-reduce", "data")] = 2 * E * f32      # the aux's two means
@@ -598,17 +665,20 @@ def _layer_bytes(cfg, kind, B, m, n_data):
 
 @pytest.mark.parametrize("arch", list(SPLIT_DECODES))
 def test_collective_bytes_of_a_decode_round_split_blocks(arch):
-    """A decode round of the split MoE, SSD and RG-LRU stacks (4 lanes, 2
-    a data rank, cache 16) as rank 0 of the abstract 2 x 2 mesh: every
+    """A decode round of the split MoE, SSD and RG-LRU stacks, of
+    whisper-small and of a whole attention over a T-split cache (4 lanes,
+    2 a data rank, cache 16) as rank 0 of the abstract 2 x 2 mesh: every
     layer's collectives by kind and axis as ``_layer_bytes`` gives them
     (the passive group's 3 parties as one tensor), the embedding's and the
     decision MLP's all-reduces and the logits' all-gathers as in the
-    dense round; no weight moves, nothing else moves."""
+    dense round; no weight moves but a whole attention's, nothing else
+    moves (no K/V cache: the round's cross K/V and T-split caches stay
+    each rank's)."""
     import collections
     from repro_torch.models import transformer
     B, T, m, n_data = 4, ranks.S, 2, 2
     cfg, sys_, rec, (logits, _), pspec = _recorded_step(
-        "decode", B, T, SPLIT_DECODES[arch], arch)
+        "decode", B, T, SPLIT_DECODES[arch][1], SPLIT_DECODES[arch][0])
     assert tuple(logits.shape) == (B, 1, cfg.vocab_size)
     b, f32 = B // n_data, 4
     want = collections.Counter({
@@ -624,13 +694,13 @@ def test_collective_bytes_of_a_decode_round_split_blocks(arch):
                 kinds.add(kind)
                 for k, n in _layer_bytes(pcfg, kind, B, m, n_data).items():
                     want[k] += reps * parties * n
-    assert kinds & {"moe", "ssm", "lru"}
+    assert kinds & {"moe", "ssm", "lru"} or arch in ("whisper-small", "h3")
     got = collections.Counter()
     for kind, axes, shape in rec.calls:
         size = 4 * int(np.prod(shape))       # float32 or int32
         got[(kind, "+".join(axes))] += size
     assert got == want
-    _no_weight_gathered(rec, sys_, pspec)
+    _no_weight_gathered(rec, sys_, pspec, ("attn",) if arch == "h3" else ())
 
 
 def test_dryrun_runs_a_step_as_rank_0_of_16x16(tmp_path):

@@ -28,6 +28,17 @@ from repro_torch.core import blinding as tb
 from repro_torch.kernels import blind_agg as tba
 from repro_torch.kernels import ops, ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small eager torch ops: they finish sooner on one thread than
+    on a thread pool contended by the other test workers on the same
+    CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -39,6 +39,17 @@ from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small eager torch ops: they finish sooner on one thread than
+    on a thread pool contended by the other test workers on the same
+    CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ARCHS = ("qwen2.5-3b", "qwen2-1.5b")
 RTOL, ATOL = 1e-4, 1e-5
 

@@ -21,8 +21,9 @@ tolerance) and within 2 lr + 1e-5 elsewhere; after 3 adam steps within
 3 x 2 x 1.0036 lr + 1e-5 (|m_hat| / sqrt(v_hat) <= 1.0036 for t <= 3 at
 b1 0.9, b2 0.999), and the losses of those steps at rtol 1e-4 / atol
 1e-5. Within the port, a chunk equals the step loop bit
-for bit, remat equals no remat bit for bit, and a resumed run equals an
-unbroken one bit for bit.
+for bit, remat ("full" and "dots") equals no remat bit for bit, and a
+resumed run equals an unbroken one bit for bit; remat="dots" also
+against the reference's at the tolerance above.
 """
 import dataclasses
 import functools
@@ -107,9 +108,10 @@ def _setup(arch):
     return tree, batches
 
 
-def _jsys(arch, wire="float", grad_mode="easter"):
-    return JLM(jcfg.smoke_variant(jcfg.get_config(arch)),
-               jcfg.EasterConfig(mask_mode=wire), grad_mode=grad_mode)
+def _jsys(arch, wire="float", grad_mode="easter", **cfg_kw):
+    jc = dataclasses.replace(jcfg.smoke_variant(jcfg.get_config(arch)),
+                             **cfg_kw)
+    return JLM(jc, jcfg.EasterConfig(mask_mode=wire), grad_mode=grad_mode)
 
 
 def _tsys(arch, engine, wire="float", grad_mode="easter", **cfg_kw):
@@ -124,9 +126,9 @@ def _jtree(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def _ref_grads(arch, wire, grad_mode="easter"):
+def _ref_grads(arch, wire, grad_mode="easter", remat="none"):
     """The reference's jitted value_and_grad of loss_fn at round STEP."""
-    js = _jsys(arch, wire, grad_mode)
+    js = _jsys(arch, wire, grad_mode, remat=remat)
     tree, batches = _setup(arch)
     seeds = js.mask_seeds()
     fn = jax.jit(lambda p, b, s: jax.value_and_grad(
@@ -211,14 +213,42 @@ def test_chunked_lm_head_xent_matches_reference(S_):
 @pytest.mark.parametrize("engine", ["vectorized", "loop"])
 def test_remat_full_equals_none(engine):
     """remat="full" (a checkpoint around each layer repeat, around the
-    vmap on the vectorized engine) gives the same loss and gradients, bit
-    for bit; remat="dots" raises."""
+    vmap on the vectorized engine) and remat="dots" (the same checkpoint
+    saving its matrix products' outputs and recomputing the rest) give
+    the same loss and gradients as no remat, bit for bit."""
     outs = [_port_grads(_tsys(ARCHS[1], engine, remat=r), ARCHS[1])
-            for r in ("none", "full")]
-    assert torch.equal(outs[0][1], outs[1][1])
-    assert _trees_equal(outs[0][2], outs[1][2])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _port_grads(_tsys(ARCHS[0], engine, remat="dots"), ARCHS[0])
+            for r in ("none", "full", "dots")]
+    for out in outs[1:]:
+        assert torch.equal(outs[0][1], out[1])
+        assert _trees_equal(outs[0][2], out[2])
+
+
+def test_remat_dots_matches_reference(monkeypatch):
+    """remat="dots" against the reference's (``jax.checkpoint`` with
+    ``dots_saveable``) at the loss and gradients' tolerance, on the
+    vectorized engine; the checkpoint's policy saves the forward's matrix
+    products (mm / addmm / bmm / baddbmm) and recomputes the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    from repro_torch.models import transformer
+    seen = []
+    policy = transformer._dots_policy
+
+    def counted(ctx, op, *args, **kwargs):
+        out = policy(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute:
+            seen.append((op, out))
+        return out
+
+    monkeypatch.setattr(transformer, "_dots_policy", counted)
+    j_total, j_per, j_g = _ref_grads(ARCHS[0], "float", remat="dots")
+    total, per, g = _port_grads(_tsys(ARCHS[0], "vectorized",
+                                      remat="dots"), ARCHS[0])
+    _close(per, j_per)
+    _close(total, j_total)
+    _trees_close(g, j_g)
+    saved = {op for op, out in seen if out == CheckpointPolicy.MUST_SAVE}
+    assert saved and saved <= set(transformer._DOTS)
+    assert any(out == CheckpointPolicy.PREFER_RECOMPUTE for _, out in seen)
 
 
 # ---------------------------------------------------------------------------

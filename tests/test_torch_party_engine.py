@@ -39,6 +39,17 @@ from repro_torch.core import party_models as tpm
 from repro_torch.core.protocol import EasterClassifier as TClassifier
 from repro_torch.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small eager torch ops: they finish sooner on one thread than
+    on a thread pool contended by the other test workers on the same
+    CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _B, _NCLS = 8, 5
 

@@ -27,6 +27,17 @@ from repro_torch.core import blinding as tb
 from repro_torch.core import party_models as tpm
 from repro_torch.core.protocol import EasterClassifier as TClassifier
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small eager torch ops: they finish sooner on one thread than
+    on a thread pool contended by the other test workers on the same
+    CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SEEDS = [0, 12345678901234567, (1 << 63) - 1]
 ROUNDS = [0, 1, jb.SERVE_DOMAIN + 5]
 

@@ -35,6 +35,17 @@ from repro_torch.core.easter_lm import EasterLM as TLM
 from repro_torch.launch import serve as tlaunch
 from repro_torch.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small eager torch ops: they finish sooner on one thread than
+    on a thread pool contended by the other test workers on the same
+    CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ARCH = "qwen2.5-3b"
 RTOL, ATOL = 1e-4, 1e-5
 
