@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phase sharded
     python3 chip_smoke.py --phase fsdp
     python3 chip_smoke.py --phase split_depth
+    python3 chip_smoke.py --phase nccl       # four cards, one a rank
 
 Phases, each printing its own lines:
 
@@ -41,7 +42,9 @@ Phases, each printing its own lines:
           bfloat16, E_k narrower than E_a (bfloat16 or float16 beside a
           float32 E_a), mask_scale 1 and 4, rounds 0, 7 and SERVE_DOMAIN
           + 3; also against the unmasked mean (the masks cancel) and,
-          through its autograd.Function, the backward.
+          through its autograd.Function, the backward. Its mask engines
+          take their pair seeds from blinding's PRF over the pair's
+          indices (_kernel_mask_engine), not from a DH ceremony.
   slice   the paper's Table II setting (C = 4 heterogeneous MLP parties,
           d_embed 128, batch 128, adam 1e-3, mnist_like data, fresh masks,
           the classifier's defaults: vectorized engine, MaskEngine masks,
@@ -118,13 +121,15 @@ Phases, each printing its own lines:
           per request, ms per decode round, tokens/s, the launch counts
           asserted (36 + 9 flash_attention_fwd a prefill, one
           blind_agg_fwd a round), finite logits of the expected shape, and
-          torch.profiler windows over one 2048-token admission and 8
-          decode rounds. Then the same width with depth cut to 4 active
+          torch.profiler windows over one 2048-token admission and one
+          decode round. Then the same width with depth cut to 4 active
           layers (passive 2) in float32 with TF32 off, against the CPU
           port: prefill embeddings and the logits of 4 decode rounds
           within rtol 1e-4 / atol 1e-5, identical greedy tokens.
   sharded the sharded engine (engine="sharded", launch/mesh.py): 4 ranks
-          spawned at once share the card over gloo. Many-party C = 64 (the
+          spawned at once share the card over gloo (every rank's backend,
+          card and parameters and caches checked against the rule).
+          Many-party C = 64 (the
           many phase's zoo and batch, unfused MaskEngine masks): 10 float
           and 10 int8 adam rounds and one joint round; every rank's
           per-party losses bit for bit rank 0's and, every round, bit for
@@ -209,7 +214,7 @@ Phases, each printing its own lines:
           tokens/s, peak device memory, per-party losses (finite, the mean
           total of the last two steps below step 0's), exactly one
           blind_agg_fwd a step and no flash_attention_fwd or
-          rglru_scan_fwd launch; a third chunk under torch.profiler (idle
+          rglru_scan_fwd launch; one more step under torch.profiler (idle
           share, top device ops); one grad_mode="joint" sgd step, which
           must launch blind_agg_bwd once. Then one sgd step card vs CPU
           port in float32 (TF32 off), losses, gradients and updated params
@@ -272,7 +277,8 @@ Phases, each printing its own lines:
           experts top-4, 15 a rank, 4 shared; three 6-layer MoE
           proxies; 25.29e9 parameters) on a 1 x 4 (data x model) mesh
           of the same ranks, 4 rounds; (f) mamba2-2.7b at full width
-          and depth (64 layers, 80 heads of 64, 40 a rank; 5.05e9) on
+          (80 heads of 64, 40 a rank) cut to 16 layers (three 4-layer
+          proxies; FSDP_SSD_LAYERS; 64 under --phase split_depth) on
           the 2 x 2 mesh, 4 rounds; (g) recurrentgemma-9b at full width
           (the LRU's 4096 width, 1024 a rank; 4 q heads over the one kv
           head of 256, its cache split by T) on 1 x 4, cut to 6 layers,
@@ -355,8 +361,10 @@ Phases, each printing its own lines:
           prefill, none a round, one blind_agg_fwd a round, and that other
           patches move the prefill's first 1024 embeddings (the insert).
 
---phase runs one timing phase alone after the build, for comparing two
-checkouts in turns (the other checkout's tree given this script):
+--phase runs one phase alone after the build, for comparing two
+checkouts in turns (the other checkout's tree given this script), and
+prints its numbers as a JSON line before the card's line and the
+{"ok": true, ...} line:
 engines, many, baselines, wire, rg (the recurrentgemma-9b serving run),
 moe and mamba (the qwen2-moe-a2.7b and mamba2-2.7b serving runs),
 whisper and vlm (the
@@ -372,7 +380,25 @@ and depth on a 1 x 3 mesh of three ranks sharing the card, whose 12/2
 heads do not divide 3: each attention runs whole over its cache's T
 block, 172 of 516 slots a rank, the ranks' partial softmax merged; 4
 lanes of 512-token prompts, 4 greedy rounds, held and printed as (d)),
-agg (the
+nccl (four
+cards, one a rank: launch/mesh.py's rule then starts the ranks over NCCL,
+"cpu:gloo,cuda:nccl", each bound to cuda:<rank>; raises with fewer cards;
+prints nvidia-smi topo -m and every card's name and power limit; every
+rank's backend, card and tensors checked: the sharded phase over NCCL,
+its 4-layer cut held to one process on one card instead of the CPU port;
+then, beside one process on one card run first, (a) qwen2-1.5b at all 28
+layers on 2 x 2, (d), (e) and (e)'s float32 cut, held as the fsdp phase
+holds them ((e)'s bfloat16 round-0 gap printed beside gloo's); (k)
+qwen2-vl-7b cut to 2 layers in float32 at full width, one sgd step at 4 x
+1280 tokens with the patches on 4 x 1, every rank's blocks and their
+update against the one process's; (j) qwen2-vl-7b at full width and
+depth trained under zero3 + ZeRO-1 on 4 x 1, adam, 4 x 2048 tokens with
+1024 patch positions a row, 3 steps: losses finite, the same on every
+rank and falling, one blind_agg_fwd a step a rank, at most 45 GB of
+weights, gradients and adam state a rank; ms a step, tokens/s, peak
+memory and each step's collective bytes and count (a RecordingMesh over
+the live mesh); the all-gather rate of 16 MB a rank over NCCL and over
+the group's gloo half), agg (the
 blind_agg_fwd / blind_agg_bwd timing and the launch floor; --save and
 --compare as for prng, the backward's outputs required to be bit for bit
 the other checkout's), flash, rglru (the rglru timing) or prng (the prng
@@ -396,6 +422,7 @@ needs a CUDA device and the repository's src/ beside it.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -446,6 +473,13 @@ LM_ARCH = "qwen2.5-3b"
 LM_LANES, LM_REQUESTS, LM_NEW, LM_CHUNK = 4, 8, 32, 8
 LM_PROMPTS = (512, 1024, 2048)
 LM_CUT_LAYERS, LM_CUT_BATCH, LM_CUT_PROMPT, LM_CUT_ROUNDS = 4, 2, 64, 4
+# decode rounds (and training steps) under torch.profiler: the profiler's
+# parse of its trace on the host took 2.5-4 s a decode round of a full
+# model (36-42k kernels for 8 rounds) and 11 s a training step, 199 s of
+# the script's 764 (H100 80GB HBM3 at 700 W), and swings with the host;
+# a round (a step) launches the same kernels as the last, so the busy and
+# idle shares of one round (one step) read as those of eight (two)
+PROFILE_ROUNDS, PROFILE_STEPS = 1, 1
 BF16_FLOPS = 989e12              # H100 SXM data sheet, dense bf16 tensor cores
 # flash_attention_fwd against its plain version: the reference sweep
 # (tests/test_kernels.py) plus ragged lengths and the qwen2.5-3b shape
@@ -838,15 +872,31 @@ def _ulp(x, dtype):
     return torch.ldexp(torch.ones_like(x), e - bits)
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_mask_engine(K):
+    """The MaskEngine of the prng kernel's checks and timing: K passive
+    parties' pair seeds from blinding's PRF (prf_seed) over the pair's
+    indices, in place of the DH ceremony's shared keys (one 2048-bit
+    modexp a pair in Python: 37 s of host time at K = 127, H100 80GB HBM3
+    machine). The kernel and its plain version see only the 63-bit seed
+    words; the protocol phases keep the ceremony's engines."""
+    from repro_torch.core import blinding
+    seeds = {}
+    for k in range(K):
+        for j in range(k + 1, K):
+            seeds[(k, j)] = seeds[(j, k)] = blinding.prf_seed(
+                f"{k},{j}".encode())
+    return blinding.MaskEngine.from_seeds(K, seeds)
+
+
 def _prng_case(K, lead, d, dtype, pdtype, scale, rnd, gen):
     """One prng case, E_a (and the output) in ``dtype``, E_k in
     ``pdtype``: (max err vs plain, tolerance at that element, max err vs
     unmasked mean, its tolerance, backward ok)."""
     import torch
-    from repro_torch.core import blinding
     from repro_torch.kernels import blind_agg as tba
     from repro_torch.kernels import ref
-    eng = blinding.cached_mask_engine(K, 7)
+    eng = _kernel_mask_engine(K)
     ea = torch.randn(lead + (d,), generator=gen, device="cuda").to(dtype)
     ep = torch.randn((K,) + lead + (d,), generator=gen,
                      device="cuda").to(pdtype)
@@ -1148,7 +1198,7 @@ def phase_many():
                 f"features split {sorted(set(cpu.n_features))}, adam 1e-3, "
                 f"{n_params} parameters from seed 0; classifiers built in "
                 f"{setup_s:.1f} s of host time (the DH ceremony of 63 "
-                f"passive parties is memoized: the prng phase ran it)")
+                f"passive parties, memoized for the later phases)")
     ms, totals, per, launches, _ = _rounds(fused, params0, data, MP_ROUNDS,
                                            "blind_agg_prng_fwd")
     if launches["blind_agg_fwd"] != 0:
@@ -1203,7 +1253,8 @@ def phase_many():
 
 
 def _profile_many(cls, params0, data):
-    """Device busy time and idle share over 5 fused many-party rounds."""
+    """Device busy time and idle share over PROFILE_ROUNDS fused
+    many-party rounds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1218,7 +1269,7 @@ def _profile_many(cls, params0, data):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(3, 8):
+        for i in range(3, 3 + PROFILE_ROUNDS):
             params, opt, _, _ = step(params, opt, xs, y,
                                      cls.masks(MP_BATCH, i))
         torch.cuda.synchronize()
@@ -1227,10 +1278,10 @@ def _profile_many(cls, params0, data):
     kern = [r for r in rows if r.device_type == DeviceType.CUDA]
     busy_ms = sum(r.self_device_time_total for r in kern) / 1e3
     n = sum(r.count for r in kern)
-    log("many", f"5 fused rounds under torch.profiler: wall {wall_ms:.3f} "
-                f"ms, device busy {busy_ms:.3f} ms (idle share "
-                f"{1 - busy_ms / wall_ms:.3f}), {n} kernels "
-                f"({n / 5:.0f} a round)")
+    log("many", f"{PROFILE_ROUNDS} fused rounds under torch.profiler: wall "
+                f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle "
+                f"share {1 - busy_ms / wall_ms:.3f}), {n} kernels "
+                f"({n / PROFILE_ROUNDS:.0f} a round)")
     for r in sorted(kern, key=lambda r: -r.self_device_time_total)[:6]:
         log("many", f"  {r.key[:60]:60s} calls {r.count:5d} device "
                     f"{r.self_device_time_total / 1e3:.3f} ms")
@@ -1894,7 +1945,6 @@ def _wall_ms(fn, reps=5):
 def phase_timing_prng():
     """blind_agg_prng_fwd at (3, 128, 128), (63, 128, 64), (127, 128, 64)."""
     import torch
-    from repro_torch.core import blinding
     from repro_torch.kernels import blind_agg as tba
     from repro_torch.kernels import ref
     log("timing", f"blind_agg_prng_fwd bound: K(K-1)/2 pair evaluations "
@@ -1905,7 +1955,7 @@ def phase_timing_prng():
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = {}
     for K, N, d in ((3, 128, 128), (63, 128, 64), (127, 128, 64)):
-        eng = blinding.cached_mask_engine(K, 7)
+        eng = _kernel_mask_engine(K)
         tabs = tba.device_tables(eng, "cuda")
         ea = torch.randn((N, d), generator=gen, device="cuda")
         ep = torch.randn((K, N, d), generator=gen, device="cuda")
@@ -2320,8 +2370,8 @@ def _profile_window(tag, label, fn, n_rounds, by_op=False):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [r for r in prof.key_averages()
-            if r.device_type == DeviceType.CUDA]
+    rows = prof.key_averages()
+    kern = [r for r in rows if r.device_type == DeviceType.CUDA]
     busy_ms = sum(r.self_device_time_total for r in kern) / 1e3
     n = sum(r.count for r in kern)
     idle = 1 - busy_ms / wall_ms
@@ -2337,8 +2387,7 @@ def _profile_window(tag, label, fn, n_rounds, by_op=False):
     res = {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle,
            "kernels": n, "top": top}
     if by_op:
-        ops_ = [r for r in prof.key_averages()
-                if r.device_type == DeviceType.CPU
+        ops_ = [r for r in rows if r.device_type == DeviceType.CPU
                 and r.self_device_time_total > 0]
         res["top_ops"] = []
         for r in sorted(ops_, key=lambda r: -r.self_device_time_total)[:10]:
@@ -2515,10 +2564,11 @@ def _serve_phase(tag, arch):
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"logits {tuple(logits.shape)}, finite "
                              f"{bool(torch.isfinite(logits).all())}")
-    # where the time goes: one 2048-token prefill and 8 decode rounds at
-    # 4 full lanes, under the profiler (not part of the counted path)
+    # where the time goes: one 2048-token prefill and PROFILE_ROUNDS decode
+    # rounds at 4 full lanes, under the profiler (not part of the counted
+    # path)
     dcfg = api.DecodeConfig(lanes=LM_LANES, max_len=max(LM_PROMPTS) + LM_NEW,
-                            chunk=LM_CHUNK)
+                            chunk=PROFILE_ROUNDS)
     pf, df = api.build_decoder(sys_, dcfg)
     state = api.init_decode_state(sys_, dcfg)
     for lane in range(LM_LANES - 1):
@@ -2538,8 +2588,8 @@ def _serve_phase(tag, arch):
              f"({before_gb:.2f} GB before it, "
              f"+{admit_peak_gb - before_gb:.2f} GB)")
     prof_decode = _profile_window(
-        tag, f"{LM_CHUNK} decode rounds at {LM_LANES} lanes",
-        lambda: box.update(out=df(params, box["state"])), LM_CHUNK,
+        tag, f"{PROFILE_ROUNDS} decode rounds at {LM_LANES} lanes",
+        lambda: box.update(out=df(params, box["state"])), PROFILE_ROUNDS,
         by_op=True)
     return launches, {
         **drawn, "wall_s": wall,
@@ -2725,10 +2775,11 @@ def phase_whisper():
             fe_list=sys_.encoder_kv(params, audio), seeds=seeds,
             round_idx=1)), 1, by_op=True)
     prof_decode = _profile_window(
-        "whisper", f"{LM_CHUNK} decode rounds at {B} lanes",
+        "whisper", f"{PROFILE_ROUNDS} decode rounds at {B} lanes",
         lambda: box.update(d=decode.serve_tokens(
-            sys_, params, prompt[:, -1:], box["r"][1], P - 1, LM_CHUNK,
-            seeds, fe_list=fe_list)), LM_CHUNK, by_op=True)
+            sys_, params, prompt[:, -1:], box["r"][1], P - 1,
+            PROFILE_ROUNDS, seeds, fe_list=fe_list)), PROFILE_ROUNDS,
+        by_op=True)
     res.update({"encoder_kv_ms": enc_ms, "prefill_ms": prefill_ms,
                 "warm_encoder_kv_ms": warm_enc_ms,
                 "warm_prefill_ms": warm_prefill_ms,
@@ -2842,10 +2893,10 @@ def phase_vlm():
             params, tok[:, :-1], sys_.init_caches(B, P + VLM_NEW),
             fe_list=fe, seeds=seeds, round_idx=2)), 1, by_op=True)
     prof_decode = _profile_window(
-        "vlm", f"{LM_CHUNK} decode rounds at {B} lanes",
+        "vlm", f"{PROFILE_ROUNDS} decode rounds at {B} lanes",
         lambda: box.update(d=decode.serve_tokens(
-            sys_, params, tok[:, -1:], box["r"][1], P - 1, LM_CHUNK, seeds,
-            fe_list=fe)), LM_CHUNK, by_op=True)
+            sys_, params, tok[:, -1:], box["r"][1], P - 1, PROFILE_ROUNDS,
+            seeds, fe_list=fe)), PROFILE_ROUNDS, by_op=True)
     del box
     res.update({"prefill_ms": prefill_ms, "warm_prefill_ms": warm_ms,
                 "ms_per_round": ms_round,
@@ -2951,10 +3002,11 @@ def _host_gib():
 
 def _cut_phase(tag, arch, n_layers, *, check_host=False,
                batch=LM_CUT_BATCH, prompt_len=LM_CUT_PROMPT,
-               scaled_atol=False, keep=None, **cfg_kw):
+               scaled_atol=False, keep=None, against_cpu=True, **cfg_kw):
     """The same width with depth cut to ``n_layers`` active layers (the
     passive proxies follow passive_cfg), float32 with TF32 off: card
-    against the CPU port on the same weights and prompt. The host copy is
+    against the CPU port on the same weights and prompt (``against_cpu``
+    False: the card alone, for ``keep``). The host copy is
     made leaf by leaf from the card's tensors (the stacked passive group
     once, then viewed per party), with no second copy beside it. With
     ``check_host`` the passive parties are cut to 1 when the host cannot
@@ -2968,8 +3020,9 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False,
     both devices (a CPU generator seeded 2): an encoder-decoder's frame
     embeddings through ``encoder_kv``, a vision model's patch embeddings
     for every party; ``cfg_kw`` overrides further config fields (the
-    encoder's depth). ``keep``, a dict, receives the prompt and the CPU
-    port's (E, logits, tokens)."""
+    encoder's depth). ``keep``, a dict, receives the prompt and the
+    reference's (E, logits, tokens) (``"ref"``, named by ``"label"``): the
+    CPU port's, or without ``against_cpu`` the card's own."""
     import dataclasses
     import numpy as np
     import torch
@@ -2999,16 +3052,20 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False,
             torch.Generator(device="cuda").manual_seed(0))
         nbytes = sum(t.numel() * t.element_size() for p in params["parties"]
                      for t in tree_leaves(p))
-    cpu = _lm_system(cfg, "cpu", num_passive)
-    stacked = tree_map(lambda t: t.cpu(), params["passive_stacked"])
-    cparams = {"parties": [tree_map(lambda t: t.cpu(), params["parties"][0])]
-               + unstack_tree(stacked, cpu.easter.num_passive),
-               "passive_stacked": stacked}
+    runs = [("card", card, params)]
+    if against_cpu:
+        cpu = _lm_system(cfg, "cpu", num_passive)
+        stacked = tree_map(lambda t: t.cpu(), params["passive_stacked"])
+        runs.append(("cpu", cpu, {
+            "parties": [tree_map(lambda t: t.cpu(), params["parties"][0])]
+            + unstack_tree(stacked, cpu.easter.num_passive),
+            "passive_stacked": stacked}))
     log(tag, f"{cfg.name} cut to {n_layers} active layers (passive "
              f"{card.party_cfgs[1].n_layers}, {card.easter.num_passive} "
              f"passive parties), float32: {nbytes / 1e9:.1f} GB of weights "
-             f"on the card and copied to the host ({avail:.1f} GiB were "
-             f"available)")
+             f"on the card"
+             + (f" and copied to the host ({avail:.1f} GiB were available)"
+                if against_cpu else ""))
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, cfg.vocab_size,
                           size=(batch, prompt_len)).astype(np.int32)
@@ -3016,7 +3073,7 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False,
     res = {}
     if keep is not None:
         keep["prompt"] = prompt
-    for name, sys_, p in (("card", card, params), ("cpu", cpu, cparams)):
+    for name, sys_, p in runs:
         toks = torch.from_numpy(prompt).to(sys_.device)
         seeds = sys_.mask_seeds()
         fe_list = None
@@ -3033,6 +3090,9 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False,
             seeds, return_logits=True, fe_list=fe_list)
         res[name] = (E.cpu(), logits.cpu(), out.cpu())
         del fe_list, caches
+    if not against_cpu:
+        keep.update(ref=res["card"], label="one process on one card")
+        return {"weights_gb": nbytes / 1e9}
     errs = {}
     for i, what in ((0, "prefill embeddings"), (1, "logits")):
         a, b = res["card"][i], res["cpu"][i]
@@ -3044,7 +3104,7 @@ def _cut_phase(tag, arch, n_layers, *, check_host=False,
                       scale, atol)
     same = bool(torch.equal(res["card"][2], res["cpu"][2]))
     if keep is not None:                 # the CPU port's outputs, reused
-        keep["cpu"] = res["cpu"]
+        keep.update(ref=res["cpu"], label="the CPU port")
     log(tag, f"depth cut to {n_layers} active layers"
              f"{f' and {cfg.n_encoder_layers} encoder layers over {cfg.n_audio_frames} frames' if cfg.family == 'encdec' else ''}"
              f"{f' ({cfg.n_vision_tokens} patch positions)' if cfg.family == 'vlm' else ''}"
@@ -3165,9 +3225,9 @@ def _train_full(tag):
                              f"{totals.tolist()}")
     box = {"state": state}
     prof = _profile_window(
-        tag, f"one chunk of {TRAIN_CHUNK} training steps",
-        lambda: box.update(state=trainer.run(box["state"],
-                                             chunks[-1])[0]), TRAIN_CHUNK,
+        tag, f"a chunk of {PROFILE_STEPS} training step",
+        lambda: box.update(state=trainer.run(
+            box["state"], chunks[-1][:PROFILE_STEPS])[0]), PROFILE_STEPS,
         by_op=True)
     # one joint step: the aggregate's gradient goes back through the
     # kernel (sgd: no second optimizer state beside adam's)
@@ -3202,7 +3262,7 @@ def _train_full(tag):
 def _train_step_on(sys_, params0, batch):
     """One sgd step (lr 0.01, clip 1.0) from host weights ``params0``
     (numpy, reference layout): (per-party losses, grads, updated params,
-    launches), the tensors on the host."""
+    launches), the tensors where ``sys_`` computed them."""
     import torch
     from repro_torch.core import train_loop
     from repro_torch.optim import make_optimizer
@@ -3217,17 +3277,17 @@ def _train_step_on(sys_, params0, batch):
     if sys_.device.type == "cuda":
         torch.cuda.synchronize()
     launches = _lm_launches()
-    host = lambda t: [x.detach().cpu() for x in tree_leaves(t)]
-    out = (per.cpu(), host(grads), host(tree), launches)
-    del params, grads, tree
-    return out
+    flat = lambda t: [x.detach() for x in tree_leaves(t)]
+    return per.detach(), flat(grads), flat(tree), launches
 
 
 def _train_cut_check(tag, name, cfg, batch):
     """One sgd step of ``cfg`` in float32 (TF32 off) on the card and on the
     CPU port from the same weights: per-party losses, gradients and the
     updated params within rtol 1e-4 / atol 1e-5, and the card's launches
-    checked (one blind_agg_fwd, no prompt kernel)."""
+    checked (one blind_agg_fwd, no prompt kernel). The card's results stay
+    on the card and are compared there, a CPU leaf copied over at a time
+    (on the host the comparisons of 2 x 5.9 GB took ~20 s)."""
     import torch
     from repro_torch.tree import tree_leaves
     _free_card()
@@ -3244,9 +3304,12 @@ def _train_cut_check(tag, name, cfg, batch):
     for i, what in ((0, "losses"), (1, "gradients"), (2, "updated params")):
         a = got[i] if i else [got[i]]
         b = want[i] if i else [want[i]]
-        errs[what] = (max(float((x - y).abs().max()) for x, y in zip(a, b)),
-                      all(torch.allclose(x, y, rtol=1e-4, atol=1e-5)
-                          for x, y in zip(a, b)))
+        worst, ok = 0.0, True
+        for x, y in zip(a, b):
+            y = y.to(x.device)
+            worst = max(worst, float((x - y).abs().max()))
+            ok = ok and bool(torch.allclose(x, y, rtol=1e-4, atol=1e-5))
+        errs[what] = (worst, ok)
     log(tag, f"{name}, float32, TF32 off, {nbytes / 1e9:.2f} GB of weights, "
              f"batch {tuple(batch['tokens'].shape)}: one sgd step card vs "
              f"CPU port: "
@@ -3642,7 +3705,8 @@ def _sharded_lm(grp, cut_prompt, vec_tokens):
     torch.cuda.synchronize()
     res = {"draw_s": time.perf_counter() - t0,
            "weights_gb": torch.cuda.memory_allocated() / 1e9,
-           "rows": list(sys_._rows())}
+           "rows": list(sys_._rows()),
+           "devices": _devices([params, sys_.init_caches(1, 8)])}
     res["serve"] = _serve_lm(sys_, params)
     res["forced"] = _forced_rounds(sys_, params, vec_tokens)
     del params
@@ -3662,6 +3726,38 @@ def _sharded_lm(grp, cut_prompt, vec_tokens):
     host = lambda t: None if t is None else t.cpu().numpy()
     res["cut"] = (host(E), host(logits), host(out))
     return res
+
+
+def _devices(tree):
+    """The devices of a tree's tensors, as sorted strings."""
+    from repro_torch.tree import tree_leaves
+    return sorted({str(t.device) for t in tree_leaves(tree)
+                   if hasattr(t, "device")})
+
+
+def _rule(world, rank):
+    """(backend, card) that launch/mesh.py's rule gives rank ``rank`` of
+    ``world`` ranks on the card: NCCL on cuda:<rank> where every rank has
+    a card of its own, else gloo with every rank on cuda:0."""
+    import torch
+    if torch.cuda.device_count() >= world:
+        return "nccl", f"cuda:{rank}"
+    return "gloo", "cuda:0"
+
+
+def _rule_failures(what, r, world, devices=()):
+    """A rank's backend, card and the cards its tensors lie on (each of
+    ``devices``: a list of device strings) against ``_rule``."""
+    backend, card = _rule(world, r["rank"])
+    out = []
+    if (r["backend"], r["device"]) != (backend, card):
+        out.append(f"{what} rank {r['rank']}: {r['backend']} on "
+                   f"{r['device']}, the rule gives {backend} on {card}")
+    for d in devices:
+        if d != [card]:
+            out.append(f"{what} rank {r['rank']}: tensors on {d}, want "
+                       f"[{card!r}]")
+    return out
 
 
 def _sharded_rank(cut_prompt, vec_tokens, t_spawn):
@@ -3701,14 +3797,16 @@ def _sum_launches(launches):
     return tot
 
 
-def phase_sharded(cut_cpu=None):
+def phase_sharded(cut_ref):
     """The sharded engine on the card (the module docstring's ``sharded``):
-    4 ranks spawned at once share the card over gloo; many-party C = 64
-    and qwen2.5-3b over 3 ranks against the vectorized engine on the card,
-    the 4-layer float32 cut against the CPU port (``cut_cpu``: the lm
-    cut's prompt and CPU outputs). Every check is logged; the phase fails
-    at its end if any failed. Returns (the counted paths' launches, the
-    numbers)."""
+    4 ranks spawned at once, by launch/mesh.py's rule sharing the card over
+    gloo (or over NCCL, a card a rank, where 4 cards are visible: --phase
+    nccl); many-party C = 64 and qwen2.5-3b over 3 ranks against the
+    vectorized engine on the card, the 4-layer float32 cut against
+    ``cut_ref`` (the lm cut's prompt and a reference's outputs: the CPU
+    port's, or one process's on one card). Every check is logged; the
+    phase fails at its end if any failed. Returns (the counted paths'
+    launches, the numbers)."""
     import tempfile
     import numpy as np
     import torch
@@ -3769,7 +3867,7 @@ def phase_sharded(cut_cpu=None):
         torch.Generator(device="cuda").manual_seed(0)))
     del loop_sys
     _free_card()
-    cut_prompt = cut_cpu["prompt"]
+    cut_prompt = cut_ref["prompt"]
     # the ranks: spawned at once, each joining the group on the card
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as store:
@@ -3783,9 +3881,13 @@ def phase_sharded(cut_cpu=None):
                    f"in the group with its CUDA context "
                    f"{[round(s, 2) for s in res['start_s']]} s after the "
                    f"spawn; every rank done in {res['ranks_s']:.1f} s")
+    res["backend"] = ranks[0]["backend"]
     # many-party: losses bit for bit, gradients, launches; every check is
     # logged, and the phase fails at its end if any failed
     paths, failures = [], []
+    for r in ranks:
+        failures += _rule_failures("sharded", r, SHARDED_RANKS, [
+            r["lm"]["devices"]] if "lm" in r else [])
     for key in (("float", "easter"), ("int8", "easter"), ("float", "joint")):
         want = ref[key][1]
         same = ranks[0]["many"][("same_weights",) + key]
@@ -3953,9 +4055,10 @@ def phase_sharded(cut_cpu=None):
                    f"{attn_a} + {attn_p}, ranks 1-2 {attn_p}; blind_agg_fwd "
                    f"on rank 0 only; weights GB by rank "
                    f"{res['lm']['weights_gb_by_rank']}")
-    # the 4-layer float32 cut against the CPU port
+    # the 4-layer float32 cut against the reference (the CPU port, or one
+    # process on one card)
     E, logits, out = lm[0]["cut"]
-    cE, clogits, cout = (t.numpy() for t in cut_cpu["cpu"])
+    cE, clogits, cout = (t.numpy() for t in cut_ref["ref"])
     errs = {}
     for what, a, b in (("prefill embeddings", E, cE),
                        ("logits", logits, clogits)):
@@ -3964,21 +4067,20 @@ def phase_sharded(cut_cpu=None):
     same = all(np.array_equal(r["cut"][2], cout) for r in lm.values())
     res["lm_cut"] = {"errors": errs, "tokens_equal": same}
     log("sharded", f"{cfg.name} cut to {LM_CUT_LAYERS} layers, float32, "
-                   f"over {SHARDED_LM_RANKS} ranks, against the CPU port: "
+                   f"over {SHARDED_LM_RANKS} ranks, against "
+                   f"{cut_ref['label']}: "
                    + "; ".join(f"{w} max abs {e:.3g} "
                                f"{'ok' if ok else 'FAIL'} (rtol 1e-4, atol "
                                f"1e-5)" for w, (e, ok) in errs.items())
                    + f"; tokens identical on every rank {same}")
     if not same or not all(ok for _, ok in errs.values()):
-        failures.append("the sharded depth cut differs from the CPU port")
+        failures.append(f"the sharded depth cut differs from "
+                        f"{cut_ref['label']}")
     res["peak_gb_by_rank"] = {r["rank"]: (r["many_peak_gb"],
                                           r.get("lm_peak_gb"))
                               for r in ranks}
     res["seconds"] = time.perf_counter() - t_phase
-    res["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    res["card"] = _card()
     log("sharded", f"peak device memory by rank (many-party, LM) GB "
                    f"{res['peak_gb_by_rank']}; phase took "
                    f"{res['seconds']:.1f} s on {res['card']}")
@@ -4018,7 +4120,11 @@ FSDP_FULL_LOGIT_REL = 2.0 ** -4
 # against the one process's, as a share of its largest |logit| (None:
 # printed)). (g) is cut to two whole (lru, lru, attn) repeats: at full
 # depth (38 layers) it took 45 s of the ranks' work and the phase 233 s
-# (H100 80GB HBM3, 700 W). Each runs 4 greedy rounds: a round moves the
+# (H100 80GB HBM3, 700 W). (f) is cut to 16 layers, its float32 cut's
+# depth: at 64 its 4 rounds, each all-gathering 0.60 GB of SSD states
+# over gloo, and its prefill took 18.6 s of the ranks' 129 (H100 80GB
+# HBM3, 700 W; --phase split_depth holds it at 64). Each runs 4 greedy
+# rounds: a round moves the
 # same bytes and launches the same kernels as the last, and (e)'s and
 # (f)'s 16 took 40 s of the phase. In bfloat16 the round-0 logits part
 # from the one process's with depth, each rounding amplified layer by
@@ -4035,9 +4141,10 @@ FSDP_FULL_LOGIT_REL = 2.0 ** -4
 # for (e) and 16 for (f), layers past the first two checked against one
 # process
 FSDP_RG_LAYERS, FSDP_SPLIT_F32_REL, FSDP_SPLIT_ROUNDS = 6, 1e-4, 4
+FSDP_SSD_LAYERS = 16
 FSDP_SPLIT = (("e", MOE_ARCH, (1, 4), None, FSDP_SPLIT_ROUNDS, 6, None),
-              ("f", MAMBA_ARCH, (2, 2), None, FSDP_SPLIT_ROUNDS, 16,
-               2.0 ** -3),
+              ("f", MAMBA_ARCH, (2, 2), FSDP_SSD_LAYERS, FSDP_SPLIT_ROUNDS,
+               16, 2.0 ** -3),
               ("g", RG_ARCH, (1, 4), FSDP_RG_LAYERS, FSDP_SPLIT_ROUNDS, None,
                FSDP_FULL_LOGIT_REL))
 
@@ -4137,10 +4244,9 @@ def _fsdp_rank(batches, cut_batch, prompt, prompt_full, prompts_split, ref_dir,
     the parent, numpy, with the seconds each part ended at
     (``marks``)."""
     import torch
-    from repro_torch import sharding
     from repro_torch.configs.base import EasterConfig
     from repro_torch.core.easter_lm import EasterLM
-    from repro_torch.launch import dryrun, mesh, steps
+    from repro_torch.launch import mesh
     from repro_torch.tree import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4153,6 +4259,7 @@ def _fsdp_rank(batches, cut_batch, prompt, prompt_full, prompts_split, ref_dir,
         meshes[shape] = mesh.make_debug_mesh(*shape, device="cuda")
     torch.zeros((), device=m.device)            # this rank's CUDA context
     res = {"rank": m.rank, "coords": dict(m.coords), "backend": m.backend,
+           "device": str(m.device),
            "start_s": time.time() - t_spawn,
            "loaded_s": LOADED_AT - t_spawn,
            "in_group_s": time.time() - t_spawn - (time.perf_counter()
@@ -4161,60 +4268,28 @@ def _fsdp_rank(batches, cut_batch, prompt, prompt_full, prompts_split, ref_dir,
     mark = lambda k: res["marks"].__setitem__(
         k, round(time.perf_counter() - t_start, 2))
     mark("mesh")
-    res["gloo_gbps"] = _gloo_rate(m)
-    mark("gloo probe")
-    while not os.path.exists(go):
-        time.sleep(0.1)
+    res["all_gather_gbps"] = _group_rate(m)
+    mark("all-gather probe")
+    _wait_go(go)
     t_go = time.perf_counter()
     mark("go")
     cfg, cut, serve_cfg = _fsdp_cfgs()
     on = lambda b: {k: torch.as_tensor(v, device="cuda")
                     for k, v in b.items()}
-    meta = lambda tree: tree_map(lambda t: torch.empty_like(
-        t, device="meta"), tree)
-
-    def sharded_train(sys_, opt_name, layout, zero1, batch_list, tag):
-        params = sys_.init_params(
-            torch.Generator(device="cuda").manual_seed(0))
-        step, opt = steps.build_train_step(sys_, opt_name, lr=FSDP_LR)
-        mp = meta({"parties": params["parties"]})
-        in_sh, out_sh = steps.train_shardings(
-            sys_, m, {"batch": batch_list[0]}, params, opt.init(mp),
-            zero1=zero1, layout=layout)
-        pspec, ospec, bspec, _ = in_sh
-        lp = sharding.shard_tree(params, pspec, m)
-        del params
-        _free_card()
-        lo = sharding.init_opt_state(opt, lp, pspec, ospec, m)
-        lbs = [sharding.shard_tree(b, bspec, m) for b in batch_list]
-        run = steps.shard_step(step, m, in_sh, out_sh, layout)
-        mark(f"{tag} drawn and cut")
-        return run, lp, lo, lbs, pspec
-
     # (a) full width: zero3 + ZeRO-1, one row a rank
-    torch.cuda.reset_peak_memory_stats()
-    sys_ = _lm_system(cfg, "cuda")
-    run, lp, lo, lbs, pspec = sharded_train(
-        sys_, "adam", "zero3", True, [on(b) for b in batches], "(a)")
-    lp, lo, losses, ms, launches = _fsdp_step_loop(run, lp, lo, lbs)
+    res["a"] = _fsdp_train_a(m, cfg, [on(b) for b in batches])
     mark("(a) steps")
-    w = dryrun.tree_bytes({"parties": lp["parties"]})
-    res["a"] = {"losses": losses, "step_ms": ms, "launches": launches,
-                "weights": w, "grads": w, "adam": dryrun.tree_bytes(lo),
-                "rows": int(lbs[0]["tokens"].shape[0]),
-                "peak": torch.cuda.max_memory_allocated()}
-    log("fsdp", f"rank {m.rank}: (a) losses {losses}, ms a step "
-                f"{[round(x, 1) for x in ms]}, peak "
-                f"{res['a']['peak'] / 1e9:.2f} GB; gloo "
-                f"{res['gloo_gbps']} GB/s; {res['marks']}")
-    del run, lp, lo, lbs, sys_
-    _free_card()
+    log("fsdp", f"rank {m.rank}: (a) losses {res['a']['losses']}, ms a step "
+                f"{[round(x, 1) for x in res['a']['step_ms']]}, peak "
+                f"{res['a']['peak'] / 1e9:.2f} GB; all-gather "
+                f"{res['all_gather_gbps']} GB/s; {res['marks']}")
     torch.cuda.reset_peak_memory_stats()
     # (b) the float32 cut: one joint adam step under tp (blind_agg_bwd),
     # each rank's blocks against the CPU port's whole leaves
     sys_ = EasterLM(cut, EasterConfig(), grad_mode="joint", device="cuda")
-    run, lp, lo, lbs, pspec = sharded_train(sys_, "adam", "tp", False,
-                                            [on(cut_batch)], "(b)")
+    run, lp, lo, lbs, pspec = _fsdp_sharded_train(sys_, m, "adam", "tp",
+                                                  False, [on(cut_batch)])
+    mark("(b) drawn and cut")
     lp, lo, losses, _, launches = _fsdp_step_loop(run, lp, lo, lbs)
     mark("(b) step")
     # the blocks wait on the host for the CPU port's step (the parent's
@@ -4259,13 +4334,143 @@ def _fsdp_rank(batches, cut_batch, prompt, prompt_full, prompts_split, ref_dir,
                     f"{r['peak'] / 1e9:.2f} GB; {res['marks']}")
         del sys_
         _free_card()
-    res["b"].update(_fsdp_compare_blocks(b_blocks, b_spec, m, ref_dir))
+    res["b"].update(_fsdp_compare_blocks(b_blocks, b_spec, m, ref_dir,
+                                         adam=True))
     mark("(b) compared")
     log("fsdp", f"rank {m.rank}: (b) loss {res['b']['loss']}, blocks max "
                 f"abs {res['b']['max_abs']:.3g} ok {res['b']['ok']}, peak "
                 f"{res['b']['peak'] / 1e9:.2f} GB; {res['marks']}")
     res["work_s"] = time.perf_counter() - t_go
     return res
+
+
+def _then_ranks(go, runs):
+    """``runs()`` (the parent's one-process runs, with the card to
+    itself), then the word to the ranks waiting on the file ``go``
+    (``_wait_go``): "go", or "stop" if ``runs`` raised, so that they fail
+    at once instead of waiting out their spawn's timeout."""
+    word = "stop"
+    try:
+        out = runs()
+        word = "go"
+    finally:
+        with open(go + ".part", "w") as f:
+            f.write(word)
+        os.replace(go + ".part", go)
+    return out
+
+
+def _wait_go(go):
+    """A rank's wait for ``_then_ranks``' word; raises on "stop"."""
+    while not os.path.exists(go):
+        time.sleep(0.1)
+    with open(go) as f:
+        if f.read() != "go":
+            raise RuntimeError("the parent's one-process runs failed")
+
+
+def _fsdp_sharded_train(sys_, m, opt_name, layout, zero1, batch_list,
+                        lr=FSDP_LR, run_mesh=None):
+    """``sys_``'s train step under the plan of ``m`` (``run_mesh``: the
+    mesh its collectives go through, a RecordingMesh over ``m``; default
+    ``m``), from the card's generator seeded 0: (the step, this rank's
+    blocks of the parameters and optimizer state, its rows of each batch,
+    the parameters' specs). The whole tree is drawn, cut and freed."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_map
+    params = sys_.init_params(torch.Generator(device="cuda").manual_seed(0))
+    step, opt = steps.build_train_step(sys_, opt_name, lr=lr)
+    mp = tree_map(lambda t: torch.empty_like(t, device="meta"),
+                  {"parties": params["parties"]})
+    in_sh, out_sh = steps.train_shardings(
+        sys_, m, {"batch": batch_list[0]}, params, opt.init(mp),
+        zero1=zero1, layout=layout)
+    pspec, ospec, bspec, _ = in_sh
+    lp = sharding.shard_tree(params, pspec, m)
+    del params
+    _free_card()
+    lo = sharding.init_opt_state(opt, lp, pspec, ospec, m)
+    lbs = [sharding.shard_tree(b, bspec, m) for b in batch_list]
+    run = steps.shard_step(step, run_mesh or m, in_sh, out_sh, layout)
+    return run, lp, lo, lbs, pspec
+
+
+def _fsdp_train_a(m, cfg, batches):
+    """(a) on this rank: ``cfg`` (qwen2-1.5b) under zero3 + ZeRO-1 on the
+    mesh ``m``, adam 1e-3, FSDP_STEPS steps on ``batches`` (on the card):
+    losses, ms a step, launches, the resident bytes of the blocks by kind,
+    the rows a rank, the devices of its blocks and the peak memory."""
+    import torch
+    from repro_torch.launch import dryrun
+    torch.cuda.reset_peak_memory_stats()
+    sys_ = _lm_system(cfg, "cuda")
+    run, lp, lo, lbs, _ = _fsdp_sharded_train(sys_, m, "adam", "zero3", True,
+                                              batches)
+    lp, lo, losses, ms, launches = _fsdp_step_loop(run, lp, lo, lbs)
+    w = dryrun.tree_bytes({"parties": lp["parties"]})
+    out = {"losses": losses, "step_ms": ms, "launches": launches,
+           "weights": w, "grads": w, "adam": dryrun.tree_bytes(lo),
+           "rows": int(lbs[0]["tokens"].shape[0]),
+           "devices": _devices([lp, lo]),
+           "peak": torch.cuda.max_memory_allocated()}
+    del run, lp, lo, lbs, sys_
+    _free_card()
+    return out
+
+
+def _fsdp_check_train(tag, ranks, one, failures, cfg, shape):
+    """(a)'s checks (failures appended) and numbers: one blind_agg_fwd a
+    step on every rank, the same finite losses on every rank, step 0
+    within rtol 1e-2 of the one process's; ms a step, resident and peak
+    bytes by rank beside the one process's."""
+    a = {r["rank"]: r["a"] for r in ranks}
+    for rank, ra in a.items():
+        try:
+            _check_train_launches(f"{tag} (a) rank {rank}", ra["launches"],
+                                  FSDP_STEPS)
+        except AssertionError as e:
+            failures.append(str(e))
+        if ra["losses"] != a[0]["losses"] or not all(
+                math.isfinite(v) for v in ra["losses"]):
+            failures.append(f"(a) rank {rank}: losses {ra['losses']} vs "
+                            f"rank 0's {a[0]['losses']}")
+    if abs(a[0]["losses"][0] - one["losses"][0]) > 1e-2 * abs(
+            one["losses"][0]):
+        failures.append(f"(a) step 0's loss {a[0]['losses'][0]} vs the one "
+                        f"process's {one['losses'][0]} (rtol 1e-2)")
+    resident = {k: a[k]["weights"] + a[k]["grads"] + a[k]["adam"] for k in a}
+    one_res = one["weights"] + one["grads"] + one["adam"]
+    out = {"losses_rank0": a[0]["losses"],
+           "losses_one_process": one["losses"],
+           "step_ms_by_rank": {k: v["step_ms"] for k, v in a.items()},
+           "step_ms_one_process": one["step_ms"],
+           "resident_bytes_by_rank": resident,
+           "resident_bytes_one_process": one_res,
+           "adam_bytes_by_rank": {k: v["adam"] for k, v in a.items()},
+           "peak_bytes_by_rank": {k: v["peak"] for k, v in a.items()},
+           "peak_bytes_one_process": one["peak"],
+           "rows_by_rank": {k: v["rows"] for k, v in a.items()},
+           "params": _fsdp_n_params(cfg), "layers": cfg.n_layers}
+    log(tag, f"(a) {cfg.name} at full width, {cfg.n_layers} layers (three "
+             f"{_lm_system(cfg, 'meta').party_cfgs[1].n_layers}-layer "
+             f"proxies; {out['params']} parameters), bfloat16, remat "
+             f"{cfg.remat}, adam 1e-3 clip 1.0, {TRAIN_BATCH} x "
+             f"{TRAIN_SEQ} tokens a step over a {shape[0]} x {shape[1]} mesh "
+             f"(zero3 + ZeRO-1, rows a rank {out['rows_by_rank']}), "
+             f"{len(ranks)} ranks on {ranks[0]['backend']}: losses rank 0 "
+             f"{[round(v, 4) for v in a[0]['losses']]} vs one process "
+             f"{[round(v, 4) for v in one['losses']]}; ms a step by rank "
+             f"{ {k: [round(x, 1) for x in v['step_ms']] for k, v in a.items()} } "
+             f"(one process {[round(x, 1) for x in one['step_ms']]}); "
+             f"resident weights + gradients + adam GB by rank "
+             f"{ {k: round(v / 1e9, 3) for k, v in resident.items()} } "
+             f"(one process {one_res / 1e9:.3f}); "
+             f"torch.cuda.max_memory_allocated GB by rank "
+             f"{ {k: round(v['peak'] / 1e9, 2) for k, v in a.items()} } "
+             f"(one process {one['peak'] / 1e9:.2f})")
+    return out
 
 
 def _fsdp_split_cfg(arch, layers=None, dtype=None):
@@ -4385,32 +4590,50 @@ def _fsdp_overlay_identity(cfg, shape):
         f"{cfg.name} on {shape}: the FSDP overlay changes a block"]
 
 
-def _gloo_rate(m):
-    """GB/s of an all-gather over the whole mesh as the plan moves a CUDA
-    tensor (staged through the host) and a host tensor, 16 MB a rank, the
-    better of two, by the bytes gathered."""
+def _group_rate(m):
+    """The mesh's all-gather over all its ranks, 16 MB a rank, of a tensor
+    on the rank's device (a card: NCCL, or under gloo staged through the
+    host) and of a host tensor (gloo, also the NCCL group's host half):
+    GB/s by the bytes gathered, the best of three, beside the backend
+    that carries the device's tensors; and the microseconds of one small
+    all-reduce on the device (16 KB, a decode round's exit size), the
+    best of three runs of 20 back to back."""
     import torch
-    out = {}
-    for where in ("cuda", "cpu"):
-        x = torch.ones(4 * 2 ** 20, device=where)
-        best = None
-        for _ in range(2):
+
+    def best(fn, reps=1):
+        t = []
+        for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            y = m.all_gather(x, m.axis_names)
+            for _ in range(reps):
+                y = fn()
             torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            best = dt if best is None else min(best, dt)
-        out[where] = round(y.numel() * 4 / best / 1e9, 3)
+            t.append((time.perf_counter() - t0) / reps)
+        return min(t), y
+
+    out = {"backend": m.backend}
+    for where, dev in (("device", m.device), ("host", "cpu")):
+        x = torch.ones(4 * 2 ** 20, device=dev)
+        dt, y = best(lambda: m.all_gather(x, m.axis_names))
+        out[where] = round(y.numel() * 4 / dt / 1e9, 3)
+    # one decode round's exit: an all-reduce of (4, 1, 2048) bfloat16
+    x = torch.ones((4, 1, 2048), dtype=torch.bfloat16, device=m.device)
+    out["small_all_reduce_us"] = round(best(
+        lambda: m.all_reduce(x, m.axis_names), 20)[0] * 1e6, 1)
     return out
 
 
-def _fsdp_compare_blocks(lp, pspec, m, ref_dir):
-    """This rank's blocks of (b)'s updated parameters against the same
-    blocks of the CPU port's whole leaves (``ref_dir``: one .npy a leaf
-    and a mask where the clipped |g| >= 1e-4, written by the parent; read
-    mapped, a block at a time): the loss-free half of (b)'s check, with no
-    parameter crossing the ranks."""
+def _fsdp_compare_blocks(lp, pspec, m, ref_dir, adam=False, before=None):
+    """This rank's blocks of a train step's updated parameters against the
+    same blocks of a one-process step's whole leaves (``ref_dir``: one .npy
+    a leaf, written by the parent: the CPU port's for (b), one process's on
+    one card for (k); read mapped, a block at a time), with no parameter
+    crossing the ranks: within rtol 1e-4 / atol 1e-5; after ``adam``'s
+    first step (about lr sign(g)) only where the clipped |g| >= 1e-4 (a
+    mask a leaf beside it) and within 2 lr + 1e-5 elsewhere. With
+    ``before`` (this rank's blocks before the step, by leaf) also the
+    share of the elements that the step moved by more than that atol
+    (``moved``): what the tolerance sees of the step."""
     import numpy as np
     import torch
     from repro_torch import sharding
@@ -4419,23 +4642,29 @@ def _fsdp_compare_blocks(lp, pspec, m, ref_dir):
     t0 = time.perf_counter()
     while not os.path.exists(done):
         if time.perf_counter() - t0 > 600:
-            raise TimeoutError("the CPU port's (b) step never arrived")
+            raise TimeoutError("the one-process step never arrived")
         time.sleep(0.5)
-    worst, ok = 0.0, True
+    load = lambda k, i, s: sharding.local_block(torch.from_numpy(np.load(
+        os.path.join(ref_dir, f"{k}{i}.npy"), mmap_mode="r")), s, m)
+    worst, ok, moved, n = 0.0, True, 0, 0
     for i, (x, s) in enumerate(zip(
             tree_leaves({"parties": lp["parties"]}),
             sharding.spec_leaves({"parties": pspec["parties"]}))):
-        ref, big = (sharding.local_block(torch.from_numpy(np.load(
-            os.path.join(ref_dir, f"{k}{i}.npy"), mmap_mode="r")), s, m)
-            for k in ("p", "g"))
         x = x.detach().float()
-        ref, big = ref.to(x.device).float(), big.to(x.device)
+        ref = load("p", i, s).to(x.device).float()
         d = (x - ref).abs()
         worst = max(worst, float(d.max()))
-        ok = ok and bool(torch.allclose(x[big], ref[big], rtol=1e-4,
-                                        atol=1e-5)) \
-            and bool((d <= 2 * FSDP_LR + 1e-5).all())
-    return {"max_abs": worst, "ok": ok}
+        if adam:
+            big = load("g", i, s).to(x.device)
+            ok = ok and bool(torch.allclose(x[big], ref[big], rtol=1e-4,
+                                            atol=1e-5)) \
+                and bool((d <= 2 * FSDP_LR + 1e-5).all())
+        else:
+            ok = ok and bool(torch.allclose(x, ref, rtol=1e-4, atol=1e-5))
+        if before is not None:
+            moved += int(((x - before[i].float()).abs() > 1e-5).sum())
+            n += x.numel()
+    return {"max_abs": worst, "ok": ok, "moved": moved / max(n, 1)}
 
 
 def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
@@ -4452,7 +4681,8 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
     serve_shardings; the ranks draw the weights in turns, each keeping its
     blocks only, ``_draw_blocks``: a rank's draw holds the whole tables
     and a drawn layer beside its blocks, and four such at once overflow
-    the card at qwen2-moe-a2.7b's width); without, in one process.
+    the card at qwen2-moe-a2.7b's width; ranks with a card each draw at
+    once); without, in one process.
     ``detail``
     (the (d) path, under a mesh): instead of E and the logits, whether
     every logit is finite and each round's logits' digest; the prefill's
@@ -4462,7 +4692,7 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
     round's all-gathers of a leaf the model axis splits and of a K/V
     cache or cross K/V (``_kv_gathers``), the rglru_scan_fwd launches of
     the prefill by kernel path, the resident parameter bytes and the peak
-    device memory."""
+    device memory, and the devices of the blocks and caches."""
     import hashlib
     import numpy as np
     import torch
@@ -4504,11 +4734,14 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
             sys_, m, {"batch": {"tokens": toks[:, -1:]},
                       "caches": _meta_caches(sys_, B, T)}, meta)
         torch.cuda.reset_peak_memory_stats()
-        for r in range(m.size):
+        # ranks sharing a card draw in turns; a card a rank, at once
+        turns = range(m.size) if m.backend == "gloo" else [m.rank]
+        for r in turns:
             if m.rank == r:
                 params = _draw_blocks(sys_, gen, pre_in[0], m, meta)
                 _free_card()
-            dist.barrier()
+            if m.backend == "gloo":
+                dist.barrier()
         batch = sharding.shard_tree(batch, pre_in[1], m)
         rec = (lambda: RecordingMesh(m)) if detail else (lambda: m)
         pre_mesh = rec()
@@ -4596,6 +4829,7 @@ def _fsdp_serve(sys_, m, prompt, rounds=FSDP_SERVE_ROUNDS, detail=False):
             last.calls, meta, dec_in[0], sys_, m.shape["model"]),
         round_kv_gathers=_kv_gathers(last.calls, sys_, T),
         resident=dryrun.tree_bytes({"parties": params["parties"]}),
+        devices=_devices([params, caches]),
         peak=torch.cuda.max_memory_allocated())
     out["launches"] = _sum_launches([out.get("encoder_launches", {}),
                                      out["prefill_launches"], launches])
@@ -4696,29 +4930,33 @@ def _fsdp_cpu_refs(weights, cut_batch, prompt, ref_dir):
     from repro_torch.tree import tree_leaves
     _, cut, serve_cfg = _fsdp_cfgs()
     threads = torch.get_num_threads()
-    # the fsdp phase waits on this thread: every core of the host's but
-    # two (the ranks' own host work is mostly gloo's staging)
-    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) - 2))
+    # the cores the ranks (one torch thread each, and gloo's staging) and
+    # the parent's main thread leave: at every core but two it took 217 s
+    # of CPU in 87 s beside the ranks (H100 80GB HBM3 machine, 8 cores),
+    # and the ranks need its output only after their last served model
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0))
+                              - FSDP_RANKS - 1))
     sys_ = EasterLM(cut, EasterConfig(), grad_mode="joint", device="cpu")
     batch = {k: torch.as_tensor(v) for k, v in cut_batch.items()}
     params = sys_.load_params(weights.pop("cut"))
-    _, _, grads = train_loop.loss_and_grads(sys_, params, batch, 0,
-                                            sys_.mask_seeds())
+    # the step train_loop.make_train_step builds, its gradients kept for
+    # the mask: loss_and_grads, then the optimizer's update
+    loss, _, grads = train_loop.loss_and_grads(sys_, params, batch, 0,
+                                               sys_.mask_seeds())
     scale = min(1.0, 1.0 / (float(global_norm(grads)) + 1e-9))
     big = [np.abs(g.detach().numpy()) * scale >= 1e-4
            for g in tree_leaves(grads)]
+    _, opt = steps.build_train_step(sys_, "adam", lr=FSDP_LR)
+    tree = {"parties": params["parties"]}
+    opt.update(grads, opt.init(tree), tree)
     del grads
-    step, opt = steps.build_train_step(sys_, "adam", lr=FSDP_LR)
-    params, _, m = step(params, opt.init({"parties": params["parties"]}),
-                        batch, 0)
-    for i, (p, g) in enumerate(zip(tree_leaves({"parties": params[
-            "parties"]}), big)):
+    for i, (p, g) in enumerate(zip(tree_leaves(tree), big)):
         np.save(os.path.join(ref_dir, f"p{i}.npy"),
                 checkpoint.params_to_numpy(p))
         np.save(os.path.join(ref_dir, f"g{i}.npy"), g)
     open(os.path.join(ref_dir, "done"), "w").close()
-    b = {"loss": float(m["loss"])}
-    del params, step, opt, sys_, big
+    b = {"loss": float(loss)}
+    del params, tree, opt, sys_, big
     serve_sys = _lm_system(serve_cfg, "cpu")
     serve_sys.init_params = lambda gen: serve_sys.load_params(
         weights.pop("serve"))
@@ -4770,71 +5008,24 @@ def phase_fsdp():
                             store_dir=store, device="cuda", threads=1,
                             timeout_s=900)
         cpu = ex.submit(_fsdp_cpu_refs, weights, cut_batch, prompt, ref_dir)
-        one = _fsdp_one_process(cfg, batches)
-        one_d = _fsdp_full_one_process(prompt_full)
-        one_split = {key: _fsdp_full_one_process(prompts_split[key[0]], c,
-                                                 rounds)
-                     for key, c, _, rounds in runs}
+        one, one_d, one_split = _then_ranks(go, lambda: (
+            _fsdp_one_process(cfg, batches),
+            _fsdp_full_one_process(prompt_full),
+            {key: _fsdp_full_one_process(prompts_split[key[0]], c, rounds)
+             for key, c, _, rounds in runs}))
         pre_s = time.perf_counter() - t_phase
-        open(go, "w").close()
         ranks = spawned.result()
         ranks_s = max(r["work_s"] for r in ranks)
         b_cpu, c_cpu = cpu.result()
     res = {"ranks_s": ranks_s, "before_ranks_s": pre_s,
            "mesh": list(FSDP_MESH), "train_layers": FSDP_TRAIN_LAYERS,
            "rank_marks_s": ranks[0]["marks"],
-           "gloo_gbps": ranks[0]["gloo_gbps"],
+           "all_gather_gbps": ranks[0]["all_gather_gbps"],
            "start_s": [r["start_s"] for r in ranks]}
     failures = []
-    # (a): launches, finite losses, the same losses on every rank
-    a = {r["rank"]: r["a"] for r in ranks}
-    for rank, ra in a.items():
-        try:
-            _check_train_launches(f"fsdp (a) rank {rank}", ra["launches"],
-                                  FSDP_STEPS)
-        except AssertionError as e:
-            failures.append(str(e))
-        if ra["losses"] != a[0]["losses"] or not all(
-                math.isfinite(v) for v in ra["losses"]):
-            failures.append(f"(a) rank {rank}: losses {ra['losses']} vs "
-                            f"rank 0's {a[0]['losses']}")
-    if abs(a[0]["losses"][0] - one["losses"][0]) > 1e-2 * abs(
-            one["losses"][0]):
-        failures.append(f"(a) step 0's loss {a[0]['losses'][0]} vs the one "
-                        f"process's {one['losses'][0]} (rtol 1e-2)")
-    resident = {k: a[k]["weights"] + a[k]["grads"] + a[k]["adam"] for k in a}
-    one_res = one["weights"] + one["grads"] + one["adam"]
-    res["a"] = {"losses_rank0": a[0]["losses"],
-                "losses_one_process": one["losses"],
-                "step_ms_by_rank": {k: v["step_ms"] for k, v in a.items()},
-                "step_ms_one_process": one["step_ms"],
-                "resident_bytes_by_rank": resident,
-                "resident_bytes_one_process": one_res,
-                "adam_bytes_by_rank": {k: v["adam"] for k, v in a.items()},
-                "peak_bytes_by_rank": {k: v["peak"] for k, v in a.items()},
-                "peak_bytes_one_process": one["peak"],
-                "rows_by_rank": {k: v["rows"] for k, v in a.items()}}
-    n_params = _fsdp_n_params(cfg)
-    res["a"]["params"] = n_params
-    log("fsdp", f"(a) {cfg.name} at full width, depth cut to "
-                f"{cfg.n_layers} layers (three "
-                f"{_lm_system(cfg, 'meta').party_cfgs[1].n_layers}-layer "
-                f"proxies; {n_params} parameters), bfloat16, remat "
-                f"{cfg.remat}, adam 1e-3 clip 1.0, {TRAIN_BATCH} x "
-                f"{TRAIN_SEQ} tokens a step over a {FSDP_MESH[0]} x "
-                f"{FSDP_MESH[1]} mesh (zero3 + ZeRO-1, rows a rank "
-                f"{res['a']['rows_by_rank']}), {FSDP_RANKS} ranks on "
-                f"{ranks[0]['backend']}: losses rank 0 "
-                f"{[round(v, 4) for v in a[0]['losses']]} vs one process "
-                f"{[round(v, 4) for v in one['losses']]}; ms a step by rank "
-                f"{ {k: [round(x, 1) for x in v['step_ms']] for k, v in a.items()} } "
-                f"(one process {[round(x, 1) for x in one['step_ms']]}); "
-                f"resident weights + gradients + adam GB by rank "
-                f"{ {k: round(v / 1e9, 3) for k, v in resident.items()} } "
-                f"(one process {one_res / 1e9:.3f}); "
-                f"torch.cuda.max_memory_allocated GB by rank "
-                f"{ {k: round(v['peak'] / 1e9, 2) for k, v in a.items()} } "
-                f"(one process {one['peak'] / 1e9:.2f})")
+    for r in ranks:
+        failures += _rule_failures("fsdp", r, FSDP_RANKS, [r["a"]["devices"]])
+    res["a"] = _fsdp_check_train("fsdp", ranks, one, failures, cfg, FSDP_MESH)
     # (b): the float32 cut's joint adam step against the CPU port
     b = ranks[0]["b"]
     loss_ok = bool(np.isclose(b["loss"], b_cpu["loss"], rtol=1e-4,
@@ -4901,10 +5092,7 @@ def phase_fsdp():
         res[key] = _fsdp_check_full(ranks, one_split[key], failures, key, c,
                                     shape, limit)
     res["seconds"] = time.perf_counter() - t_phase
-    res["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    res["card"] = _card()
     log("fsdp", f"before the ranks' work (the draws, the one process, "
                 f"meanwhile the ranks' start) {pre_s:.1f} s; a rank loaded "
                 f"this script {[round(r['loaded_s'], 1) for r in ranks]} s "
@@ -4929,7 +5117,8 @@ def _tsplit_rank(prompt):
     torch.zeros((), device=m.device)            # this rank's CUDA context
     t0 = time.perf_counter()
     sys_ = _lm_system(_fsdp_split_cfg(TSPLIT_ARCH), "cuda")
-    res = {"rank": m.rank, "coords": dict(m.coords),
+    res = {"rank": m.rank, "coords": dict(m.coords), "backend": m.backend,
+           "device": str(m.device),
            "i": _fsdp_serve(sys_, m, prompt, FSDP_SPLIT_ROUNDS, detail=True)}
     res["work_s"] = time.perf_counter() - t0
     return res
@@ -4966,10 +5155,7 @@ def phase_tsplit():
                                  for r in ranks}
     res["work_s_by_rank"] = {r["rank"]: r["work_s"] for r in ranks}
     res["seconds"] = time.perf_counter() - t0
-    res["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    res["card"] = _card()
     log("tsplit", f"(i) K/V cache slots a rank {res['kv_cache_t_by_rank']} "
                   f"of {T}; the ranks' work {res['work_s_by_rank']} s; phase "
                   f"took {res['seconds']:.1f} s on {res['card']}")
@@ -5002,7 +5188,8 @@ def _split_depth_rank(prompts):
     m = mesh.make_debug_mesh(*FSDP_MESH, device="cuda")
     meshes = {tuple(FSDP_MESH): m, (1, 4): mesh.make_debug_mesh(
         1, 4, device="cuda")}
-    res = {"rank": m.rank, "coords": dict(m.coords)}
+    res = {"rank": m.rank, "coords": dict(m.coords), "backend": m.backend,
+           "device": str(m.device)}
     for (key, shape, _, _), cfg in zip(SPLIT_DEPTH, _split_depth_cfgs()):
         sys_ = _lm_system(cfg, "cuda")
         res[f"{key}{cfg.n_layers}{cfg.dtype}"] = _fsdp_serve(
@@ -5074,7 +5261,7 @@ def phase_split_depth():
 
 
 def _fsdp_check_full(ranks, one, failures, key="d", cfg=None,
-                     shape=FSDP_MESH, limit=FSDP_FULL_LOGIT_REL):
+                     shape=FSDP_MESH, limit=FSDP_FULL_LOGIT_REL, tag="fsdp"):
     """(d)'s (or ``key``'s: (e)-(g) and their float32 cuts, of ``cfg`` on a
     ``shape`` mesh) checks
     (failures appended) and its numbers: every rank's logits finite, the
@@ -5102,6 +5289,7 @@ def _fsdp_check_full(ranks, one, failures, key="d", cfg=None,
         d, k = r[key], f"({key}) rank {r['rank']}"
         if not d["finite"]:
             failures.append(f"{k}: logits not finite")
+        failures += _rule_failures(f"({key})", r, len(ranks), [d["devices"]])
         want_p = {"flash_attention_fwd": attn * (2 if xattn else 1),
                   "blind_agg_fwd": 1, "rglru_scan_fwd": lru}
         want_r = {"flash_attention_fwd": attn * n_rounds if xattn else 0,
@@ -5192,7 +5380,7 @@ def _fsdp_check_full(ranks, one, failures, key="d", cfg=None,
             "encoder_launches": d0["encoder_launches"],
             "one_process_encoder_kv_ms": one["encoder_ms"],
             "one_process_cross_kv_bytes": one["cross_kv_bytes"]})
-        log("fsdp", f"({key}) encoder_kv ms by rank "
+        log(tag, f"({key}) encoder_kv ms by rank "
                     f"{ {k: round(v, 1) for k, v in out['encoder_kv_ms_by_rank'].items()} }"
                     f" (one process {one['encoder_ms']:.1f}); cross K/V MB "
                     f"a rank "
@@ -5201,7 +5389,7 @@ def _fsdp_check_full(ranks, one, failures, key="d", cfg=None,
                     f"collectives' bytes a rank {d0['encoder_bytes']} "
                     f"(counts {d0['encoder_counts']}); launches "
                     f"{d0['encoder_launches']}")
-    log("fsdp", f"({key}) {cfg.name} at full width ({cfg.n_layers} "
+    log(tag, f"({key}) {cfg.name} at full width ({cfg.n_layers} "
                 f"layers, three {pcfg.n_layers}-layer proxies; "
                 f"{out['params']} parameters), {cfg.dtype}, on a {shape[0]} x "
                 f"{shape[1]} mesh under prefill_shardings / serve_shardings "
@@ -5236,6 +5424,443 @@ def _fsdp_check_full(ranks, one, failures, key="d", cfg=None,
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# --phase nccl: the party group and the FSDP plan over NCCL, a card a rank
+# ---------------------------------------------------------------------------
+
+NCCL_RANKS, NCCL_MESHES = 4, ((2, 2), (1, 4), (4, 1))
+# (j): qwen2-vl-7b at full width and depth (13.68e9 parameters with its
+# three 7-layer proxies, bfloat16, remat "full" as its config trains)
+# under zero3 + ZeRO-1 on a 4 x 1 (data x model) mesh, adam 1e-3 clip
+# 1.0: TRAIN_BATCH rows of TRAIN_SEQ tokens a step (one a rank) from
+# lm_batch_iterator(seed=0), each row's first 1024 positions the patch
+# embeddings of models/build.frontend_inputs (the card's generator seeded
+# NCCL_J_SEED + step); the first step warms the allocator. 164 GB of
+# weights, gradients and adam state over 4 ranks: 41 GB a rank, held
+# under NCCL_J_RESIDENT
+NCCL_J_MESH, NCCL_J_STEPS, NCCL_J_SEED, NCCL_J_RESIDENT = (4, 1), 3, 11, 45e9
+# (k): (j) cut to 2 active layers (2 a proxy; 4.13e9 parameters) in
+# float32 at full width, one sgd step at TRAIN_BATCH x 1280 tokens (the
+# 1024 patch positions and 256 more) on the same mesh, against one
+# process on one card; lr 10 so that the update (a clipped unit gradient
+# over 4.1e9 parameters, ~1.6e-5 rms an element) stands above the atol
+# 1e-5 the parameters are held to
+NCCL_K_LAYERS, NCCL_K_SEQ, NCCL_K_LR, NCCL_K_SEED = 2, 1280, 10.0, 12
+# the split runs of the fsdp phase that --phase nccl repeats: (e) and its
+# float32 cut; (e)'s bfloat16 round-0 gap over gloo (the fsdp phase at
+# 24 layers, H100 80GB HBM3 at 700 W), printed beside NCCL's
+NCCL_SPLIT, NCCL_E_GLOO_GAP = ("e", "e32"), 0.862
+# seconds the parent waits on a rank of the plan's spawn (its one-process
+# runs included): a hung collective fails the phase within it
+NCCL_TIMEOUT_S = 600
+
+
+def _nccl_split_runs():
+    return [r for r in _fsdp_split_runs() if r[0] in NCCL_SPLIT]
+
+
+def _nccl_k_cfg():
+    return _fsdp_split_cfg(VLM_ARCH, NCCL_K_LAYERS, "float32")
+
+
+def _vlm_batch(cfg, batch, seed):
+    """``batch`` (numpy tokens, labels) on the card with the patch
+    embeddings of every row (the card's generator seeded ``seed``)."""
+    import torch
+    from repro_torch.models.build import frontend_inputs
+    out = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    out.update(frontend_inputs(cfg, batch["tokens"].shape[0],
+                               torch.Generator(device="cuda").manual_seed(
+                                   seed)))
+    return out
+
+
+def _nccl_k_one_process(batch, ref_dir):
+    """(k)'s one process on one card: the float32 cut's sgd step on the
+    whole batch from the card's generator seeded 0; each updated leaf
+    saved to ``ref_dir`` for the ranks (``_fsdp_compare_blocks``). Returns
+    the loss and the launches."""
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves
+    _free_card()
+    cfg = _nccl_k_cfg()
+    sys_ = _lm_system(cfg, "cuda")
+    params = sys_.init_params(torch.Generator(device="cuda").manual_seed(0))
+    step, opt = steps.build_train_step(sys_, "sgd", lr=NCCL_K_LR)
+    state = opt.init({"parties": params["parties"]})
+    params, _, _, ms, launches = _fsdp_step_loop(
+        step, params, state, [_vlm_batch(cfg, batch, NCCL_K_SEED)])
+    out = {"launches": launches, "step_ms": ms}
+    for i, p in enumerate(tree_leaves({"parties": params["parties"]})):
+        np.save(os.path.join(ref_dir, f"p{i}.npy"),
+                checkpoint.params_to_numpy(p))
+    open(os.path.join(ref_dir, "done"), "w").close()
+    del params, state, step, opt, sys_
+    _free_card()
+    return out
+
+
+def _nccl_k_rank(m, batch, ref_dir):
+    """(k) on this rank: the float32 cut's sgd step under zero3 on ``m``,
+    its blocks and their update held to the one process's
+    (``_fsdp_compare_blocks``)."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _nccl_k_cfg()
+    sys_ = _lm_system(cfg, "cuda")
+    run, lp, lo, lbs, pspec = _fsdp_sharded_train(
+        sys_, m, "sgd", "zero3", True, [_vlm_batch(cfg, batch, NCCL_K_SEED)],
+        lr=NCCL_K_LR)
+    before = [t.detach().clone()
+              for t in tree_leaves({"parties": lp["parties"]})]
+    lp, lo, losses, ms, launches = _fsdp_step_loop(run, lp, lo, lbs)
+    out = {"loss": losses[0], "step_ms": ms, "launches": launches,
+           "devices": _devices(lp), "peak": torch.cuda.max_memory_allocated()}
+    out.update(_fsdp_compare_blocks(lp, pspec, m, ref_dir, before=before))
+    del run, lp, lo, lbs, before, sys_
+    _free_card()
+    return out
+
+
+def _nccl_j_rank(m, batches):
+    """(j) on this rank: qwen2-vl-7b at full width and depth trained under
+    zero3 + ZeRO-1 on ``m`` through a RecordingMesh over it: losses, ms a
+    step, each step's collective bytes by kind and count, launches, the
+    resident bytes of the blocks by kind, peak memory, the devices of its
+    blocks."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import RecordingMesh
+    cfg = _fsdp_split_cfg(VLM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    sys_ = _lm_system(cfg, "cuda")
+    rec = RecordingMesh(m)
+    t0 = time.perf_counter()
+    run, lp, lo, lbs, _ = _fsdp_sharded_train(
+        sys_, m, "adam", "zero3", True,
+        [_vlm_batch(cfg, b, NCCL_J_SEED + i) for i, b in enumerate(batches)],
+        run_mesh=rec)
+    torch.cuda.synchronize()
+    out = {"draw_s": time.perf_counter() - t0, "losses": [], "step_ms": [],
+           "step_bytes": [], "step_counts": [],
+           "rows": int(lbs[0]["tokens"].shape[0])}
+    _reset_lm_launches()
+    for i, b in enumerate(lbs):
+        was, n = dict(rec.bytes), rec.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp, lo, mt = run(lp, lo, b, i)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(mt["loss"]))
+        out["step_bytes"].append({k: rec.bytes[k] - was[k]
+                                  for k in rec.bytes})
+        out["step_counts"].append(rec.count - n)
+    w = dryrun.tree_bytes({"parties": lp["parties"]})
+    out.update(launches=_lm_launches(), weights=w, grads=w,
+               adam=dryrun.tree_bytes(lo), devices=_devices([lp, lo]),
+               peak=torch.cuda.max_memory_allocated())
+    del run, lp, lo, lbs, sys_
+    _free_card()
+    return out
+
+
+def _nccl_rank(batches_a, prompt_full, prompt_e, batches_j, batch_k,
+               ref_dir, go, t_spawn):
+    """One rank of --phase nccl (a spawned process, NCCL, its own card):
+    the meshes (every group warmed as it is made) and the all-gather rate;
+    then, once the parent's one-process runs are done (the file ``go``),
+    (a) at full depth, (d), (e) and its float32 cut, (k) and (j); results
+    for the parent, numpy, with the seconds each part ended at
+    (``marks``)."""
+    import torch
+    from repro_torch.launch import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    meshes = {sh: mesh.make_debug_mesh(*sh, device="cuda")
+              for sh in NCCL_MESHES}
+    m = meshes[FSDP_MESH]
+    res = {"rank": m.rank, "coords": dict(m.coords), "backend": m.backend,
+           "device": str(m.device),
+           "current_device": torch.cuda.current_device(),
+           "start_s": time.time() - t_spawn, "marks": {}}
+    mark = lambda k: res["marks"].__setitem__(
+        k, round(time.perf_counter() - t_start, 2))
+    mark("meshes warm")
+    res["all_gather_gbps"] = _group_rate(m)
+    mark("all-gather probe")
+    _wait_go(go)
+    t_go = time.perf_counter()
+    mark("go")
+    on = lambda b: {k: torch.as_tensor(v, device="cuda")
+                    for k, v in b.items()}
+    res["a"] = _fsdp_train_a(m, _fsdp_split_cfg(TRAIN_ARCH),
+                             [on(b) for b in batches_a])
+    mark("(a) steps")
+    sys_ = _lm_system(_fsdp_full_cfg(), "cuda")
+    res["d"] = _fsdp_serve(sys_, m, prompt_full, FSDP_FULL_ROUNDS,
+                           detail=True)
+    mark("(d) served")
+    del sys_
+    _free_card()
+    for key, cfg_, shape, rounds in _nccl_split_runs():
+        sys_ = _lm_system(cfg_, "cuda")
+        res[key] = _fsdp_serve(sys_, meshes[shape], prompt_e, rounds,
+                               detail=True)
+        mark(f"({key}) served")
+        del sys_
+        _free_card()
+    res["k"] = _nccl_k_rank(meshes[NCCL_J_MESH], batch_k, ref_dir)
+    mark("(k) step compared")
+    res["j"] = _nccl_j_rank(meshes[NCCL_J_MESH], batches_j)
+    mark("(j) steps")
+    log("nccl", f"rank {m.rank} on {m.device}: {res['marks']}")
+    res["work_s"] = time.perf_counter() - t_go
+    return res
+
+
+def _nccl_check_k(ranks, one, failures):
+    """(k)'s checks: every rank's blocks and their update within the
+    tolerance of the one process's, the same loss on every rank, one
+    blind_agg_fwd on every rank and in the one process."""
+    k = {r["rank"]: r["k"] for r in ranks}
+    for rank, rk in k.items():
+        try:
+            _check_train_launches(f"(k) rank {rank}", rk["launches"], 1)
+        except AssertionError as e:
+            failures.append(str(e))
+        if rk["loss"] != k[0]["loss"]:
+            failures.append(f"(k) rank {rank}: loss {rk['loss']} vs rank "
+                            f"0's {k[0]['loss']}")
+    _check_train_launches("(k) one process", one["launches"], 1)
+    ok = all(rk["ok"] for rk in k.values())
+    if not ok:
+        failures.append("(k) the float32 cut's sgd step over NCCL differs "
+                        "from one process's on one card")
+    cfg = _nccl_k_cfg()
+    out = {"loss": k[0]["loss"], "ok": ok,
+           "params_max_abs": max(rk["max_abs"] for rk in k.values()),
+           "moved": min(rk["moved"] for rk in k.values()),
+           "step_ms_by_rank": {r: rk["step_ms"] for r, rk in k.items()},
+           "step_ms_one_process": one["step_ms"],
+           "peak_bytes_by_rank": {r: rk["peak"] for r, rk in k.items()},
+           "params": _fsdp_n_params(cfg)}
+    log("nccl", f"(k) {cfg.name} at full width cut to {cfg.n_layers} "
+                f"layers ({out['params']} parameters), float32, TF32 off, "
+                f"one sgd {NCCL_K_LR} step at {TRAIN_BATCH} x {NCCL_K_SEQ} "
+                f"tokens with {cfg.n_vision_tokens} patch positions, zero3 "
+                f"on {NCCL_J_MESH[0]} x {NCCL_J_MESH[1]} over NCCL: loss "
+                f"{out['loss']:.6f} (every rank's the same); every rank's "
+                f"blocks of the updated parameters against one process's "
+                f"on one card max abs {out['params_max_abs']:.3g} "
+                f"{'ok' if ok else 'FAIL'} (rtol 1e-4, atol 1e-5; the step "
+                f"moved at least {out['moved']:.3f} of a rank's elements by "
+                f"more than the atol); ms by "
+                f"rank {out['step_ms_by_rank']}, one process "
+                f"{one['step_ms']}")
+    return out
+
+
+def _nccl_check_j(ranks, failures):
+    """(j)'s checks and numbers: losses finite, the same on every rank
+    and falling; one blind_agg_fwd a step on every rank; the resident
+    bytes within NCCL_J_RESIDENT a rank."""
+    j = {r["rank"]: r["j"] for r in ranks}
+    cfg = _fsdp_split_cfg(VLM_ARCH)
+    for rank, rj in j.items():
+        try:
+            _check_train_launches(f"(j) rank {rank}", rj["launches"],
+                                  NCCL_J_STEPS)
+        except AssertionError as e:
+            failures.append(str(e))
+        if rj["losses"] != j[0]["losses"] or not all(
+                math.isfinite(v) for v in rj["losses"]):
+            failures.append(f"(j) rank {rank}: losses {rj['losses']} vs "
+                            f"rank 0's {j[0]['losses']}")
+        if rj["weights"] + rj["grads"] + rj["adam"] > NCCL_J_RESIDENT:
+            failures.append(f"(j) rank {rank}: resident "
+                            f"{(rj['weights'] + rj['grads'] + rj['adam']) / 1e9:.2f}"
+                            f" GB, over {NCCL_J_RESIDENT / 1e9:.0f}")
+    losses = j[0]["losses"]
+    if not losses[-1] < losses[0]:
+        failures.append(f"(j) losses {losses} do not fall")
+    ms = {r: statistics.median(rj["step_ms"][1:]) for r, rj in j.items()}
+    slow = max(ms.values())
+    out = {"arch": cfg.name, "params": _fsdp_n_params(cfg),
+           "mesh": list(NCCL_J_MESH), "steps": NCCL_J_STEPS,
+           "tokens_a_step": TRAIN_BATCH * TRAIN_SEQ, "losses": losses,
+           "step_ms_by_rank": {r: rj["step_ms"] for r, rj in j.items()},
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / slow * 1e3,
+           "resident_bytes_by_rank": {
+               r: {k: rj[k] for k in ("weights", "grads", "adam")}
+               for r, rj in j.items()},
+           "peak_bytes_by_rank": {r: rj["peak"] for r, rj in j.items()},
+           "step_bytes_by_rank": {r: rj["step_bytes"][-1]
+                                  for r, rj in j.items()},
+           "step_collectives": j[0]["step_counts"],
+           "draw_s_by_rank": {r: rj["draw_s"] for r, rj in j.items()},
+           "rows_by_rank": {r: rj["rows"] for r, rj in j.items()}}
+    log("nccl", f"(j) {cfg.name} at full width and depth ({cfg.n_layers} "
+                f"layers, three "
+                f"{_lm_system(cfg, 'meta').party_cfgs[1].n_layers}-layer "
+                f"proxies; {out['params']} parameters), bfloat16, remat "
+                f"{cfg.remat}, adam 1e-3 clip 1.0, zero3 + ZeRO-1 on "
+                f"{NCCL_J_MESH[0]} x {NCCL_J_MESH[1]} over NCCL, "
+                f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step (rows a rank "
+                f"{out['rows_by_rank']}; {cfg.n_vision_tokens} patch "
+                f"positions a row): losses {[round(v, 4) for v in losses]} "
+                f"(every rank's the same); ms a step by rank "
+                f"{ {r: [round(x, 1) for x in rj['step_ms']] for r, rj in j.items()} }"
+                f" (median of steps 2-{NCCL_J_STEPS}: {slow:.1f} on the "
+                f"slowest rank, {out['tokens_per_s']:.0f} tokens/s); "
+                f"resident weights + gradients + adam GB by rank "
+                f"{ {r: round((rj['weights'] + rj['grads'] + rj['adam']) / 1e9, 3) for r, rj in j.items()} }"
+                f"; torch.cuda.max_memory_allocated GB by rank "
+                f"{ {r: round(rj['peak'] / 1e9, 2) for r, rj in j.items()} }"
+                f"; the last step's collective bytes a rank by kind "
+                f"{out['step_bytes_by_rank'][0]} ("
+                f"{sum(out['step_bytes_by_rank'][0].values()) / 1e9:.2f} "
+                f"GB, {j[0]['step_counts'][-1]} collectives); the draw and "
+                f"cut {[round(rj['draw_s'], 1) for rj in j.values()]} s")
+    return out
+
+
+def _smi(query):
+    """nvidia-smi's csv lines for ``query`` (--query-gpu=...), one a
+    card."""
+    return subprocess.run(["nvidia-smi", query, "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()
+
+
+def _card():
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return _smi("--query-gpu=name,power.limit")[0]
+
+
+def phase_nccl():
+    """--phase nccl (the module docstring): the sharded engine and the
+    FSDP plan over NCCL on four cards, one a rank. Raises unless four
+    cards are visible. Returns the numbers."""
+    import concurrent.futures
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import lm_batch_iterator
+    from repro_torch.launch import mesh
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    if n < NCCL_RANKS:
+        raise RuntimeError(f"--phase nccl needs {NCCL_RANKS} cards, one a "
+                           f"rank; {n} visible")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    for line in (topo.stdout + topo.stderr).rstrip().splitlines():
+        log("nccl", f"nvidia-smi topo -m | {line}")
+    log("nccl", f"nvidia-smi topo -m exit code {topo.returncode}; peer "
+                f"access between the cards (torch.cuda."
+                f"can_device_access_peer, row i column j) "
+                f"{[[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(n)] for i in range(n)]}")
+    cards = _smi("--query-gpu=index,name,power.limit")
+    log("nccl", f"cards {cards}")
+    # the sharded engine over NCCL; its depth cut held to one process on
+    # one card (itself held to the CPU port by the default run's lm cut)
+    cut_ref = {}
+    _cut_phase("lm", LM_ARCH, LM_CUT_LAYERS, keep=cut_ref, against_cpu=False)
+    sharded_paths, sharded = phase_sharded(cut_ref)
+    del cut_ref
+    failures = []
+    if sharded["backend"] != "nccl":
+        failures.append(f"the sharded phase ran over {sharded['backend']}")
+    t_plan = time.perf_counter()
+    # the plan: (a) at full depth, (d), (e), (e32), (k), (j)
+    cfg_a, vlm = _fsdp_split_cfg(TRAIN_ARCH), _fsdp_split_cfg(VLM_ARCH)
+    batches_a = _fsdp_batches(cfg_a)
+    prompt_full = np.random.default_rng(3).integers(
+        0, _fsdp_full_cfg().vocab_size,
+        (FSDP_FULL_LANES, FSDP_FULL_PROMPT + 1), dtype=np.int32)
+    runs = _nccl_split_runs()
+    prompt_e = np.random.default_rng(3).integers(
+        0, runs[0][1].vocab_size, (FSDP_FULL_LANES, FSDP_FULL_PROMPT + 1),
+        dtype=np.int32)
+    it = lm_batch_iterator(vlm.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches_j = [next(it) for _ in range(NCCL_J_STEPS)]
+    batch_k = next(lm_batch_iterator(vlm.vocab_size, TRAIN_BATCH,
+                                     NCCL_K_SEQ, seed=1))
+    with concurrent.futures.ThreadPoolExecutor(1) as ex, \
+            tempfile.TemporaryDirectory() as store:
+        ref_dir, go = os.path.join(store, "k"), os.path.join(store, "go")
+        os.makedirs(ref_dir)
+        spawned = ex.submit(mesh.spawn_ranks, _nccl_rank, NCCL_RANKS,
+                            batches_a, prompt_full, prompt_e, batches_j,
+                            batch_k, ref_dir, go, time.time(),
+                            store_dir=store, device="cuda", threads=4,
+                            timeout_s=NCCL_TIMEOUT_S)
+        one_a, one_d, one_split, one_k = _then_ranks(go, lambda: (
+            _fsdp_one_process(cfg_a, batches_a),
+            _fsdp_full_one_process(prompt_full),
+            {key: _fsdp_full_one_process(prompt_e, c, rounds)
+             for key, c, _, rounds in runs},
+            _nccl_k_one_process(batch_k, ref_dir)))
+        pre_s = time.perf_counter() - t_plan
+        ranks = spawned.result()
+    ranks_s = max(r["work_s"] for r in ranks)
+    for r in ranks:
+        failures += _rule_failures("nccl", r, NCCL_RANKS, [
+            r["a"]["devices"], r["k"]["devices"], r["j"]["devices"]])
+        if r["current_device"] != r["rank"]:
+            failures.append(f"rank {r['rank']} bound to card "
+                            f"{r['current_device']}")
+    res = {"backend": ranks[0]["backend"], "cards": cards,
+           "devices_by_rank": {r["rank"]: r["device"] for r in ranks},
+           "sharded": sharded,
+           "all_gather_gbps_by_rank": {r["rank"]: r["all_gather_gbps"]
+                                       for r in ranks},
+           "rank_marks_s": {r["rank"]: r["marks"] for r in ranks},
+           "start_s": [r["start_s"] for r in ranks],
+           "before_ranks_s": pre_s, "ranks_s": ranks_s}
+    res["a"] = _fsdp_check_train("nccl", ranks, one_a, failures, cfg_a,
+                                 FSDP_MESH)
+    res["d"] = _fsdp_check_full(ranks, one_d, failures, tag="nccl")
+    for key, c, shape, _ in runs:
+        res[key] = _fsdp_check_full(
+            ranks, one_split[key], failures, key, c, shape,
+            FSDP_SPLIT_F32_REL if len(key) > 1 else None, tag="nccl")
+    log("nccl", f"(e) bfloat16 at {runs[0][1].n_layers} layers: round 0's "
+                f"logits {res['e']['round0_logits_rel_vs_one_process']:.4g} "
+                f"of the largest |logit| from one process's over NCCL, "
+                f"beside {NCCL_E_GLOO_GAP} over gloo (printed, not held: "
+                f"NCCL sums the bfloat16 partials in another order)")
+    res["k"] = _nccl_check_k(ranks, one_k, failures)
+    res["j"] = _nccl_check_j(ranks, failures)
+    rate = ranks[0]["all_gather_gbps"]
+    paths = [_sum_launches([r[k]["launches"] for r in ranks])
+             for k in ("a", "d") + NCCL_SPLIT + ("k", "j")]
+    res["launches"] = {"sharded": sharded_paths, "plan": dict(zip(
+        ("a", "d") + NCCL_SPLIT + ("k", "j"), paths))}
+    res["seconds"] = time.perf_counter() - t_phase
+    log("nccl", f"all-gather of 16 MB a rank over the 4 ranks, by rank "
+                f"{res['all_gather_gbps_by_rank']} GB/s (rank 0: CUDA "
+                f"tensors over {rate['backend']} {rate['device']}, host "
+                f"tensors over gloo {rate['host']}); an all-reduce of 16 "
+                f"KB on the cards {rate['small_all_reduce_us']} us; "
+                f"launches by path "
+                f"{res['launches']}; the plan's one-process runs "
+                f"{pre_s:.1f} s, the ranks' work {ranks_s:.1f} s after "
+                f"(in the group {[round(x, 1) for x in res['start_s']]} s "
+                f"after the spawn); phase took {res['seconds']:.1f} s on "
+                f"{cards}")
+    if failures:
+        raise AssertionError("nccl phase: " + "; ".join(failures))
+    return res
 
 
 def _table2_batches(n):
@@ -5356,15 +5981,17 @@ def run_phase(name, save=None, compare=None):
     elif name == "train":
         res = phase_train()[1]
     elif name == "sharded":
-        cut_cpu = {}
-        _cut_phase("lm", LM_ARCH, LM_CUT_LAYERS, keep=cut_cpu)
-        res = phase_sharded(cut_cpu)[1]
+        cut_ref = {}
+        _cut_phase("lm", LM_ARCH, LM_CUT_LAYERS, keep=cut_ref)
+        res = phase_sharded(cut_ref)[1]
     elif name == "fsdp":
         res = phase_fsdp()[1]
     elif name == "split_depth":
         res = phase_split_depth()
     elif name == "tsplit":
         res = phase_tsplit()
+    elif name == "nccl":
+        res = phase_nccl()
     elif name == "prng":
         outs = []
         phase_prng(outs)
@@ -5381,6 +6008,10 @@ def run_phase(name, save=None, compare=None):
     else:
         raise ValueError(f"unknown phase {name!r}")
     print(json.dumps({"phase": name, **res}))
+    print(_card())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 
@@ -5436,8 +6067,9 @@ def main() -> int:
     _check_rglru_build(libs["rg_lru"])
     done("build")
     worst_f32 = phase_kernels()
+    done("kernels")
     worst_f32["blind_agg_prng_fwd"] = phase_prng()
-    done("kernels, prng")
+    done("prng")
 
     ds, batches = _table2_batches(SLICE_ROUNDS)
     table2 = _build_slice("easter", "cpu")
@@ -5455,12 +6087,15 @@ def main() -> int:
     done("slice, joint")
     many_launches, many_joint, many_unfused, fused_ms, unfused_ms = \
         phase_many()
+    done("many")
     phase_wires(params0, batches)
-    done("many, wires")
+    done("wires")
     topk_paths, baselines = phase_baselines(ds, batches)
+    done("baselines")
     wire = phase_wire(ds, batches, params0)
+    done("wire")
     engines = phase_engines(batches, params0)
-    done("baselines, wire, engines")
+    done("engines")
     timing = phase_timing()
     timing_prng = phase_timing_prng()
     phase_profile(batches, params0)
@@ -5468,21 +6103,24 @@ def main() -> int:
     worst_f32["flash_attention_fwd"] = phase_flash()
     done("flash")
     lm_launches, lm = _serve_phase("lm", LM_ARCH)
-    cut_cpu = {}
-    lm_cut = _cut_phase("lm", LM_ARCH, LM_CUT_LAYERS, keep=cut_cpu)
-    done("lm, lm cut")
-    sharded_paths, sharded = phase_sharded(cut_cpu)
+    done("lm")
+    cut_ref = {}
+    lm_cut = _cut_phase("lm", LM_ARCH, LM_CUT_LAYERS, keep=cut_ref)
+    done("lm cut")
+    sharded_paths, sharded = phase_sharded(cut_ref)
     done("sharded")
-    del cut_cpu
+    del cut_ref
     worst_f32["rglru_scan_fwd"] = phase_rglru()
+    done("rglru")
     rg_launches, rg = _serve_phase("rg", RG_ARCH)
     # every prefill scan runs at a width of 4096: the TMA ring
     if rg["rglru_paths"] != {"tma": rg_launches["rglru_scan_fwd"],
                              "per_column": 0}:
         raise AssertionError(f"rglru_scan_fwd paths on the serving path: "
                              f"{rg['rglru_paths']}")
+    done("rg")
     rg_cut = _cut_phase("rg_cut", RG_ARCH, RG_CUT_LAYERS, check_host=True)
-    done("rglru, rg, rg cut")
+    done("rg cut")
     # the passive group's token embeddings are one offset gather: no copy
     # of the stacked tables in a prefill or a decode round
     timing_flash = phase_timing_flash()
@@ -5495,17 +6133,23 @@ def main() -> int:
     gemma_cut = _cut_phase("gemma_cut", GEMMA_ARCH, GEMMA_CUT_LAYERS,
                            check_host=True, batch=GEMMA_CUT_BATCH,
                            prompt_len=GEMMA_CUT_PROMPT)
+    done("gemma cut")
     moe_launches, moe = phase_moe_or_mamba("moe")
+    done("moe")
     moe_cut = _cut_phase("moe_cut", MOE_ARCH, MOE_CUT_LAYERS,
                          check_host=True, scaled_atol=True)
+    done("moe cut")
     mamba_launches, mamba = phase_moe_or_mamba("mamba")
+    done("mamba")
     mamba_cut = _cut_phase("mamba_cut", MAMBA_ARCH, MAMBA_CUT_LAYERS,
                            prompt_len=MAMBA_CUT_PROMPT)
-    done("gemma cut, moe, moe cut, mamba, mamba cut")
+    done("mamba cut")
     whisper_launches, whisper = phase_whisper()
+    done("whisper")
     whisper_cut, vlm_cut = _frontend_cuts()
+    done("frontend cuts")
     vlm_launches, vlm = phase_vlm()
-    done("whisper, frontend cuts, vlm")
+    done("vlm")
 
     # the passive group's token embeddings are one offset gather and its
     # cross K/V is read in place: no copy of the stacked tables, nor of a
@@ -5644,10 +6288,7 @@ def main() -> int:
                       "whisper_cut": whisper_cut, "vlm": vlm,
                       "vlm_cut": vlm_cut, "sharded": sharded,
                       "fsdp": fsdp, "phase_s": phase_s}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(_card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

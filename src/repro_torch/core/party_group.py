@@ -81,8 +81,15 @@ class PartyGroup:
         dist.broadcast(x, src, group=self.pg)
         return x
 
+    def warm(self) -> None:
+        """One small all-reduce over the group, by every rank of it: an
+        NCCL communicator is built at its group's first collective."""
+        self.all_reduce(torch.zeros(1, device=self.device))
+
     def gather_object(self, obj, dst: int = 0) -> Optional[List[Any]]:
-        """Every rank's picklable ``obj`` on rank ``dst`` (None elsewhere)."""
+        """Every rank's picklable ``obj`` on rank ``dst`` (None elsewhere):
+        pickles, on the host, so over gloo (``launch/mesh.py``'s NCCL
+        group carries host operands over gloo)."""
         out = [None] * self.size if self.rank == dst else None
         dist.gather_object(obj, out, dst=dst, group=self.pg)
         return out

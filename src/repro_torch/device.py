@@ -2,7 +2,10 @@
 
 Every entry point runs on the card unless its caller asks for the CPU:
 ``device=None`` means CUDA, and raises when no GPU is present rather
-than falling back to the CPU silently.
+than falling back to the CPU silently. A CUDA device without an index
+resolves to the card this process is bound to
+(``torch.cuda.current_device()``: a rank of an NCCL group sets its own,
+``launch/mesh.py``), so every device the port holds names its card.
 """
 from __future__ import annotations
 
@@ -15,5 +18,8 @@ def resolve_device(device=None) -> torch.device:
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "port on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -11,10 +11,19 @@ device follow one rule (``party_backend``), printed by rank 0 when it
 starts the group:
 
   * CPU tensors: gloo;
-  * the card, with at least as many GPUs as ranks: NCCL, one card a rank;
+  * the card, with at least as many GPUs as ranks: NCCL, one card a rank
+    (``cuda:LOCAL_RANK``, bound by ``torch.cuda.set_device`` before the
+    group starts). The group is ``"cpu:gloo,cuda:nccl"``: NCCL carries
+    every CUDA tensor, gloo the host operands (``gather_object``'s
+    pickles, a host tensor handed to a collective), which an NCCL-only
+    group refuses;
   * the card, with fewer GPUs than ranks: gloo, every rank on cuda:0
     (NCCL refuses two ranks on one device); gloo stages each collective
     through the host.
+
+Every group is warmed by one collective when it is made (``warm``): an
+NCCL communicator is built at its group's first collective, which would
+otherwise land in whatever is timed first.
 
 ``launcher_group`` and ``quiet_other_ranks`` are the launchers' shared
 handling of ``--engine sharded --party-devices N``.
@@ -54,20 +63,38 @@ TIMEOUT_S = 300
 
 
 def party_backend(world: int, device=None):
-    """(backend, device of rank ``local_rank``) by the module's rule, for a
-    group of ``world`` ranks on ``device`` (None = the card)."""
-    device = resolve_device(device)
-    if device.type != "cuda":
-        return "gloo", device
+    """(backend, this rank's device) by the module's rule, for a group of
+    ``world`` ranks on ``device`` (None = the card): the NCCL rank's card
+    is ``cuda:LOCAL_RANK``. Reads the device count only: no CUDA context
+    is made before the rank binds its card."""
+    kind = "cuda" if device is None else torch.device(device).type
+    if kind != "cuda":
+        return "gloo", torch.device(device)
+    if not torch.cuda.is_available():
+        resolve_device(None)                  # raises: no card
     if torch.cuda.device_count() >= world:
-        return "nccl", None          # cuda:LOCAL_RANK, set by the rank
+        return "nccl", torch.device("cuda",
+                                    int(os.environ.get("LOCAL_RANK", 0)))
     return "gloo", torch.device("cuda", 0)
 
 
+# the group an NCCL rank starts: NCCL for CUDA tensors, gloo for host ones
+NCCL_GROUP = "cpu:gloo,cuda:nccl"
+
+
+def _backend_name() -> str:
+    """The running group's backend by the module's rule: "nccl" for the
+    NCCL group (whose host operands go over gloo), else gloo's name."""
+    b = str(dist.get_backend())
+    return "nccl" if "nccl" in b else b
+
+
 def _rank_device(backend: str, device) -> torch.device:
-    _, dev = party_backend(dist.get_world_size(), device)
+    backend_, dev = party_backend(dist.get_world_size(), device)
+    if backend != backend_:
+        raise RuntimeError(f"the group runs {backend}, the rule gives "
+                           f"{backend_} for {device}")
     if backend == "nccl":
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)
     return dev
 
@@ -75,15 +102,21 @@ def _rank_device(backend: str, device) -> torch.device:
 def init_group(world: int, rank: int, device=None,
                init_method: str = "env://") -> str:
     """Start the default ``torch.distributed`` group by ``party_backend``'s
-    rule; rank 0 prints the choice. Returns the backend."""
-    backend, _ = party_backend(world, device)
-    dist.init_process_group(backend, init_method=init_method, rank=rank,
+    rule (an NCCL rank binds its card first); rank 0 prints the choice.
+    Returns the backend."""
+    backend, dev = party_backend(world, device)
+    if backend == "nccl":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(NCCL_GROUP if backend == "nccl" else backend,
+                            init_method=init_method, rank=rank,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
     if rank == 0:
-        print(f"party group: {world} ranks, backend {backend} "
-              f"({torch.cuda.device_count() if torch.cuda.is_available() else 0}"
-              f" GPUs visible, device {resolve_device(device)})", flush=True)
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        where = ("cuda:LOCAL_RANK, one card a rank" if backend == "nccl"
+                 else dev)
+        print(f"party group: {world} ranks, backend {backend} ({n} GPUs "
+              f"visible, device {where})", flush=True)
     return backend
 
 
@@ -107,15 +140,17 @@ def make_party_group(n: int | None = None, *,
     if n > world:
         raise ValueError(f"a party group of {n} ranks in a world of "
                          f"{world}")
-    backend = dist.get_backend()
+    backend = _backend_name()
     pg = None
     if n < world:
         pg = dist.new_group(list(range(n)),
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
     if rank >= n:
         return None
-    return PartyGroup(rank=rank, size=n, pg=pg,
-                      device=_rank_device(backend, device), backend=backend)
+    group = PartyGroup(rank=rank, size=n, pg=pg,
+                       device=_rank_device(backend, device), backend=backend)
+    group.warm()
+    return group
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +246,16 @@ class MeshGroup(AbstractMesh):
                         ranks, timeout=datetime.timedelta(seconds=TIMEOUT_S))
                     if self.rank in ranks:
                         self.groups[axes] = g
+        self.warm()
+
+    def warm(self) -> None:
+        """One small all-reduce over every group of this rank, in the
+        order every rank made them (so no two ranks wait on each other
+        crosswise): each NCCL communicator is built here, not inside the
+        first timed collective."""
+        x = torch.zeros(1, device=self.device)
+        for axes in self.groups:
+            self.all_reduce(x, axes)
 
     def _staged(self, x: torch.Tensor) -> bool:
         return self.backend == "gloo" and x.is_cuda
@@ -353,7 +398,7 @@ def make_debug_mesh(data: int = 2, model: int = 2, *,
                 "mesh.spawn_ranks)")
         init_group(int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]),
                    device)
-    backend = dist.get_backend()
+    backend = _backend_name()
     return MeshGroup((data, model), ("data", "model"),
                      _rank_device(backend, device), backend)
 
@@ -404,6 +449,9 @@ def _rank_main(fn, rank, n, init_method, device, threads, args_conn, conn):
     args_conn.close()
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(n),
                       LOCAL_RANK=str(rank))
+    # the ranks share one host: NCCL's bootstrap over the loopback device
+    # (its default skips it, and the host may have no other)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     if threads:
         torch.set_num_threads(threads)
     try:

@@ -63,6 +63,14 @@ TRAIN_CASES = (
     ("whisper", "whisper-small", {"vocab_size": 510}, "sgd", "tp", False),
     ("qwen2.5-3b-dots", "qwen2.5-3b", {"remat": "dots"}, "sgd", "tp",
      False),
+    # the vision model as it trains at full width on four cards: M-RoPE
+    # and the patch insert (8 patch embeddings over the first positions of
+    # each row, ``vision_embed`` in the batch, one row a rank) under adam +
+    # ZeRO-1 and "zero3", widened as the zero3 case so that leaves reach
+    # the 2^20 floor, remat="full"
+    ("qwen2-vl-zero3", "qwen2-vl-7b", {"vocab_size": 4096, "d_ff": 2048,
+                                       "remat": "full"},
+     "adam", "zero3", True),
 )
 # the train cases whose replicated leaves' gradients are held against the
 # one process's: each feeds a rank's block of a split product (the router,
@@ -144,6 +152,14 @@ def audio(cfg, rows=B, seed=5):
         (rows, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
 
 
+def patches(cfg, rows=B, seed=6):
+    """A vision model's patch embeddings (rows, n_vision_tokens, d),
+    float32."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (rows, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32))
+
+
 def train_batch(cfg, seed=1):
     rng = np.random.default_rng(seed)
     out = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S),
@@ -151,6 +167,8 @@ def train_batch(cfg, seed=1):
            for k in ("tokens", "labels")}
     if cfg.family == "encdec":
         out["audio_embed"] = audio(cfg)
+    if cfg.family == "vlm":
+        out["vision_embed"] = patches(cfg)
     return out
 
 

@@ -1173,7 +1173,8 @@ def test_cuda_chunked_lm_head_xent_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the sharded engine: two ranks on one card over gloo
+# the sharded engine: two ranks on one card over gloo (on a machine with
+# two cards or more, a card each over NCCL: launch/mesh.py's rule)
 # ---------------------------------------------------------------------------
 
 SHARDED_CASES = tuple((C, mode) for C in (4, 8) for mode in ("float", "int8"))
@@ -1295,7 +1296,8 @@ def test_cuda_decode_attention_rounds_by_party_batch(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the FSDP plan's materialize: two ranks on one card over gloo
+# the FSDP plan's materialize: two ranks on one card over gloo (or a card
+# each over NCCL, as above)
 # ---------------------------------------------------------------------------
 
 # (whole shape, spec, stack index): a leaf over "data", one replicated,
@@ -1728,3 +1730,102 @@ def test_cuda_split_moe_matches_the_whole_layer(cuda, moe_tp_ranks, mode,
         if not seq:
             assert torch.equal(y, outs[0][0])
         np.testing.assert_allclose(aux, float(want_aux), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the NCCL group: one card a rank
+# ---------------------------------------------------------------------------
+
+NCCL_DTYPES = ("float32", "bfloat16")
+
+
+def _nccl_operands(rank, dtype, n=2):
+    """Rank ``rank``'s operand (n * 4, 6), the same bits on every device."""
+    g = torch.Generator().manual_seed(100 + rank)
+    return torch.randn((n * 4, 6), generator=g).to(_TDT[dtype])
+
+
+def _collectives_on_cards():
+    """Rank side: MeshGroup's four collectives over its 2-rank "model"
+    axis and PartyGroup's, each on this rank's card (NCCL) and on the
+    host (the NCCL group's gloo half) on the same operands; (rank,
+    backend, device, {(dtype, call, where): float32 numpy}, the gathered
+    host objects)."""
+    from repro_torch.launch import mesh
+    m = mesh.make_debug_mesh(1, 2, device="cuda")
+    grp = mesh.make_party_group(device="cuda")
+    out = {}
+    for dtype in NCCL_DTYPES:
+        x = _nccl_operands(m.rank, dtype)
+        for where in ("cuda", "cpu"):
+            xw = x.to(m.device if where == "cuda" else "cpu")
+            calls = {
+                "mesh all_gather": m.all_gather(xw, "model", dim=1),
+                "mesh reduce_scatter": m.reduce_scatter(xw, "model"),
+                "mesh all_reduce sum": m.all_reduce(xw, "model"),
+                "mesh all_reduce max": m.all_reduce(xw, "model", "max"),
+                "mesh broadcast": m.broadcast(xw.clone(), "model", 1),
+                "party all_gather": grp.all_gather(xw),
+                "party all_reduce sum": grp.all_reduce(xw.clone()),
+                "party broadcast": grp.broadcast(xw.clone(), 1)}
+            for call, y in calls.items():
+                assert y.device == xw.device, (call, y.device)
+                out[(dtype, call, where)] = y.float().cpu().numpy()
+    objs = grp.gather_object({"rank": grp.rank, "rows": list(grp.rows(4)),
+                              "a": np.arange(grp.rank + 3)})
+    return m.rank, m.backend, str(m.device), grp.backend, out, objs
+
+
+@pytest.fixture(scope="module")
+def nccl_ranks(tmp_path_factory):
+    """Both ranks' results of one spawn of 2 ranks, one card each."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices (an NCCL rank a card)")
+    from repro_torch.launch import mesh
+    return mesh.spawn_ranks(_collectives_on_cards, 2,
+                            store_dir=str(tmp_path_factory.mktemp("nccl")),
+                            device="cuda", timeout_s=180)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", NCCL_DTYPES)
+def test_cuda_nccl_collectives_match_gloo(nccl_ranks, dtype):
+    """Two ranks on two cards take NCCL (the rule: at least as many cards
+    as ranks), each on cuda:<rank>. MeshGroup's and PartyGroup's
+    collectives on the cards (NCCL) against the same calls on host
+    tensors (the group's gloo half) and against the operands: gathers
+    and broadcasts bit for bit, max bit for bit, sums within the order
+    bound of n - 1 additions, one ulp of the dtype (2^-23 float32, 2^-7
+    bfloat16) times the sum of |operands| each; gather_object's host
+    pickles reach rank 0."""
+    eps = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7}[dtype]
+    xs = [_nccl_operands(r, dtype).float().numpy() for r in range(2)]
+    bound = eps * (np.abs(xs[0]) + np.abs(xs[1]))
+    want = {"mesh all_gather": np.concatenate(xs, 1),
+            "mesh reduce_scatter": None, "mesh all_reduce sum": None,
+            "mesh all_reduce max": np.maximum(*xs),
+            "mesh broadcast": xs[1], "party all_gather": np.concatenate(xs),
+            "party all_reduce sum": None, "party broadcast": xs[1]}
+    for rank, backend, device, pbackend, out, objs in nccl_ranks:
+        assert (backend, pbackend, device) == ("nccl", "nccl",
+                                               f"cuda:{rank}")
+        for call, w in want.items():
+            got, host = out[(dtype, call, "cuda")], out[(dtype, call, "cpu")]
+            if "sum" in call or "scatter" in call:
+                b = bound if "scatter" not in call else np.split(
+                    bound, 2)[rank]
+                exact = xs[0] + xs[1]
+                if "scatter" in call:
+                    exact = np.split(exact, 2)[rank]
+                assert np.all(np.abs(got - host) <= b), call
+                assert np.all(np.abs(got - exact) <= b), call
+            else:
+                np.testing.assert_array_equal(got, host, err_msg=call)
+                np.testing.assert_array_equal(got, w, err_msg=call)
+        if rank == 0:
+            assert [o["rank"] for o in objs] == [0, 1]
+            assert [o["rows"] for o in objs] == [[0, 1], [2, 3]]
+            assert all(np.array_equal(o["a"], np.arange(r + 3))
+                       for r, o in enumerate(objs))
+        else:
+            assert objs is None

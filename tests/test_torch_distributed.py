@@ -19,7 +19,9 @@ weights (the port's, seed 0, handed over as numpy) and batches.
     tokens (so the global capacity, the slots after the lower ranks'
     tokens and the global load-balance statistics are held), adam +
     ZeRO-1 under "zero3" on qwen2.5-3b widened to vocab 4096 / d_ff 2048
-    (at smoke size no leaf reaches _add_fsdp's 2^20-element floor), and
+    (at smoke size no leaf reaches _add_fsdp's 2^20-element floor), the
+    same on qwen2-vl-7b with 8 patch embeddings in the batch (M-RoPE and
+    the patch insert under the plan, one row a rank), and
     qwen2.5-3b with one kv head (both model ranks' q heads read it) and
     with 3 q heads (the split would cut a head: the attention gathered),
     qwen2-moe-a2.7b with its shared expert split by expert and, at 3
